@@ -4,8 +4,9 @@
   python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. card name and power limit (nvidia-smi); build of every kernel of the
-     path from csrc/ with nvcc, timed.
+  1. card name and power limit (nvidia-smi); build of every kernel of both
+     paths from csrc/ with nvcc (one nvcc per source, started together),
+     timed, with the `-Xptxas -v` resource lines.
   2. kernels: the fused bulge kernel (ops/bulge.py, csrc/bulge.cu) against
      its plain PyTorch version on the card (cuDNN with TF32 off), at the
      gray-3 serve shapes x (1,16,256,256), (4,16,1024,1024) and
@@ -22,7 +23,29 @@ Phases, each fatal on failure:
      256x256 requests; every response is held against the plain-version
      generator's output on the card, and /healthz must show the kernels'
      launch counts move from 0.
-  5. a {"kernels": [...]} line, then the contract line
+  5. kernel: the fused preprocess (ops/preprocess.py, csrc/preprocess.cu)
+     against its plain PyTorch version on the card at the trainer's shapes
+     (100,1,64,64) flags off, (100,3,64,64) gray+pm1 and pm1 only,
+     (1280,1,8,8), the ragged (3,3,50,38), and a bandwidth probe
+     (8,3,2048,2048) gray+pm1 that is no path shape.  Times per call for
+     the kernel, the plain version and the avg_pool2d composition.
+  6. the training step, kernel against plain: from one initial state (seed
+     0) and the same two batches, two gray-3 steps at full width (ngf 8,
+     ndf 64, batch 100) through build_train_step(cfg) and two through the
+     same step with preprocess_plain; the preprocess launch count must move
+     by exactly 2, then by 0.
+  7. path: `python -m dcgan_sr_tpu_torch.cli --config gray-3 --synthetic
+     --steps 6 --scan 2 --epochs 1 --seed 1 --checkpoint-dir <tmp>` as a
+     user starts it, at full width: finite losses on reference-shaped log
+     lines, 6 preprocess launches on its last line, both checkpoints
+     written, the G file loaded through load_generator and used to upscale
+     one image, and `--resume` continuing at epoch 2.
+  8. where a step's time goes: CUDA events after each stage of the step
+     (2 warm-up steps, then 10 queued without waiting in between), the whole
+     step in ms and images/s, the host's time to queue a step, peak
+     device memory, the same with torch.backends.cudnn.benchmark on, and
+     the training generator's forward layer by layer.
+  9. a {"kernels": [...]} line, then the contract line
      {"ok": true, "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
@@ -31,12 +54,23 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
                                   fused and cuDNN sums run in different orders
   served PNG bytes                1 level of 255: an fp32 difference of a few
                                   ulp can move a pixel across a rounding edge
+  preprocess hr, lr               0: the kernel sums in the plain version's
+                                  order and contracts nothing into an FMA
+  step, kernel vs plain           hr and lr are bit-equal, but cuDNN's
+                                  backward sums atomically, and Adam's first
+                                  steps are sign-like: losses rtol 1e-4
+                                  (step 1) and rtol 2e-3 / atol 2e-4 (step
+                                  2); every updated leaf max |diff| <
+                                  2 * 2.1 * lr with at most max(8, 5%) of its
+                                  elements off by more than 5e-5
+                                  (tests/test_torch_train_step.py)
 """
 
 import http.client
 import io
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -376,6 +410,301 @@ def serve_phase(cfg, parity, ref_service, log):
             proc.wait()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the preprocess kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (shape, rgb_to_gray, to_pm1, is a shape of the training path)
+PRE_CASES = [((100, 1, 64, 64), False, False, True),
+             ((100, 3, 64, 64), True, True, True),
+             ((100, 3, 64, 64), False, True, True),
+             ((1280, 1, 8, 8), False, False, True),
+             ((3, 3, 50, 38), True, True, False),
+             ((8, 3, 2048, 2048), True, True, False)]
+
+
+def preprocess_phase():
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst, rows = 0.0, []
+    for shape, gray, pm1, on_path in PRE_CASES:
+        x = torch.rand(shape, generator=gen, device=dev)
+        n0 = P.launches["preprocess"]
+        hr, lr = P.preprocess(x, rgb_to_gray=gray, to_pm1=pm1)
+        check(P.launches["preprocess"] == n0 + 1, "launch count did not move")
+        hp, lp = P.preprocess_plain(x, rgb_to_gray=gray, to_pm1=pm1)
+        torch.cuda.synchronize()
+        check(hr.shape == hp.shape and lr.shape == lp.shape,
+              f"preprocess shapes {tuple(hr.shape)} {tuple(lr.shape)}")
+        check(bool(torch.isfinite(hr).all() and torch.isfinite(lr).all()),
+              f"non-finite preprocess output {shape}")
+        e_hr = (hr - hp).abs().max().item()
+        e_lr = (lr - lp).abs().max().item()
+        worst = max(worst, e_hr, e_lr)
+        check(e_hr == 0.0 and e_lr == 0.0, f"preprocess kernel differs from "
+              f"its plain version at {shape} gray={gray} pm1={pm1}: "
+              f"hr {e_hr:.3e} lr {e_lr:.3e}")
+
+        def library():
+            y = x
+            if gray:
+                y = 0.21 * y[:, 0:1] + 0.72 * y[:, 1:2] + 0.07 * y[:, 2:3]
+            if pm1:
+                y = y * 2.0 - 1.0
+            if y is x:
+                y = x.clone()         # hr is an output: written once
+            return y, F.avg_pool2d(y, 2)
+
+        iters = 10 if x.numel() > 1 << 24 else 200
+        n_in, n_hr, n_lr = x.numel(), hr.numel(), lr.numel()
+        flops = n_hr * ((5 if gray else 0) + (2 if pm1 else 0)) + 4 * n_lr
+        b_ms, b_by = bound(flops, 4 * (n_in + n_hr + n_lr))
+        r = {"shape": list(shape), "gray": gray, "pm1": pm1,
+             "on_path": on_path, "max_abs_err": max(e_hr, e_lr),
+             "ms": time_ms(lambda: P.preprocess(
+                 x, rgb_to_gray=gray, to_pm1=pm1), iters),
+             "plain_ms": time_ms(lambda: P.preprocess_plain(
+                 x, rgb_to_gray=gray, to_pm1=pm1), iters),
+             "library_ms": time_ms(library, iters),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "GB_per_s": None}
+        r["GB_per_s"] = 4 * (n_in + n_hr + n_lr) / (r["ms"] * 1e-3) / 1e9
+        print("preprocess " + json.dumps(
+            {k: (round(v, 5) if isinstance(v, float) else v)
+             for k, v in r.items()}), flush=True)
+        rows.append(r)
+        del x, hr, lr, hp, lp
+        torch.cuda.empty_cache()
+    return worst, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training step, kernel against plain
+# ---------------------------------------------------------------------------
+
+def _batches(cfg, n, device):
+    """n consecutive trainer batches of the procedural source, on the card."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.data.synthetic import SyntheticImages
+    src = SyntheticImages(cfg.fineSize, nc=cfg.nc, seed=1234)
+    return [torch.from_numpy(np.ascontiguousarray(
+        src.load_batch(i, cfg.batchSize))).to(device) for i in range(n)]
+
+
+def step_phase(cfg):
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+    from dcgan_sr_tpu_torch.train.step import (build_train_step,
+                                               init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    dev = torch.device("cuda")
+    st = init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    twin = state_from_numpy(cfg, state_to_numpy(st), device=dev)
+    batches = _batches(cfg, 2, dev)
+    check(tuple(batches[0].shape) == (100, 1, 64, 64),
+          f"trainer batch is {tuple(batches[0].shape)}")
+    runs = []
+    for state, fn, moves in ((st, P.preprocess, 2), (twin, P.preprocess_plain, 0)):
+        step = build_train_step(cfg, preprocess_fn=fn)
+        n0 = P.launches["preprocess"]
+        losses = []
+        for hr in batches:
+            _, m = step(state, hr)
+            losses.append({k: v.item() for k, v in m.items()})
+        torch.cuda.synchronize()
+        check(P.launches["preprocess"] - n0 == moves,
+              f"preprocess launches moved by {P.launches['preprocess'] - n0}, "
+              f"expected {moves}")
+        runs.append(losses)
+    for it, (a, b) in enumerate(zip(*runs)):
+        tol = (1e-4, 0.0) if it == 0 else (2e-3, 2e-4)
+        for k in a:
+            check(np.isfinite(a[k]) and np.isfinite(b[k]), f"{k} not finite")
+            check(abs(a[k] - b[k]) <= tol[1] + tol[0] * abs(b[k]),
+                  f"step {it + 1} {k}: kernel {a[k]} vs plain {b[k]}")
+    worst, flips = 0.0, 0
+    ta, tb = state_to_numpy(st), state_to_numpy(twin)
+    for field in ("g_params", "d_params"):
+        for la, lb in zip(ta[field], tb[field]):
+            for key in la:
+                diff = np.abs(la[key] - lb[key])
+                worst = max(worst, float(diff.max()))
+                off = int((diff > 5e-5).sum())
+                flips += off
+                check(diff.max() < 2 * 2.1 * cfg.lr and
+                      off <= max(8, 0.05 * diff.size),
+                      f"{field} {key}: max diff {diff.max():.3e}, {off} of "
+                      f"{diff.size} off")
+    check(st.g_opt["t"] == twin.g_opt["t"] == 2, "Adam step counts")
+    print(f"step kernel-vs-plain: losses {json.dumps(runs[0])}; plain "
+          f"{json.dumps(runs[1])}; max leaf diff {worst:.3e}, {flips} elements "
+          f"off by more than 5e-5", flush=True)
+    return st
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the trainer as users start it
+# ---------------------------------------------------------------------------
+
+LOG_LINE = re.compile(
+    r"^Epoch: \[(\d+)\]\[ *(\d+) / *(\d+)\]\t Time: [\d.]+  DataTime: [\d.]+  "
+    r"  Err_G: ([\d.eE+-]+|nan|inf)  Err_D: ([\d.eE+-]+|nan|inf)$")
+# variables the config reads as overrides: a stray one would change the width
+CONFIG_ENV = ("batchSize", "ngf", "ndf", "ntrain", "niter", "name", "lr",
+              "fineSize", "loadSize", "nThreads")
+
+
+def _trainer(args):
+    env = {k: v for k, v in os.environ.items() if k not in CONFIG_ENV}
+    cmd = [sys.executable, "-m", "dcgan_sr_tpu_torch.cli", *args]
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        sys.stderr.write(r.stdout[-4000:] + r.stderr[-8000:])
+    check(r.returncode == 0, f"{' '.join(cmd)} exited with {r.returncode}")
+    return r.stdout.splitlines()
+
+
+def trainer_phase(cfg):
+    import math
+
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.infer.tiled import make_full_sr_fn
+    from dcgan_sr_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                     load_generator)
+
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        lines = _trainer(["--config", "gray-3", "--synthetic", "--steps", "6",
+                          "--scan", "2", "--epochs", "1", "--seed", "1",
+                          "--checkpoint-dir", ck])
+        wall = time.perf_counter() - t0
+        check("ngf=8" in lines[0] and "ndf=64" in lines[0]
+              and "batchSize=100" in lines[0], f"not full width: {lines[0]}")
+        steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
+        check(len(steps) == 3 and all(steps), f"log lines: {lines}")
+        check([m.group(2) for m in steps] == ["1", "3", "5"]
+              and all(m.group(1) == "1" and m.group(3) == "6" for m in steps),
+              "log lines are not the ends of three 2-step chunks of 6")
+        vals = [float(m.group(i)) for m in steps for i in (4, 5)]
+        check(len(vals) == 6 and all(math.isfinite(v) for v in vals),
+              f"Err_G/Err_D not finite: {vals}")
+        check(lines[-1].startswith("kernel launches: "), lines[-1])
+        counts = json.loads(lines[-1][len("kernel launches: "):])
+        check(counts["preprocess"] == 6, f"trainer launched {counts}")
+        for net in "GD":
+            check(os.path.isfile(checkpoint_path(ck, cfg.name, 1, net)),
+                  f"no epoch-1 checkpoint of net {net}")
+        for l in lines[1:]:
+            print("trainer| " + l, flush=True)
+        print(f"trainer: 6 steps of batch 100 in {wall:.1f}s of process time "
+              f"(start, build reuse, init, data, steps, checkpoints)",
+              flush=True)
+
+        # the trained G serves: load as the server does, upscale one image
+        net, _ = load_generator(cfg, checkpoint_path(ck, cfg.name, 1, "G"),
+                                need_state=True, device="cuda")
+        lr = torch.rand((1, 1, 48, 40), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+        fake = make_full_sr_fn(net, lr_input=True)(lr)
+        torch.cuda.synchronize()
+        check(tuple(fake.shape) == (1, 1, 96, 80)
+              and bool(torch.isfinite(fake).all())
+              and 0.0 <= fake.min().item() and fake.max().item() <= 1.0,
+              f"upscale from the trained G: {tuple(fake.shape)}")
+
+        lines = _trainer(["--config", "gray-3", "--synthetic", "--steps", "2",
+                          "--epochs", "2", "--seed", "1", "--checkpoint-dir",
+                          ck, "--resume"])
+        check("resumed from epoch 1" in lines, "did not resume")
+        steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
+        check(len(steps) == 2 and all(m and m.group(1) == "2" for m in steps),
+              "resume did not start at epoch 2")
+        check(os.path.isfile(checkpoint_path(ck, cfg.name, 2, "G")),
+              "no epoch-2 checkpoint after resume")
+        with np.load(checkpoint_path(ck, cfg.name, 2, "G")) as data:
+            check(int(data["_opt_/_t_"]) == 8, "Adam step count after resume")
+        return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: where a step's time goes
+# ---------------------------------------------------------------------------
+
+STAGES = ("preprocess", "g_forward", "d_real_forward_backward",
+          "d_fake_forward", "d_fake_pullbacks", "g_backward", "adam_updates")
+
+
+def step_breakdown(cfg, state, smi, warm=2, iters=10):
+    """Device time of each stage of the step, from CUDA events the step
+    records as it queues each stage.  The host queues all `iters` steps
+    without waiting (as the trainer does between two log lines), so a
+    stage's time is the device's, not the host's time to enqueue it; the
+    step's own time is the wall clock over the steps, ending in a
+    synchronize."""
+    import torch
+
+    from dcgan_sr_tpu_torch.train.step import build_train_step
+
+    dev = torch.device("cuda")
+    step = build_train_step(cfg)
+    batches = _batches(cfg, 4, dev)
+    out = {}
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            for i in range(warm):
+                step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = []
+
+            def mark(name):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks.append((name, e))
+
+            t0 = time.perf_counter()
+            for i in range(iters):
+                mark("start")
+                step(state, batches[i % len(batches)], mark=mark)
+            queued = (time.perf_counter() - t0) / iters * 1e3
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters * 1e3
+        finally:
+            torch.backends.cudnn.benchmark = False
+        check([n for n, _ in marks] == (["start"] + list(STAGES)) * iters,
+              f"stages {[n for n, _ in marks[:len(STAGES) + 1]]}")
+        acc = dict.fromkeys(STAGES, 0.0)
+        for (_, e0), (name, e1) in zip(marks, marks[1:]):
+            if name != "start":
+                acc[name] += e0.elapsed_time(e1)
+        r = {k: round(v / iters, 4) for k, v in acc.items()}
+        r["stages_sum_ms"] = round(sum(acc.values()) / iters, 4)
+        r["host_queue_ms"] = round(queued, 4)
+        r["step_ms"] = round(wall, 4)
+        r["images_per_s"] = round(cfg.batchSize / (wall / 1e3), 2)
+        r["peak_memory_GB"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        print(f"step breakdown, batch {cfg.batchSize}, cudnn.benchmark="
+              f"{bench} (ms, mean of {iters}) on {smi}: " + json.dumps(r),
+              flush=True)
+        out[bench] = r
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -387,6 +716,7 @@ def main():
     from dcgan_sr_tpu_torch.core import get_config
     from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
     from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import preprocess as P
     from dcgan_sr_tpu_torch.serve import SRService
     from dcgan_sr_tpu_torch.train.checkpoint import load_branch
 
@@ -398,9 +728,27 @@ def main():
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
-    K.build()
-    print(f"build: csrc/bulge.cu in {time.perf_counter() - t0:.1f}s", flush=True)
-    print(K.build_log.strip(), flush=True)
+    took, failed = {}, []
+
+    def build(mod, name):
+        try:
+            mod.build()
+            took[name] = time.perf_counter() - t0
+        except Exception as e:      # re-raised below, on the main thread
+            failed.append(e)
+
+    threads = [threading.Thread(target=build, args=(mod, name))
+                for mod, name in ((K, "bulge"), (P, "preprocess"))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if failed:
+        raise failed[0]
+    for mod, name in ((K, "bulge"), (P, "preprocess")):
+        print(f"build: csrc/{name}.cu done {took[name]:.1f}s after both "
+              f"nvcc runs started", flush=True)
+        print(mod.build_log.strip(), flush=True)
 
     cfg = get_config("gray-3", env_override=False)
     spec = generator_spec(cfg)
@@ -451,7 +799,32 @@ def main():
               f"{0.512 * 0.512 / (p50 / 1e3):.2f} MP/s out, on {smi}",
               flush=True)
 
-    # phase 5
+    del plain
+    torch.cuda.empty_cache()
+
+    # phases 5-8: the training path
+    pre_err, pre_rows = preprocess_phase()
+    state = step_phase(cfg)
+    trainer_counts = trainer_phase(cfg)
+    check(trainer_counts["preprocess"] > 0,
+          "the preprocess kernel was not launched on the trained path")
+    breakdown = step_breakdown(cfg, state, smi)
+    x = torch.rand((100, 1, 32, 32), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(2))
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            fwd = forward_breakdown(state.g, x, "pooled")
+        finally:
+            torch.backends.cudnn.benchmark = False
+        print(f"training G forward, batch 100 LR 32x32, unfused, "
+              f"cudnn.benchmark={bench} (ms): " + json.dumps(fwd), flush=True)
+    print(f"train step, gray-3 full width, batch 100: "
+          f"{breakdown[False]['step_ms']} ms, "
+          f"{breakdown[False]['images_per_s']} images/s, peak "
+          f"{breakdown[False]['peak_memory_GB']} GB, on {smi}", flush=True)
+
+    # phase 9
     shape, r = rows[-1]
     kernels = []
     for name, line, key, plain_key, lib_key in (
@@ -466,6 +839,15 @@ def main():
             "bound_ms": r[f"{key}_bound"][0],
             "bound_by": r[f"{key}_bound"][1],
             "library_ms": r[lib_key], "shape": list(shape)})
+    r = pre_rows[0]       # the trainer's own call: (100, 1, 64, 64), flags off
+    kernels.append({
+        "name": "preprocess", "route": "cuda",
+        "source": "dcgan_sr_tpu_torch/csrc/preprocess.cu",
+        "replaces": "dcgan_sr_tpu/ops/pallas_kernels.py:64",
+        "launches": trainer_counts["preprocess"], "max_abs_err": pre_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,13 +6,21 @@ module layout mirrors the JAX package so each counterpart is easy to find:
 
   core/config.py       named variants + env overrides (a copy)
   models/specs.py      generator/discriminator specs (a copy)
-  models/network.py    spec-driven nn.Module generator
+  models/network.py    spec-driven nn.Module network (serving and training)
   ops/nn.py, init.py   conv / convT / BN / activations, weight init
+  ops/adam.py          Torch7 Adam as one foreach update
   ops/bulge.py         fused convT+BN+ReLU+conv (kernel: csrc/bulge.cu)
-  train/checkpoint.py  npz checkpoint reading, key for key with the JAX files
-  image/, metrics/     box downsample, bilinear control, PNG I/O, PSNR
+  ops/preprocess.py    fused gray/normalize/degrade (kernel: csrc/preprocess.cu)
+  ops/_build.py        nvcc + ctypes loader the kernel wrappers share
+  losses/schemes.py    criteria and the label schemes
+  train/step.py        the GAN train step, TrainState and its numpy form
+  train/multi_step.py, loop.py   K steps per call, the epoch loop
+  train/checkpoint.py  npz checkpoints, key for key with the JAX files
+  data/synthetic.py    the procedural image source
+  image/, metrics/     box downsample, bilinear control, PNG I/O, PSNR, MSEs
   infer/tiled.py       full-image SR
-  upscale.py, serve.py entry points (python -m dcgan_sr_tpu_torch.serve ...)
+  utils/               device choice, timers, the reference log line
+  upscale.py, serve.py, cli.py   entry points (python -m dcgan_sr_tpu_torch.cli ...)
 """
 
 __version__ = "0.1.0"

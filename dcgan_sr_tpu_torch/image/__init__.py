@@ -1,1 +1,2 @@
-from .ops import box_downsample2, resize_bilinear, rgb2gray  # noqa: F401
+from .ops import (box_downsample2, normalize_pm1,  # noqa: F401
+                  resize_bilinear, rgb2gray)

@@ -1,5 +1,5 @@
 """Image ops with torch7-`image` semantics (port of dcgan_sr_tpu/image/ops.py,
-the parts full-image SR and its PSNR lines use).
+the parts full-image SR, its PSNR lines and the training step use).
 
   - box_downsample2: lr[i,j] = mean of the 2x2 HR block (train.lua:226-230) —
     the degradation model that defines the SR task.
@@ -29,6 +29,11 @@ def rgb2gray(x):
     """Reference weights .21/.72/.07 over the channel axis (-3)."""
     r, g, b = x[..., 0, :, :], x[..., 1, :, :], x[..., 2, :, :]
     return 0.21 * r + 0.72 * g + 0.07 * b
+
+
+def normalize_pm1(x):
+    """[0,1] -> [-1,1] (`out:mul(2):add(-1)`, donkey_folder.lua:68)."""
+    return x * 2.0 - 1.0
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,1 +1,2 @@
-from .psnr_ssim import cal_psnr, cal_psnr_batch  # noqa: F401
+from .psnr_ssim import (cal_mse_hw, cal_mse_quarter, cal_psnr,  # noqa: F401
+                        cal_psnr_batch)

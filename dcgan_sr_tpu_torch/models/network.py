@@ -1,4 +1,4 @@
-"""Spec-driven generator as an nn.Module (port of dcgan_sr_tpu/models/network.py).
+"""Spec-driven network as an nn.Module (port of dcgan_sr_tpu/models/network.py).
 
 A network is a tuple of layer dicts (models/specs.py).  The module keeps one
 child per spec entry, so layer i's tensors are `layers.<i>.w`,
@@ -17,7 +17,17 @@ BN statistics (`bn_stats` of forward):
   "pooled"     train mode over the batch given (apply_network train=True);
   "per_image"  train mode over each image alone (make_full_sr_fn's vmap);
   "running"    eval mode with the running statistics (bn_eval).
-Forward never updates the running statistics: this module serves.
+
+Serving builds the module with its defaults: frozen parameters, the fused
+pair, and a forward that never touches the running statistics.  Training
+(train/step.py) builds it with `trainable=True` (parameters require grad)
+and `fuse=False` (the fused kernel has no backward, so layers 3-4 run
+unfused under autograd), and calls forward with `track_stats=True`: each BN
+layer then also moves its running statistics, in place, by the batch it has
+just seen (momentum 0.1, unbiased variance) — the JAX package's threaded
+`new_state`, so two forwards in a row (D on real, then on fake) update in
+that order.  `logits=True` leaves out a Sigmoid head, for the BCE variants
+whose sigmoid is folded into the loss.
 """
 
 from __future__ import annotations
@@ -90,18 +100,22 @@ class Layer(nn.Module):
     """One spec entry; conv layers own `w` and, with BN, its scale/bias
     parameters and running-stat buffers."""
 
-    def __init__(self, layer, p, s, device):
+    def __init__(self, layer, p, s, device, trainable=False):
         super().__init__()
         self.spec = layer
-        as_t = lambda a: torch.from_numpy(  # noqa: E731  (a copy)
-            np.array(a, dtype=np.float32)).to(device)
+
+        def as_t(a):                # always a copy, float32, on `device`
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a, dtype=np.float32))
+            return a.detach().to(device=device, dtype=torch.float32, copy=True)
+
         if layer["kind"] in ("conv", "convT"):
-            self.w = nn.Parameter(as_t(p["w"]), requires_grad=False)
+            self.w = nn.Parameter(as_t(p["w"]), requires_grad=trainable)
             if layer.get("bn"):
                 self.bn_scale = nn.Parameter(as_t(p["bn_scale"]),
-                                             requires_grad=False)
+                                             requires_grad=trainable)
                 self.bn_bias = nn.Parameter(as_t(p["bn_bias"]),
-                                            requires_grad=False)
+                                            requires_grad=trainable)
                 self.register_buffer("bn_mean", as_t(s["bn"]["mean"]))
                 self.register_buffer("bn_var", as_t(s["bn"]["var"]))
 
@@ -111,23 +125,28 @@ class Layer(nn.Module):
             return N.conv2d(x, self.w, sp["s"], sp["p"])
         return N.conv_transpose2d(x, self.w, sp["s"], sp["p"])
 
-    def post(self, x, bn_stats):
+    def post(self, x, bn_stats, track_stats=False, logits=False):
         """BN (if any) and the activation that follow this layer's conv."""
         if self.spec.get("bn"):
-            x, _ = N.batch_norm(
+            x, new = N.batch_norm(
                 x, self.bn_scale, self.bn_bias,
                 state={"mean": self.bn_mean, "var": self.bn_var},
                 train=bn_stats != "running", per_image=bn_stats == "per_image")
-        return _ACTS[self.spec.get("act")](x)
+            if track_stats and bn_stats == "pooled":
+                # in place: no backward reads the running statistics
+                self.bn_mean.copy_(new["mean"].detach())
+                self.bn_var.copy_(new["var"].detach())
+        act = self.spec.get("act")
+        return x if logits and act == "sigmoid" else _ACTS[act](x)
 
-    def forward(self, x, bn_stats):
+    def forward(self, x, bn_stats, track_stats=False, logits=False):
         kind = self.spec["kind"]
         if kind == "upsample":
             return N.upsample_nearest(x, self.spec["factor"])
         if kind == "flatten":
             return x.reshape(x.shape[0], -1)[:, 0]
         if kind in ("conv", "convT"):
-            return self.post(self.conv(x), bn_stats)
+            return self.post(self.conv(x), bn_stats, track_stats, logits)
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -137,12 +156,13 @@ class Network(nn.Module):
     buffers — from a checkpoint (train/checkpoint.py load_branch), from
     `init_network`, or from numpy arrays a test hands over."""
 
-    def __init__(self, spec, params, state, *, device="cuda", fuse=True):
+    def __init__(self, spec, params, state, *, device="cuda", fuse=True,
+                 trainable=False):
         super().__init__()
         self.spec = tuple(spec)
         self.layers = nn.ModuleList(
             Layer(layer, params[i], state[i] if state is not None else {},
-                  device)
+                  device, trainable)
             for i, layer in enumerate(self.spec))
         self.pairs = frozenset(bulge_pairs(self.spec)) if fuse else frozenset()
 
@@ -150,9 +170,25 @@ class Network(nn.Module):
     def device(self):
         return next(self.parameters()).device
 
-    def forward(self, x, bn_stats="pooled"):
+    def trees(self):
+        """(params, state) of this network in the JAX package's structure:
+        per layer {"w", "bn_scale", "bn_bias"} and {"bn": {"mean", "var"}},
+        holding the module's own tensors (not copies)."""
+        params, state = [], []
+        for layer in self.layers:
+            params.append(dict(layer.named_parameters(recurse=False)))
+            b = dict(layer.named_buffers(recurse=False))
+            state.append({"bn": {"mean": b["bn_mean"], "var": b["bn_var"]}}
+                         if b else {})
+        return params, state
+
+    def forward(self, x, bn_stats="pooled", *, track_stats=False,
+                logits=False):
         if bn_stats not in BN_STATS:
             raise ValueError(f"bn_stats must be one of {BN_STATS}")
+        if track_stats and self.pairs:
+            raise ValueError("track_stats needs fuse=False: the fused pair "
+                             "does not move its BN layer's running statistics")
         i = 0
         while i < len(self.layers):
             layer = self.layers[i]
@@ -163,9 +199,9 @@ class Network(nn.Module):
                     stats=bn_stats,
                     running=((layer.bn_mean, layer.bn_var)
                              if bn_stats == "running" else None))
-                x = nxt.post(x, bn_stats)
+                x = nxt.post(x, bn_stats, track_stats, logits)
                 i += 2
             else:
-                x = layer(x, bn_stats)
+                x = layer(x, bn_stats, track_stats, logits)
                 i += 1
         return x

@@ -24,23 +24,12 @@ Either way var is the biased E[h^2] - mean^2, as the JAX package computes it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
 from . import nn as N
-
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "bulge.cu")
-_BUILD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ._build import compile_and_load, stream_ptr as _stream
 
 STATS_MODES = ("pooled", "per_image", "running")
 
@@ -53,45 +42,14 @@ _lib_lock = threading.Lock()
 build_log = ""
 
 
-def _nvcc():
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the bulge kernel "
-                       "is built from csrc/bulge.cu at first use")
-
-
 def build():
-    """Compile csrc/bulge.cu (once per source content) and load it.
-
-    The library's name carries a hash of the source and the flags, so an
-    edited kernel rebuilds; two processes building at once are safe because
-    the finished file is moved into place atomically."""
+    """Compile csrc/bulge.cu (once per source content, ops/_build.py) and
+    load it."""
     global _lib, build_log
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        os.makedirs(_BUILD, exist_ok=True)
-        so = os.path.join(_BUILD, f"libbulge_{tag}.so")
-        if not os.path.exists(so):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-            os.close(fd)
-            try:
-                r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                                   capture_output=True, text=True)
-                build_log = r.stdout + r.stderr
-                if r.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {_SRC}:\n{build_log}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-        lib = ctypes.CDLL(so)
+        lib, build_log = compile_and_load("bulge")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.bulge_tile.argtypes, lib.bulge_tile.restype = [], i
         lib.bulge_supported.argtypes, lib.bulge_supported.restype = [i, i], i
@@ -146,10 +104,6 @@ def _check(x, wT, scale, bias, wC, stats, running):
     for t in [x, wT, wC] + vecs:
         if t.device != x.device:
             raise ValueError("all bulge inputs must be on one device")
-
-
-def _stream(x):
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def launch_stats(x, wT):

@@ -1,16 +1,20 @@
-"""Core NN ops with Torch7-`nn` semantics, forward only, in PyTorch.
+"""Core NN ops with Torch7-`nn` semantics in PyTorch, differentiable.
 
 Port of dcgan_sr_tpu/ops/nn.py.  Layouts are the reference's: activations
 NCHW, conv weight OIHW, conv-transpose weight IOHW, no biases anywhere
 (`m:noBias()`, train.lua:46).  The JAX package's custom VJPs work around
-XLA's transpose rules and have no counterpart here; autograd is the
-training slice's business.
+XLA's transpose rules and have no counterpart here: autograd differentiates
+these ops.
 
 fp32 parity: the JAX package runs fp32 convolutions at Precision.HIGHEST.
 cuDNN runs fp32 convolutions in TF32 by default on Hopper (about three
-decimal digits), so every convolution here runs inside `fp32_convs()`, which
-turns TF32 off for its duration.  Matrix products stay at PyTorch's default
-full-fp32 precision.
+decimal digits), forward and backward alike, and autograd runs the backward
+convolutions later, wherever the caller asks for gradients.  So `conv2d` and
+`conv_transpose2d` are one autograd function (`_Conv`) that turns TF32 off
+(`fp32_convs()`) around its forward call and again around its own backward
+call: gradients are full fp32 whether they are taken inside a training step,
+in a test, or anywhere else, with no flag for the caller to remember.
+Matrix products stay at PyTorch's default full-fp32 precision.
 """
 
 from __future__ import annotations
@@ -32,17 +36,41 @@ def fp32_convs():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class _Conv(torch.autograd.Function):
+    """conv2d / conv_transpose2d whose forward and backward both run with
+    TF32 off.  The backward is aten's own convolution_backward (the call
+    autograd would make), only inside `fp32_convs()`."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.geom = (stride, padding, transposed)
+        with fp32_convs():
+            if transposed:
+                return F.conv_transpose2d(x, w, stride=stride, padding=padding)
+            return F.conv2d(x, w, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed = ctx.geom
+        with fp32_convs():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                grad.contiguous(), x, w, None, [stride, stride],
+                [padding, padding], [1, 1], transposed, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
+
+
 def conv2d(x, w, stride=1, padding=0):
     """2D cross-correlation, NCHW x OIHW -> NCHW (SpatialConvolution)."""
-    with fp32_convs():
-        return F.conv2d(x, w, stride=stride, padding=padding)
+    return _Conv.apply(x, w, stride, padding, False)
 
 
 def conv_transpose2d(x, w, stride=2, padding=1):
     """Transposed conv (SpatialFullConvolution), weight (Cin, Cout, kH, kW);
     k4 s2 p1 is exactly 2x upsampling (train.lua:99)."""
-    with fp32_convs():
-        return F.conv_transpose2d(x, w, stride=stride, padding=padding)
+    return _Conv.apply(x, w, stride, padding, True)
 
 
 def batch_stats(x, per_image=False):

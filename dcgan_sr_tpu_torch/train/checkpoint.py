@@ -1,15 +1,16 @@
-"""Checkpoint reading, load side (port of dcgan_sr_tpu/train/checkpoint.py).
+"""Checkpoint / resume, npz backend (port of dcgan_sr_tpu/train/checkpoint.py).
 
 The JAX package saves each net as one .npz of flattened pytree leaves keyed
 by tree path: `_params_/_3_/_w_`, `_state_/_3_/_bn_/_mean_`, `_ema_/...`,
-`_opt_/...`.  The port reads the same files key for key.  A key is built
-from the path's elements as jax.tree_util prints them — a list index as
-"[3]", a dict key as "['w']" — through the same `_key` rule, so the two
-packages cannot drift apart on the format.
+`_opt_/_m_/...`, `_opt_/_t_`.  The port reads and writes the same files key
+for key.  A key is built from the path's elements as jax.tree_util prints
+them — a list index as "[3]", a dict key as "['w']" — through the same
+`_key` rule, so the two packages cannot drift apart on the format.
 """
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -21,6 +22,11 @@ def _key(path):
     """Npz key for a tree path — the ON-DISK checkpoint key format; every
     load site builds keys through this one helper."""
     return "/".join(_SAFE.sub("_", str(p)) for p in path)
+
+
+def checkpoint_path(directory, name, epoch, net):
+    # mirrors 'checkpoints/<name>_<epoch>_net_G.t7' naming
+    return os.path.join(directory, f"{name}_{epoch}_net_{net}.npz")
 
 
 def _leaf_paths(tree, prefix=()):
@@ -99,3 +105,85 @@ def load_generator(cfg, ckpt=None, *, ema=False, need_state=False,
                              "checkpoint with a 'state' branch")
     return (Network(spec, params, state, device=device),
             f"loaded checkpoint {ckpt}")
+
+
+def _net_trees(tree):
+    """Per-net branch dicts {"params", "state", "opt"[, "ema"]} of a
+    `state_to_numpy` tree."""
+    g = {"params": tree["g_params"], "state": tree["g_state"],
+         "opt": tree["g_opt"]}
+    if tree["g_ema_params"] is not None:
+        g["ema"] = tree["g_ema_params"]
+    d = {"params": tree["d_params"], "state": tree["d_state"],
+         "opt": tree["d_opt"]}
+    return (("G", g), ("D", d))
+
+
+def save_checkpoint(directory, name, epoch, state):
+    """Atomic per-net npz saves: each file is written to a same-directory
+    `.tmp` and `os.replace`d into place, so a process killed mid-save can
+    never leave a truncated `.npz`; at worst a stray `.tmp` remains, which
+    `latest_epoch` (anchored on `.npz$`) and every loader ignore."""
+    from .step import state_to_numpy
+
+    os.makedirs(directory, exist_ok=True)
+    for net, tree in _net_trees(state_to_numpy(state)):
+        path = checkpoint_path(directory, name, epoch, net)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, __branches__=np.array(sorted(tree)),
+                     **{_key(p): leaf for p, leaf in _leaf_paths(tree)})
+        os.replace(tmp, path)
+    return epoch
+
+
+def load_checkpoint(directory, name, epoch, template,
+                    seed_missing_ema=False):
+    """A new TrainState on the template's device, restored from the two
+    npz files into the (freshly initialized) template's structure.
+
+    If the template carries an EMA branch but the npz was saved without
+    one, the default is a clear error: callers that score the EMA branch
+    must not silently rank raw params labeled as EMA.  Resume call sites
+    pass seed_missing_ema=True to seed the EMA from the loaded params and
+    keep smoothing from there."""
+    from .step import state_from_trees, state_to_numpy
+
+    tmpl = state_to_numpy(template)
+    seed_ema = False
+    for net, tree in _net_trees(tmpl):
+        path = checkpoint_path(directory, name, epoch, net)
+        with np.load(path) as data:
+            if net == "G" and "ema" in tree and "ema" not in npz_branches(data):
+                if not seed_missing_ema:
+                    raise ValueError(
+                        f"checkpoint {path} has no EMA branch (saved without "
+                        "--g-ema); pass seed_missing_ema=True to seed the EMA "
+                        "from the loaded params (resume), or load/score the "
+                        "raw branch instead")
+                print("checkpoint has no EMA branch; seeding g_ema_params "
+                      "from the loaded generator params")
+                seed_ema = True
+            tag = net.lower()
+            for branch in ("params", "state"):
+                tmpl[f"{tag}_{branch}"] = load_branch(data, branch,
+                                                      tree[branch])
+            opt = tree["opt"]
+            tmpl[f"{tag}_opt"] = {
+                **load_branch(data, "opt", {"m": opt["m"], "v": opt["v"]}),
+                "t": np.asarray(data[_key(("['opt']", "['t']"))], np.int32)}
+            if net == "G" and "ema" in tree:
+                tmpl["g_ema_params"] = (
+                    tmpl["g_params"] if seed_ema
+                    else load_branch(data, "ema", tree["ema"]))
+    return state_from_trees(template.g.spec, template.d.spec, tmpl,
+                            template.g.device)
+
+
+def latest_epoch(directory, name):
+    if not os.path.isdir(directory):
+        return None
+    pat = re.compile(re.escape(name) + r"_(\d+)_net_G\.npz$")
+    epochs = [int(m.group(1)) for f in os.listdir(directory)
+              if (m := pat.match(f))]
+    return max(epochs) if epochs else None

@@ -1,0 +1,258 @@
+"""The GAN train step: fDx + fGx + both Adam updates, on one device.
+
+Port of dcgan_sr_tpu/train/step.py, point for point (reference structure
+train.lua:208-283):
+
+  fDx: D forward/backward on the real batch -> degrade -> G forward ->
+       per-image labels -> D forward/backward on the fake batch -> adam(D)
+  fGx: REUSES D's fake-pass output -> backprop through D into G (no second
+       forward) -> adam(G)
+
+The JAX package expresses the reuse with jax.vjp; here autograd keeps one
+graph of the D-fake forward and pulls back through it twice
+(`torch.autograd.grad`, the first with `retain_graph=True`): once under
+err_d_fake to D's parameters, once under err_g to `fake`.  G's gradient
+therefore flows through the pre-update D that produced the output, which is
+the reading the JAX package documents as the reference's intent.
+
+BN ordering: D normalizes the real batch with real-batch statistics and the
+fake batch with fake-batch statistics, in that order, and its running
+statistics move real pass first, fake pass second.
+
+Unlike the JAX step, which returns a new state, this one updates `state` in
+place (parameters, running statistics, Adam moments, EMA) and returns the
+same object: all in-place writes happen under no_grad after both pullbacks,
+so no retained graph ever sees a modified tensor.  fp32 convolutions run with
+TF32 off in the forward and in every pullback (ops/nn.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..losses.schemes import bce_with_logits_loss, criterion, make_labels
+from ..models import Network, discriminator_spec, generator_spec, init_network
+from ..ops.adam import adam_init, adam_update_
+from ..ops.preprocess import preprocess
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Both networks (parameters and BN running statistics live in the
+    modules), both Adam states ({"m", "v"}: lists in `params_of` order,
+    "t": int) and, with cfg.g_ema > 0, the EMA copy of G's parameters in the
+    same order (else None)."""
+    g: Network
+    d: Network
+    g_opt: Any
+    d_opt: Any
+    g_ema: Optional[list] = None
+
+
+def params_of(net):
+    """The network's trainable tensors as a flat list, layer by layer."""
+    return list(net.parameters())
+
+
+def init_train_state(cfg, generator, device="cuda"):
+    """A fresh state on `device`, drawn from `generator` (a CPU
+    torch.Generator): G first, then D."""
+    g_spec, d_spec = generator_spec(cfg), discriminator_spec(cfg)
+    g = Network(g_spec, *init_network(g_spec, generator), device=device,
+                fuse=False, trainable=True)
+    d = Network(d_spec, *init_network(d_spec, generator), device=device,
+                fuse=False, trainable=True)
+    ema = None
+    if cfg.g_ema > 0:
+        ema = [p.detach().clone() for p in params_of(g)]
+    return TrainState(g=g, d=d, g_opt=adam_init(params_of(g)),
+                      d_opt=adam_init(params_of(d)), g_ema=ema)
+
+
+# ---- carried across: the JAX package's TrainState leaves as numpy ----------
+
+def _tree_like(net, flat):
+    """`flat` (a list in params_of order) in the JAX per-layer dict
+    structure of `net`'s parameters."""
+    it = iter(flat)
+    return [{k: next(it) for k in dict(layer.named_parameters(recurse=False))}
+            for layer in net.layers]
+
+
+def _flat_like(net, tree):
+    return [tree[i][k] for i, layer in enumerate(net.layers)
+            for k in dict(layer.named_parameters(recurse=False))]
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_np(v) for v in tree]
+    return tree.detach().cpu().numpy().copy()
+
+
+def state_to_numpy(state):
+    """The state as numpy leaves in the JAX package's TrainState structure:
+    a dict of its seven fields (`g_params`, `g_state`, `g_opt`, `d_params`,
+    `d_state`, `d_opt`, `g_ema_params`), `opt` = {"m", "v", "t": int32}."""
+    out = {}
+    for tag, net, opt in (("g", state.g, state.g_opt),
+                          ("d", state.d, state.d_opt)):
+        params, bn = net.trees()
+        out[f"{tag}_params"], out[f"{tag}_state"] = _np(params), _np(bn)
+        out[f"{tag}_opt"] = {"m": _np(_tree_like(net, opt["m"])),
+                             "v": _np(_tree_like(net, opt["v"])),
+                             "t": np.asarray(opt["t"], np.int32)}
+    out["g_ema_params"] = (None if state.g_ema is None
+                           else _np(_tree_like(state.g, state.g_ema)))
+    return out
+
+
+def state_from_numpy(cfg, tree, device="cuda"):
+    """The port's TrainState from the seven fields of the JAX package's, as
+    numpy arrays (see `state_to_numpy`)."""
+    return state_from_trees(generator_spec(cfg), discriminator_spec(cfg),
+                            tree, device)
+
+
+def state_from_trees(g_spec, d_spec, tree, device):
+    """`state_from_numpy` for given specs (a checkpoint loads into its
+    template's)."""
+    as_t = lambda a: torch.from_numpy(  # noqa: E731  (a copy)
+        np.array(a, dtype=np.float32)).to(device)
+    g = Network(g_spec, tree["g_params"], tree["g_state"],
+                device=device, fuse=False, trainable=True)
+    d = Network(d_spec, tree["d_params"], tree["d_state"],
+                device=device, fuse=False, trainable=True)
+    state = TrainState(g=g, d=d, g_opt=None, d_opt=None)
+    for tag, net in (("g", g), ("d", d)):
+        opt = tree[f"{tag}_opt"]
+        setattr(state, f"{tag}_opt", {
+            "m": [as_t(a) for a in _flat_like(net, opt["m"])],
+            "v": [as_t(a) for a in _flat_like(net, opt["v"])],
+            "t": int(opt["t"])})
+    if tree.get("g_ema_params") is not None:
+        state.g_ema = [as_t(a) for a in _flat_like(g, tree["g_ema_params"])]
+    return state
+
+
+# ---- the step ---------------------------------------------------------------
+
+_NOT_PORTED = ("fast_ops", "compact_params", "device_augment")
+
+
+def _no_mark(name):
+    pass
+
+
+def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
+    """Returns train_step(state, hr_batch) -> (state, metrics).
+
+    hr_batch: (B, C, H, W) in the variant's data range, float32 or (a
+    bfloat16 feed) bfloat16, on the state's device.  metrics: the JAX step's
+    six scalars as 0-d device tensors; reading one is the only thing that
+    waits for the device.
+
+    `preprocess_fn` computes (hr, lr) from the batch; it exists so that a
+    check can run this same step with `ops.preprocess.preprocess_plain` on
+    the card.  `train_step` also takes `mark=`, a callable named after each
+    stage of the step as it is queued (chip_smoke.py records a CUDA event
+    in it to see where the time goes).
+    """
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
+            "(the port trains in float32)")
+    for name in _NOT_PORTED:
+        if getattr(cfg, name):
+            raise NotImplementedError(f"{name} is not ported yet")
+    if axis_name is not None:
+        raise NotImplementedError("a data-parallel axis is not ported yet")
+
+    crit = criterion(cfg)
+    # fold D's Sigmoid head into the loss (bce_with_logits): identical math
+    # to BCECriterion-on-sigmoid, but stable when D saturates
+    fold = cfg.loss == "bce"
+    if fold:
+        crit = bce_with_logits_loss
+    adam_kw = dict(lr=cfg.lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps)
+    # cfg.use_pallas is read nowhere: it stays in the config copy (held equal
+    # to the JAX package's) and has no effect here, because this step always
+    # takes (hr, lr) from the fused preprocess, flags off included
+    rgb_to_gray = cfg.device_preprocess and cfg.nc == 1
+    to_pm1 = cfg.device_preprocess and cfg.data_range == "pm1"
+    grad = torch.autograd.grad
+
+    def step(state, hr, mark=_no_mark):
+        if hr.dtype == torch.bfloat16:
+            hr = hr.float()          # a bf16 feed carries only input rounding
+        with torch.no_grad():
+            hr, lr_img = preprocess_fn(hr, rgb_to_gray=rgb_to_gray,
+                                       to_pm1=to_pm1)
+        mark("preprocess")
+        g_params, d_params = params_of(state.g), params_of(state.d)
+
+        # G forward: one graph, pulled back once, for G's update
+        fake = state.g(lr_img, track_stats=True)
+        mark("g_forward")
+
+        # D on real (own batch statistics; first running-stat update)
+        out_real = state.d(hr, track_stats=True, logits=fold)
+        err_d_real = crit(out_real, torch.full_like(out_real, cfg.real_label))
+        gd_real = grad(err_d_real, d_params)
+        mark("d_real_forward_backward")
+
+        # D on fake: one forward, shared by the D-fake and the G loss
+        _, fake_vec, g_vec = make_labels(cfg, hr, fake.detach())
+        out_fake = state.d(fake, track_stats=True, logits=fold)
+        mark("d_fake_forward")
+        err_d_fake = crit(out_fake, fake_vec)
+        err_g = crit(out_fake, g_vec)
+        gd_fake = grad(err_d_fake, d_params, retain_graph=True)
+        # fGx: the pullback to `fake` only (updateGradInput), never into D's
+        # parameter gradients
+        g_loss = err_g if cfg.gan_weight == 1.0 else err_g * cfg.gan_weight
+        (dfake,) = grad(g_loss, fake)
+        mark("d_fake_pullbacks")
+        pixel_loss = torch.zeros((), device=hr.device)
+        if cfg.pixel_loss_weight > 0:
+            # surplus pixel-reconstruction term: the cotangent of
+            # w * mean((fake-hr)^2) adds directly to D's pullback
+            with torch.no_grad():
+                diff = fake - hr
+                pixel_loss = torch.mean(diff ** 2)
+                dfake = dfake + (cfg.pixel_loss_weight * 2.0
+                                 / fake.numel()) * diff
+        gg = grad(fake, g_params, grad_outputs=dfake)
+        mark("g_backward")
+
+        # fDx accumulates real+fake gradients before one adam step
+        gd = torch._foreach_add(gd_real, gd_fake)
+        adam_update_(d_params, gd, state.d_opt, **adam_kw)
+        adam_update_(g_params, gg, state.g_opt, **adam_kw)
+        if state.g_ema is not None and cfg.g_ema > 0:
+            with torch.no_grad():
+                torch._foreach_mul_(state.g_ema, cfg.g_ema)
+                torch._foreach_add_(state.g_ema, g_params,
+                                    alpha=1.0 - cfg.g_ema)
+        mark("adam_updates")
+
+        err_d_real, err_d_fake, err_g = (err_d_real.detach(),
+                                         err_d_fake.detach(), err_g.detach())
+        metrics = {
+            "errD": err_d_real + err_d_fake,
+            "errD_real": err_d_real,
+            # gray-2 scales only the *printed* errD_real (train-gray-2.lua:209)
+            "errD_real_reported": err_d_real * cfg.report_scale_real,
+            "errD_fake": err_d_fake,
+            "errG": err_g,
+            "pixel_loss": pixel_loss,
+        }
+        return state, metrics
+
+    return step

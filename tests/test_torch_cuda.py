@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the hand-written CUDA kernel has no CPU
+"""Card-only tests of the port: the hand-written CUDA kernels have no CPU
 mode, so these skip without an NVIDIA card.  The file imports neither JAX
 nor the JAX package, so it also runs where JAX is not installed:
 
@@ -6,7 +6,9 @@ nor the JAX package, so it also runs where JAX is not installed:
 
 Tolerances as in tests/test_torch_bulge.py (1e-5 for the hidden tensor's
 mean/var, 2e-4 for y): the fused kernel and cuDNN (TF32 off) sum the same
-fp32 products in different orders."""
+fp32 products in different orders.  The preprocess kernel keeps its products
+and sums uncontracted (no FMA) and sums in the plain version's order, so it
+is held to bit equality."""
 
 import os
 
@@ -18,7 +20,11 @@ from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.infer.tiled import make_full_sr_fn
 from dcgan_sr_tpu_torch.models import Network
 from dcgan_sr_tpu_torch.ops import bulge as K
+from dcgan_sr_tpu_torch.ops import nn as N
+from dcgan_sr_tpu_torch.ops import preprocess as P
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
+from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
+                                           state_from_numpy, state_to_numpy)
 
 pytestmark = pytest.mark.cuda
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -93,3 +99,111 @@ def _lists(net):
         state.append({"bn": {"mean": b["bn_mean"].cpu().numpy(),
                              "var": b["bn_var"].cpu().numpy()}} if b else {})
     return params, state
+
+
+# ---- K1: the fused preprocess ----------------------------------------------
+
+@pytest.mark.parametrize("flags", [(False, False), (True, True), (False, True),
+                                   (True, False)])
+@pytest.mark.parametrize("shape", [(100, 3, 64, 64), (1280, 3, 8, 8),
+                                   (3, 3, 50, 38), (1, 3, 2, 2),
+                                   (2, 3, 514, 1030)])
+def test_preprocess_kernel_equals_plain(cuda, shape, flags):
+    gray, pm1 = flags
+    x = torch.rand(shape, device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
+    n0 = P.launches["preprocess"]
+    hr, lr = P.preprocess(x, rgb_to_gray=gray, to_pm1=pm1)
+    assert P.launches["preprocess"] == n0 + 1
+    hp, lp = P.preprocess_plain(x, rgb_to_gray=gray, to_pm1=pm1)
+    assert P.launches["preprocess"] == n0 + 1
+    torch.cuda.synchronize()
+    assert hr.shape == hp.shape and lr.shape == lp.shape
+    assert torch.equal(hr, hp) and torch.equal(lr, lp)
+
+
+def test_preprocess_kernel_single_channel_and_views(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand((100, 1, 64, 64), device=cuda, generator=gen)
+    hr, lr = P.preprocess(x)
+    assert torch.equal(hr, x) and hr.data_ptr() != x.data_ptr()
+    assert torch.equal(lr, P.preprocess_plain(x)[1])
+    # a non-contiguous view and a contiguous tensor at an odd element offset
+    wide = torch.rand((4, 1, 16, 40), device=cuda, generator=gen)
+    view = wide[..., 3:35]
+    assert torch.equal(P.preprocess(view, to_pm1=True)[1],
+                       P.preprocess_plain(view, to_pm1=True)[1])
+    odd = torch.rand(1 + 2 * 8 * 8, device=cuda, generator=gen)[1:].view(2, 1, 8, 8)
+    assert odd.data_ptr() % 8 == 4
+    assert torch.equal(P.preprocess(odd)[1], P.preprocess_plain(odd)[1])
+
+
+def test_preprocess_kernel_rejects_what_it_does_not_take(cuda):
+    n0 = P.launches["preprocess"]
+    with pytest.raises(ValueError, match="even"):
+        P.preprocess(torch.zeros((1, 1, 7, 8), device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        P.preprocess(torch.zeros((1, 1, 8, 8), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="3 channels"):
+        P.preprocess(torch.zeros((1, 1, 8, 8), device=cuda), rgb_to_gray=True)
+    assert P.launches["preprocess"] == n0
+
+
+# ---- TF32 stays off in the backward convolutions ---------------------------
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_conv_gradients_are_full_fp32(cuda, transposed):
+    """Gradients of the port's conv ops, taken OUTSIDE any fp32_convs()
+    block with cuDNN's TF32 switched on, agree with float64 to fp32
+    accuracy (TF32 would leave about 1e-3)."""
+    rng = np.random.RandomState(0)
+    x64 = torch.tensor(rng.randn(8, 16, 32, 32), device=cuda)
+    w64 = torch.tensor(rng.randn(16, 16, 4, 4) * 0.1, device=cuda)
+    g64 = torch.tensor(rng.randn(8, 16, 64, 64) if transposed
+                       else rng.randn(8, 16, 16, 16), device=cuda)
+    op = N.conv_transpose2d if transposed else N.conv2d
+
+    def grads(dtype):
+        x = x64.to(dtype).requires_grad_(True)
+        w = w64.to(dtype).requires_grad_(True)
+        y = op(x, w, 2, 1)
+        return (y.detach(),) + torch.autograd.grad(y, (x, w), g64.to(dtype))
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got, want = grads(torch.float32), grads(torch.float64)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert torch.backends.cudnn.allow_tf32 == prev
+    for name, g, w in zip(("y", "dx", "dw"), got, want):
+        err = ((g.double() - w).abs().max() / w.abs().max()).item()
+        assert err < 2e-6, f"{name}: relative error {err:.2e}"
+
+
+# ---- one tiny step, kernel against plain ------------------------------------
+
+@pytest.mark.parametrize("variant,chans,over", [
+    ("gray-3", 1, {}), ("gray", 3, {"device_preprocess": True})])
+def test_step_with_kernel_equals_step_with_plain(cuda, variant, chans, over):
+    cfg = get_config(variant, env_override=False, ngf=4, ndf=8, **over)
+    st = init_train_state(cfg, torch.Generator().manual_seed(0), device=cuda)
+    twin = state_from_numpy(cfg, state_to_numpy(st), device=cuda)
+    hr = torch.rand((8, chans, 64, 64), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    n0 = P.launches["preprocess"]
+    _, m = build_train_step(cfg)(st, hr)
+    assert P.launches["preprocess"] == n0 + 1
+    _, mp = build_train_step(cfg, preprocess_fn=P.preprocess_plain)(twin, hr)
+    assert P.launches["preprocess"] == n0 + 1
+    for k in m:
+        assert torch.isfinite(m[k]).all()
+        np.testing.assert_allclose(m[k].item(), mp[k].item(), rtol=1e-5)
+    a, b = state_to_numpy(st), state_to_numpy(twin)
+    for f in ("g_params", "d_params", "g_state", "d_state"):
+        for la, lb in zip(a[f], b[f]):
+            for key in la:
+                va, vb = la[key], lb[key]
+                if isinstance(va, dict):
+                    va, vb = va["mean"], vb["mean"]
+                assert np.abs(va - vb).max() <= 2.1 * cfg.lr
