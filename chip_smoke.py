@@ -4,9 +4,10 @@
   python3 chip_smoke.py
 
 Phases, each fatal on failure:
-  1. card name and power limit (nvidia-smi); build of every kernel of both
-     paths from csrc/ with nvcc (one nvcc per source, started together),
-     timed, with the `-Xptxas -v` resource lines.
+  1. card name and power limit (nvidia-smi); build of every kernel of every
+     path from csrc/ with nvcc (one nvcc per source — bulge.cu,
+     preprocess.cu, fused_nhwc.cu — started together), timed, with the
+     `-Xptxas -v` resource lines.
   2. kernels: the fused bulge kernel (ops/bulge.py, csrc/bulge.cu) against
      its plain PyTorch version on the card (cuDNN with TF32 off), at the
      gray-3 serve shapes x (1,16,256,256), (4,16,1024,1024) and
@@ -45,8 +46,40 @@ Phases, each fatal on failure:
      step in ms and images/s, the host's time to queue a step, peak
      device memory, the same with torch.backends.cudnn.benchmark on, and
      the training generator's forward layer by layer.
-  9. a {"kernels": [...]} line, then the contract line
-     {"ok": true, "device": {...}}.
+  9. kernel: the channels-last fused pair (ops/fused_nhwc.py,
+     csrc/fused_nhwc.cu) against its plain PyTorch version on the card at
+     (B, Ci, Cm, Co, H, W) = (2,5,4,6,16,16) tm 8, (1,16,8,16,32,32) tm 16,
+     (3,3,2,3,8,8) tm 8 (the shapes of tests/test_pallas_fused.py),
+     (1,16,8,16,256,256) and (100,16,8,16,256,256) tm 32, and against the
+     bulge kernel on the same inputs where that has an instantiation.  Times
+     per launch, of the plain version's two phases and of the cuDNN
+     composition at the last shape.
+ 10. kernel: the bulge kernel at the overlap pipeline's shapes, with the
+     overlap fixture's layer-3/4 weights (Ci 32, Cm 16, Co 32): x
+     (225,32,32,32) pooled, (14400,32,32,32) running and grouped by 225.
+ 11. path: `python -m dcgan_sr_tpu_torch.bench_fused --kernel nhwc` and
+     `--kernel bulge` as subprocesses at the default batch 100, hw 256,
+     fp32; the JSON line parsed, max_abs_diff held to the y tolerance, the
+     launch counts on the line before it moved from 0.
+ 12. path: the overlap pipeline (infer/tiled.py make_overlap_sr_fn) for
+     gray-patch-batch-overlap at full width from its fixture, 64 images of
+     64x64 from a seed, per-image-tile BN and running-stats BN, fused
+     against fuse=False: tiles and the naive stitch within the y tolerance;
+     the device seam stitch equal to the host replay on the fused tiles bit
+     for bit in both seam modes; lr_input on the degraded images giving the
+     same input tiles bit for bit and the same output tiles to 1e-5; where the pipeline's time goes, stage by stage, at this
+     batch and at one LR 256x256 image; MP/s of both BN modes from
+     bench_infer.measure (random-init weights from a seed).
+ 13. path: `python -m dcgan_sr_tpu_torch.serve --config
+     gray-patch-batch-overlap --ckpt fixtures/overlap_textured_net_G.npz`,
+     with --parity-bn and default: 2x requests at LR 32x32, 100x72 and
+     256x256, one restore request, one 8-way burst, then timed requests at
+     LR 64x64 and 256x256.  Every response is held against the fuse=False
+     pipeline on the card; /healthz must show bulge_main moved from 0.
+     `python -m dcgan_sr_tpu_torch.upscale --mode overlap` and `--mode
+     grid` (graypatch fixture) each write one image.
+ 14. a {"kernels": [...]} line (K1, K2 stats, K2 main, K3 stats, K3 main),
+     then the contract line {"ok": true, "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
@@ -54,6 +87,13 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
                                   fused and cuDNN sums run in different orders
   served PNG bytes                1 level of 255: an fp32 difference of a few
                                   ulp can move a pixel across a rounding edge
+  served PNG bytes, tiled         1 level of 255 on all but 1% of the pixels
+                                  of a response: the seam DP is discontinuous,
+                                  a 1e-7 difference between the fused and the
+                                  unfused tiles can flip a near-tie and swap
+                                  pixels between two tiles (the count is
+                                  printed)
+  seam stitch, device vs host     0 on the same tiles
   preprocess hr, lr               0: the kernel sums in the plain version's
                                   order and contracts nothing into an FMA
   step, kernel vs plain           hr and lr are bit-equal, but cuDNN's
@@ -80,6 +120,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "fixtures", "gray3_textured_net_G.npz")
+OVERLAP_FIXTURE = os.path.join(REPO, "fixtures", "overlap_textured_net_G.npz")
+GRID_FIXTURE = os.path.join(REPO, "fixtures", "graypatch_textured_net_G.npz")
+TILED_FLIP_SHARE = 0.01
 TOL_STATS = 1e-5
 TOL_Y = 2e-4
 TOL_U8 = 1
@@ -302,10 +345,13 @@ def _healthz(port):
     return json.loads(body)
 
 
-def serve_phase(cfg, parity, ref_service, log):
+def serve_phase(cfg, parity, ref_service, log, fixture=FIXTURE,
+                timed=((256, 256),), flip_share=0.0):
     """Start the port's server, drive it, hold every response against
-    `ref_service` (the plain-version generator on the card).  Returns the
-    server's kernel launch counts and the timed-request latencies."""
+    `ref_service` (the plain-version generator on the card): within TOL_U8
+    levels on all but `flip_share` of a response's pixels.  Returns the
+    server's kernel launch counts, the timed-request latencies per size and
+    the burst's batch count."""
     import numpy as np
     from PIL import Image
 
@@ -313,7 +359,7 @@ def serve_phase(cfg, parity, ref_service, log):
 
     port = _free_port()
     cmd = [sys.executable, "-m", "dcgan_sr_tpu_torch.serve", "--config",
-           cfg.variant, "--ckpt", FIXTURE, "--port", str(port),
+           cfg.variant, "--ckpt", fixture, "--port", str(port),
            "--max-batch", "8"]
     if parity:
         cmd.append("--parity-bn")
@@ -336,10 +382,10 @@ def serve_phase(cfg, parity, ref_service, log):
               f"launch counts not 0 at start: {h0['kernel_launches']}")
 
         rng = np.random.RandomState(1 if parity else 2)
-        worst = 0
+        worst, flipped, pixels = 0, 0, 0
 
         def post(arr8, mode="2x"):
-            nonlocal worst
+            nonlocal worst, flipped, pixels
             body = _png(arr8)
             q = "?mode=restore" if mode == "restore" else ""
             status, out = _request(port, "POST", "/upscale" + q, body)
@@ -351,10 +397,14 @@ def serve_phase(cfg, parity, ref_service, log):
             img = load_image(io.BytesIO(body), nc=1)[0]
             ref = ref_service.submit(img, mode)
             ref8 = np.clip(np.round(ref * 255.0), 0, 255).astype(np.int16)
-            d = int(np.abs(got - ref8).max())
+            diff = np.abs(got - ref8)
+            d, off = int(diff.max()), int((diff > TOL_U8).sum())
             worst = max(worst, d)
-            check(d <= TOL_U8, f"response differs from the plain generator by "
-                  f"{d} levels ({arr8.shape}, {mode})")
+            flipped += off
+            pixels += diff.size
+            check(off <= flip_share * diff.size, f"response differs from the "
+                  f"plain generator by up to {d} levels on {off} of "
+                  f"{diff.size} pixels ({arr8.shape}, {mode})")
 
         for hw in ((32, 32), (100, 72), (256, 256)):
             post((rng.rand(*hw) * 255).astype(np.uint8))
@@ -381,26 +431,32 @@ def serve_phase(cfg, parity, ref_service, log):
         burst_batches = _healthz(port)["batches"] - b0
         check(burst_batches < 8, "8 concurrent requests did not coalesce")
 
-        # timed requests: LR 256x256 -> 512x512, sequential, one warm first
-        body = _png((rng.rand(256, 256) * 255).astype(np.uint8))
-        lat = []
-        for _ in range(11):
-            t1 = time.perf_counter()
-            status, _ = _request(port, "POST", "/upscale", body)
-            lat.append((time.perf_counter() - t1) * 1e3)
-            check(status == 200, f"timed request answered {status}")
-        lat = sorted(lat[1:])
-        hz = _healthz(port)
-        print(f"timed ({name}): client ms {[round(v, 2) for v in lat]}; "
-              f"server batch ms (last 10) "
-              f"{hz['recent_batch_ms'][-10:]}", flush=True)
+        # timed requests, 2x, sequential, one warm first at each size
+        lats = {}
+        for size in timed:
+            body = _png((rng.rand(*size) * 255).astype(np.uint8))
+            lat = []
+            for _ in range(11):
+                t1 = time.perf_counter()
+                status, _ = _request(port, "POST", "/upscale", body)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                check(status == 200, f"timed request answered {status}")
+            lat = sorted(lat[1:])
+            hz = _healthz(port)
+            print(f"timed ({cfg.variant}, {name}, LR {size[0]}x{size[1]}): "
+                  f"client ms {[round(v, 2) for v in lat]}; server batch ms "
+                  f"(last 10) {hz['recent_batch_ms'][-10:]}", flush=True)
+            lats[size] = (lat, sorted(hz["recent_batch_ms"][-10:]))
         check(hz["errors"] == 0, f"server counted {hz['errors']} errors")
-        check(hz["requests"] >= 3 + 1 + 8 + 11, f"requests {hz['requests']}")
-        print(f"served ({name}): {hz['requests']} images in {hz['batches']} "
-              f"batches (burst of 8 in {burst_batches}), max byte diff vs "
-              f"plain {worst}, launches {hz['kernel_launches']}, "
-              f"batch_ms p50 {hz['batch_ms_p50']}", flush=True)
-        return hz["kernel_launches"], lat, burst_batches
+        check(hz["requests"] >= 3 + 1 + 8 + 11 * len(timed),
+              f"requests {hz['requests']}")
+        print(f"served ({cfg.variant}, {name}): {hz['requests']} images in "
+              f"{hz['batches']} batches (burst of 8 in {burst_batches}), max "
+              f"byte diff vs plain {worst}, {flipped} of {pixels} compared "
+              f"pixels off by more than {TOL_U8}, launches "
+              f"{hz['kernel_launches']}, batch_ms p50 {hz['batch_ms_p50']}",
+              flush=True)
+        return hz["kernel_launches"], lats, burst_batches
     finally:
         proc.terminate()
         try:
@@ -705,6 +761,421 @@ def step_breakdown(cfg, state, smi, warm=2, iters=10):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the channels-last fused pair against its plain version
+# ---------------------------------------------------------------------------
+
+# ((B, Ci, Cm, Co, H, W), tm)
+NHWC_CASES = [((2, 5, 4, 6, 16, 16), 8), ((1, 16, 8, 16, 32, 32), 16),
+              ((3, 3, 2, 3, 8, 8), 8), ((1, 16, 8, 16, 256, 256), 32),
+              ((100, 16, 8, 16, 256, 256), 32)]
+
+
+def _close(a, b, tol):
+    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def nhwc_phase():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    dev = torch.device("cuda")
+    err = {"fused_nhwc_stats": 0.0, "fused_nhwc_main": 0.0}
+    row = None
+    for (b, ci, cm, co, h, w), tm in NHWC_CASES:
+        rng = np.random.RandomState(0)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        x = torch.randn((b, ci, h, w), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(b))
+        wT, wC = t(0.1 * rng.randn(ci, cm, 4, 4)), t(0.1 * rng.randn(co, cm, 4, 4))
+        scale, bias = t(1 + 0.1 * rng.randn(cm)), t(0.1 * rng.randn(cm))
+        args = (x, wT, scale, bias, wC)
+        n0 = dict(F3.launches)
+        y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
+        check(F3.launches == {k: c + 1 for k, c in n0.items()},
+              "K3 launch counts did not move by one each")
+        yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
+        torch.cuda.synchronize()
+        check(tuple(y.shape) == (b, co, h, w) and bool(torch.isfinite(y).all()),
+              f"K3 output {tuple(y.shape)}")
+        ey, em, ev = ((y - yp).abs().max().item(), (m - mp).abs().max().item(),
+                      (v - vp).abs().max().item())
+        check(_close(y, yp, TOL_Y) and _close(m, mp, TOL_STATS)
+              and _close(v, vp, TOL_STATS),
+              f"K3 disagrees with its plain version at {(b, ci, cm, co, h, w)}")
+        del yp
+        if K.build().bulge_supported(cm, co):
+            yk, (mk, vk) = K.bulge(*args)
+            other = "K2"
+        else:
+            yk, (mk, vk) = K.bulge_plain(*args)
+            other = "unfused"
+        ek = (y - yk).abs().max().item()
+        check(_close(y, yk, TOL_Y) and _close(m, mk, TOL_STATS)
+              and _close(v, vk, TOL_STATS),
+              f"K3 disagrees with {other} at {(b, ci, cm, co, h, w)}")
+        print(f"K3 {(b, ci, cm, co, h, w)} tm {tm}: max|dy| {ey:.3e} "
+              f"max|dmean| {em:.3e} max|dvar| {ev:.3e}; vs {other} max|dy| "
+              f"{ek:.3e}", flush=True)
+        err["fused_nhwc_main"] = max(err["fused_nhwc_main"], ey)
+        err["fused_nhwc_stats"] = max(err["fused_nhwc_stats"], em, ev)
+        del y, yk
+        if b < 100:
+            continue
+
+        # times per launch at bench_fused's geometry
+        xn = x.permute(0, 2, 3, 1).contiguous()
+        xl = F3._pad_nhwc(x).contiguous()
+        wtall, wcall = F3._pack_wT(wT), F3._pack_wC(wC)
+        gain = torch.rsqrt(v + 1e-5) * scale
+        st = torch.stack([m.repeat(4), gain.repeat(4), bias.repeat(4)]).contiguous()
+        with N.fp32_convs():
+            row = {
+                "shape": [b, ci, h, w], "tm": tm,
+                "stats_ms": time_ms(lambda: F3.launch_stats(xn, wtall, tm), 10),
+                "main_ms": time_ms(lambda: F3.launch_main(xn, wtall, wcall, st,
+                                                          tm), 10),
+                "pair_ms": time_ms(lambda: F3.fused_convT_bn_relu_conv(
+                    *args, tm=tm), 5),
+                "plain_stats_ms": time_ms(lambda: F3.plain_stats(xl, wtall, tm), 3),
+                "plain_main_ms": time_ms(lambda: F3.plain_main(
+                    xl, wtall, wcall, m, gain, bias, tm), 3),
+                "lib_stats_ms": time_ms(lambda: torch.var_mean(
+                    F.conv_transpose2d(x, wT, stride=2, padding=1),
+                    dim=(0, 2, 3), correction=0), 3),
+                "lib_main_ms": time_ms(lambda: F.conv2d(F.relu(F.batch_norm(
+                    F.conv_transpose2d(x, wT, stride=2, padding=1), m, v,
+                    scale, bias, training=False)), wC, stride=2, padding=1), 3),
+                "K2_stats_ms": time_ms(lambda: K.launch_stats(x, wT), 10),
+                "K2_pair_ms": time_ms(lambda: K.bulge(*args), 5),
+            }
+        hw = b * h * w
+        flops_T = 2 * hw * (4 * ci) * (4 * cm)       # the packed products
+        flops_C = 2 * hw * (16 * cm) * co
+        chunks = -(-w // 32)
+        row["stats_bound"] = bound(
+            flops_T + 3 * 4 * hw * cm,
+            4 * (hw * ci + wtall.numel() + b * (h // tm) * chunks * 2 * cm))
+        row["main_bound"] = bound(
+            flops_T + 3 * 4 * hw * cm + flops_C,
+            4 * (hw * ci + hw * co + wtall.numel() + wcall.numel() + 12 * cm))
+        print("K3 times: " + json.dumps(
+            {k: (round(val, 4) if isinstance(val, float) else
+                 [round(val[0], 4), val[1]] if isinstance(val, tuple) else val)
+             for k, val in row.items()}), flush=True)
+        del x, xn, xl
+        torch.cuda.empty_cache()
+    return err, row
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the bulge kernel at the overlap pipeline's shapes
+# ---------------------------------------------------------------------------
+
+def overlap_kernel_phase(params, state):
+    """K2 with the overlap generator's layers 3-4 on batches of 32x32 tiles:
+    one image's 225 tiles pooled, and 64 images' 14,400 tiles with running
+    statistics and with statistics grouped by image."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    wT, wC = t(params[3]["w"]), t(params[4]["w"])
+    scale, bias = t(params[3]["bn_scale"]), t(params[3]["bn_bias"])
+    rmean, rvar = t(state[3]["bn"]["mean"]), t(state[3]["bn"]["var"])
+    ci, cm, co = wT.shape[0], wT.shape[1], wC.shape[0]
+    check((ci, cm, co) == (32, 16, 32), f"overlap pair is {(ci, cm, co)}")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+    for bsz, mode, groups in ((225, "pooled", None), (14400, "running", None),
+                              (14400, "pooled", 64)):
+        x = torch.rand((bsz, ci, 32, 32), generator=gen, device=dev)
+        run = (rmean, rvar) if mode == "running" else None
+        y, (m, v) = K.bulge(x, wT, scale, bias, wC, stats=mode, running=run,
+                            groups=groups)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), f"non-finite y at {bsz} {mode}")
+        ey = es = 0.0
+        step = 225 * 16             # whole images: the unfused hidden tensor
+        for i in range(0, bsz, step):   # of 16 images is 0.9 GB
+            sl = slice(i, min(i + step, bsz))
+            g = None if groups is None else (sl.stop - sl.start) // 225
+            yp, (mp, vp) = K.bulge_plain(x[sl], wT, scale, bias, wC,
+                                         stats=mode, running=run, groups=g)
+            check(_close(y[sl], yp, TOL_Y), f"bulge kernel disagrees with its "
+                  f"plain version at batch {bsz} {mode} groups {groups}")
+            ey = max(ey, (y[sl] - yp).abs().max().item())
+            if mode == "pooled":
+                ms = m if groups is None else m[i // 225:i // 225 + g]
+                vs = v if groups is None else v[i // 225:i // 225 + g]
+                check(_close(ms, mp, TOL_STATS) and _close(vs, vp, TOL_STATS),
+                      f"bulge statistics disagree at batch {bsz} groups {groups}")
+                es = max(es, (ms - mp).abs().max().item(),
+                         (vs - vp).abs().max().item())
+            del yp
+        worst = max(worst, ey)
+        print(f"K2 overlap x ({bsz},32,32,32) {mode} groups {groups}: "
+              f"max|dy| {ey:.3e} max|dstats| {es:.3e}", flush=True)
+        if groups is None:
+            mu = rmean.expand(bsz, cm).contiguous()
+            gain = (torch.rsqrt(rvar + 1e-5) * scale).expand(bsz, cm).contiguous()
+            iters = 20 if bsz == 225 else 5
+            with N.fp32_convs():
+                r = {
+                    "stats_ms": time_ms(lambda: K.launch_stats(x, wT), iters),
+                    "main_ms": time_ms(lambda: K.launch_main(
+                        x, wT, wC, mu, gain, bias), iters),
+                    "plain_stats_ms": time_ms(lambda: N.batch_stats(
+                        N.conv_transpose2d(x, wT, 2, 1)), iters),
+                    "plain_main_ms": time_ms(lambda: K.bulge_plain(
+                        x, wT, scale, bias, wC, stats="running",
+                        running=(rmean, rvar)), iters),
+                    "lib_stats_ms": time_ms(lambda: torch.var_mean(
+                        F.conv_transpose2d(x, wT, stride=2, padding=1),
+                        dim=(0, 2, 3), correction=0), iters),
+                    "lib_main_ms": time_ms(lambda: F.conv2d(F.relu(F.batch_norm(
+                        F.conv_transpose2d(x, wT, stride=2, padding=1), rmean,
+                        rvar, scale, bias, training=False)), wC, stride=2,
+                        padding=1), iters),
+                }
+            hw = bsz * 32 * 32
+            flops_T, flops_C = 2 * 16 * hw * ci * cm, 2 * 16 * hw * co * cm
+            r["stats_bound"] = bound(
+                flops_T + 3 * 4 * hw * cm,
+                4 * (hw * ci + wT.numel() + bsz * 4 * 2 * cm))
+            r["main_bound"] = bound(
+                flops_T + 3 * 4 * hw * cm + flops_C,
+                4 * (hw * ci + hw * co + wT.numel() + wC.numel()
+                     + 2 * bsz * cm + cm))
+            print(f"K2 overlap times ({bsz},32,32,32): " + json.dumps(
+                {k: (round(val, 4) if isinstance(val, float) else
+                     [round(val[0], 4), val[1]]) for k, val in r.items()}),
+                flush=True)
+        del x, y
+        torch.cuda.empty_cache()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 11: bench_fused as users start it
+# ---------------------------------------------------------------------------
+
+def _module(args, timeout=600):
+    env = {k: v for k, v in os.environ.items() if k not in CONFIG_ENV}
+    cmd = [sys.executable, "-m", *args]
+    r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        sys.stderr.write(r.stdout[-4000:] + r.stderr[-8000:])
+    check(r.returncode == 0, f"{' '.join(cmd)} exited with {r.returncode}")
+    return r.stdout.splitlines()
+
+
+def bench_fused_phase():
+    out = {}
+    for kernel, names in (("nhwc", ("fused_nhwc_stats", "fused_nhwc_main")),
+                          ("bulge", ("bulge_stats", "bulge_main"))):
+        lines = _module(["dcgan_sr_tpu_torch.bench_fused", "--kernel", kernel,
+                         "--dtype", "fp32"])
+        rec = json.loads(lines[-1])
+        check(lines[-2].startswith("kernel launches: "), lines[-2])
+        counts = json.loads(lines[-2][len("kernel launches: "):])
+        check((rec["batch"], rec["hw"], rec["kernel"], rec["dtype"])
+              == (100, 256, kernel, "fp32"), f"bench_fused ran {rec}")
+        check(rec["device"].startswith("cuda"), f"bench_fused on {rec['device']}")
+        # y is O(1) here: the y tolerance is 2e-4 abs + rel
+        check(0 <= rec["max_abs_diff"] <= 2 * TOL_Y,
+              f"bench_fused --kernel {kernel}: max_abs_diff {rec['max_abs_diff']}")
+        for n in names:
+            check(counts[n] > 0, f"bench_fused --kernel {kernel} did not "
+                  f"launch {n}: {counts}")
+        print(f"bench_fused --kernel {kernel}: " + json.dumps(rec)
+              + " launches " + json.dumps(counts), flush=True)
+        out[kernel] = (rec, counts)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the overlap pipeline
+# ---------------------------------------------------------------------------
+
+def overlap_breakdown(cfg, net, images, bn_eval, lr_input):
+    """Device ms of each stage of make_overlap_sr_fn's pipeline on `images`,
+    each stage timed alone (CUDA events, a synchronize between stages)."""
+    import torch
+
+    from dcgan_sr_tpu_torch.image.ops import box_downsample2
+    from dcgan_sr_tpu_torch.image.patches import (extract_overlap_patches,
+                                                  stitch_overlap_naive)
+    from dcgan_sr_tpu_torch.infer.seam_device import seam_stitch_device
+    from dcgan_sr_tpu_torch.infer.tiled import make_overlap_sr_fn
+
+    p, ov = cfg.patchSize, cfg.overlap
+    n = images.shape[0]
+    fine = tuple(d * (2 if lr_input else 1) for d in images.shape[-2:])
+    ep, eov = (p // 2, ov // 2) if lr_input else (p, ov)
+    with torch.inference_mode():
+        def extract():
+            tiles = extract_overlap_patches(images, ep, eov)
+            return tiles if lr_input else box_downsample2(tiles)
+
+        tiles = extract()
+        t = tiles.shape[1]
+        lr = tiles.reshape(-1, 1, p // 2, p // 2)
+        gen = (lambda: net(lr, bn_stats="running")) if bn_eval else \
+            (lambda: net(lr, bn_stats="pooled", groups=n))
+        fake = gen()[:, 0].reshape(n, t, p, p)
+        whole = make_overlap_sr_fn(cfg, net, fine=fine, bn_eval=bn_eval,
+                                   lr_input=lr_input)
+        iters = 5
+        r = {"tiles": n * t,
+             "extract_ms": time_ms(extract, iters),
+             "generator_ms": time_ms(gen, iters),
+             "naive_ms": time_ms(lambda: stitch_overlap_naive(fake, fine, p, ov),
+                                 iters),
+             "seam_ms": time_ms(lambda: seam_stitch_device(fake, fine, p, ov),
+                                iters),
+             "pipeline_ms": time_ms(lambda: whole(images), iters)}
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = whole(images)["seam"].cpu()
+        r["pipeline_with_fetch_wall_ms"] = (time.perf_counter() - t0) / iters * 1e3
+        del out
+    return {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()}
+
+
+def overlap_phase(cfg, fused, plain, smi):
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch import bench_infer
+    from dcgan_sr_tpu_torch.image.ops import box_downsample2
+    from dcgan_sr_tpu_torch.image.patches import extract_overlap_patches
+    from dcgan_sr_tpu_torch.infer.seam import seam_stitch
+    from dcgan_sr_tpu_torch.infer.tiled import make_overlap_sr_fn
+    from dcgan_sr_tpu_torch.ops import bulge as K
+
+    dev = torch.device("cuda")
+    imgs = torch.from_numpy(np.random.RandomState(0).rand(64, 64, 64)
+                            .astype(np.float32)).to(dev)
+    p, ov, fine = cfg.patchSize, cfg.overlap, cfg.fineSize
+    counts = dict.fromkeys(K.launches, 0)
+    for bn_eval in (False, True):
+        name = "running-stats BN" if bn_eval else "per-image-tile BN"
+        for k in K.launches:
+            K.launches[k] = 0
+        got = make_overlap_sr_fn(cfg, fused, bn_eval=bn_eval)(imgs)
+        both = make_overlap_sr_fn(cfg, fused, bn_eval=bn_eval,
+                                  both_seams=True)(imgs)
+        half = make_overlap_sr_fn(cfg, fused, bn_eval=bn_eval, lr_input=True)(
+            box_downsample2(imgs))
+        torch.cuda.synchronize()
+        check(K.launches["bulge_main"] == 3 and
+              K.launches["bulge_stats"] == (0 if bn_eval else 3),
+              f"overlap pipeline launched {K.launches} ({name})")
+        for k in counts:
+            counts[k] += K.launches[k]
+        want = make_overlap_sr_fn(cfg, plain, bn_eval=bn_eval)(imgs)
+        torch.cuda.synchronize()
+        check(tuple(got["seam"].shape) == (64, 64, 64)
+              and tuple(got["tiles"].shape) == (64, 225, 8, 8)
+              and bool(torch.isfinite(got["seam"]).all()),
+              f"overlap output {tuple(got['seam'].shape)}")
+        et = (got["tiles"] - want["tiles"]).abs().max().item()
+        en = (got["naive"] - want["naive"]).abs().max().item()
+        check(_close(got["tiles"], want["tiles"], TOL_Y)
+              and _close(got["naive"], want["naive"], TOL_Y),
+              f"fused overlap pipeline disagrees with fuse=False ({name}): "
+              f"tiles {et:.3e} naive {en:.3e}")
+        flips = int(((got["seam"] - want["seam"]).abs() > TOL_Y).sum())
+        # lr_input: the generator's input tiles are the protocol path's bit
+        # for bit; its output is held to 1e-5, because two runs of one
+        # pipeline need not agree to the bit here (cuDNN computes a convT as
+        # a backward-data convolution; whether this run repeated is printed)
+        lr_a = extract_overlap_patches(box_downsample2(imgs), p // 2, ov // 2)
+        lr_b = box_downsample2(extract_overlap_patches(imgs, p, ov))
+        check(torch.equal(lr_a, lr_b), "half-geometry tiles of the degraded "
+              "images differ from the degraded full tiles")
+        again = make_overlap_sr_fn(cfg, fused, bn_eval=bn_eval)(imgs)
+        repeats = torch.equal(again["tiles"], got["tiles"])
+        eh = (half["tiles"] - got["tiles"]).abs().max().item()
+        check(_close(half["tiles"], got["tiles"], 1e-5),
+              f"lr_input tiles differ from the protocol path's ({name}) by "
+              f"{eh:.3e}")
+        del again, lr_a, lr_b
+        # device seam == host replay on the same (fused) tiles, 16 images
+        # (each run's own tiles: two runs need not agree to the bit)
+        for mode, res in ((False, got), (True, both)):
+            host = np.stack([seam_stitch(t, fine, p, ov, both_seams=mode)
+                             for t in res["tiles"][:16].cpu().numpy()])
+            check(np.array_equal(res["seam"][:16].cpu().numpy(), host),
+                  f"device seam != host seam (both_seams={mode}, {name})")
+        print(f"overlap pipeline, 64 images of 64x64, {name}: fused vs "
+              f"fuse=False max|dtiles| {et:.3e} max|dnaive| {en:.3e}, "
+              f"{flips} of {got['seam'].numel()} seam pixels differ by more "
+              f"than {TOL_Y}; device seam == host seam on 16 images in both "
+              f"seam modes; lr_input input tiles equal, output tiles within "
+              f"{eh:.3e}; a second run of the pipeline "
+              f"{'repeats' if repeats else 'does not repeat'} bit for bit",
+              flush=True)
+        print(f"overlap breakdown, 64 images of 64x64, {name} (ms) on {smi}: "
+              + json.dumps(overlap_breakdown(cfg, fused, imgs, bn_eval, False)),
+              flush=True)
+        one = torch.rand((1, 256, 256), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+        print(f"overlap breakdown, one LR 256x256 image, {name} (ms) on {smi}: "
+              + json.dumps(overlap_breakdown(cfg, fused, one, bn_eval, True)),
+              flush=True)
+        del got, both, half, want
+        torch.cuda.empty_cache()
+    for bn_eval in (False, True):
+        for k in K.launches:
+            K.launches[k] = 0
+        rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda")
+        check(rec["value"] > 0 and K.launches["bulge_main"] > 0,
+              f"bench_infer: {rec}, launches {K.launches}")
+        for k in counts:
+            counts[k] += K.launches[k]
+        print(f"bench_infer on {smi}: " + json.dumps(rec) + " launches "
+              + json.dumps(K.launches), flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the tiled server and the upscale tool
+# ---------------------------------------------------------------------------
+
+def tiled_upscale_phase():
+    import numpy as np
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "in.png")
+        Image.fromarray((np.random.RandomState(9).rand(70, 90) * 255)
+                        .astype(np.uint8)).save(src)
+        for config, mode, fixture in (
+                ("gray-patch-batch-overlap", "overlap", OVERLAP_FIXTURE),
+                ("gray-patch", "grid", GRID_FIXTURE)):
+            dst = os.path.join(d, mode + ".png")
+            lines = _module(["dcgan_sr_tpu_torch.upscale", "--config", config,
+                             "--mode", mode, "--ckpt", fixture, "--bn-eval",
+                             "--input", src, "--output", dst])
+            check(os.path.isfile(dst) and Image.open(dst).size == (90, 70),
+                  f"upscale --mode {mode} wrote no 70x90 image")
+            psnr = [l for l in lines if l.startswith(f"mode={mode}")]
+            check(len(psnr) == 1 and "PSNR(G)=" in psnr[0], f"{lines}")
+            print(f"upscale --mode {mode}: {psnr[0]}", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -716,6 +1187,7 @@ def main():
     from dcgan_sr_tpu_torch.core import get_config
     from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
     from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
     from dcgan_sr_tpu_torch.ops import preprocess as P
     from dcgan_sr_tpu_torch.serve import SRService
     from dcgan_sr_tpu_torch.train.checkpoint import load_branch
@@ -737,17 +1209,18 @@ def main():
         except Exception as e:      # re-raised below, on the main thread
             failed.append(e)
 
+    sources = ((K, "bulge"), (P, "preprocess"), (F3, "fused_nhwc"))
     threads = [threading.Thread(target=build, args=(mod, name))
-                for mod, name in ((K, "bulge"), (P, "preprocess"))]
+               for mod, name in sources]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if failed:
         raise failed[0]
-    for mod, name in ((K, "bulge"), (P, "preprocess")):
-        print(f"build: csrc/{name}.cu done {took[name]:.1f}s after both "
-              f"nvcc runs started", flush=True)
+    for mod, name in sources:
+        print(f"build: csrc/{name}.cu done {took[name]:.1f}s after the "
+              f"{len(sources)} nvcc runs started", flush=True)
         print(mod.build_log.strip(), flush=True)
 
     cfg = get_config("gray-3", env_override=False)
@@ -781,12 +1254,13 @@ def main():
                 ref = SRService(cfg, plain, max_batch=8, window_ms=0,
                                 bn_eval=not parity, u8_io=True)
                 try:
-                    counts, lat, _ = serve_phase(cfg, parity, ref, log)
+                    counts, lats, _ = serve_phase(cfg, parity, ref, log)
                 finally:
                     ref.close()
                 for k, v in counts.items():
                     launches[k] += v
-                lat_all["parity-bn" if parity else "running"] = lat
+                lat_all["parity-bn" if parity else "running"] = \
+                    lats[256, 256][0]
         except Exception:
             log.seek(0)
             sys.stderr.write(log.read().decode(errors="replace")[-8000:])
@@ -824,7 +1298,75 @@ def main():
           f"{breakdown[False]['images_per_s']} images/s, peak "
           f"{breakdown[False]['peak_memory_GB']} GB, on {smi}", flush=True)
 
-    # phase 9
+    del state
+    torch.cuda.empty_cache()
+
+    # phase 9: K3 against its plain version
+    nhwc_err, nhwc_row = nhwc_phase()
+
+    # phase 10: K2 at the overlap shapes
+    ocfg = get_config("gray-patch-batch-overlap", env_override=False)
+    ospec = generator_spec(ocfg)
+    oparams, ostate = init_network(ospec, torch.Generator().manual_seed(0))
+    with np.load(OVERLAP_FIXTURE) as data:
+        oparams = load_branch(data, "params", oparams)
+        ostate = load_branch(data, "state", ostate)
+    errs["bulge_main"] = max(errs["bulge_main"],
+                             overlap_kernel_phase(oparams, ostate))
+
+    # phase 11: bench_fused, each kernel in a process of its own (counts from 0)
+    benches = bench_fused_phase()
+    for k in launches:
+        launches[k] += benches["bulge"][1][k]
+    nhwc_launches = benches["nhwc"][1]
+
+    # phase 12: the overlap pipeline in this process
+    ofused = Network(ospec, oparams, ostate, device="cuda")
+    oplain = Network(ospec, oparams, ostate, device="cuda", fuse=False)
+    pipe_counts = overlap_phase(ocfg, ofused, oplain, smi)
+    for k in launches:
+        launches[k] += pipe_counts[k]
+    del ofused
+    torch.cuda.empty_cache()
+
+    # phase 13: the tiled server, counts from 0 in each server process
+    tiled_launches = {"bulge_stats": 0, "bulge_main": 0}
+    with tempfile.TemporaryFile() as log:
+        try:
+            for parity in (True, False):
+                ref = SRService(ocfg, oplain, max_batch=8, window_ms=0,
+                                bn_eval=not parity, u8_io=True)
+                try:
+                    counts, lats, _ = serve_phase(
+                        ocfg, parity, ref, log, fixture=OVERLAP_FIXTURE,
+                        timed=((64, 64), (256, 256)),
+                        flip_share=TILED_FLIP_SHARE)
+                finally:
+                    ref.close()
+                check(counts["bulge_main"] > 0 and
+                      (counts["bulge_stats"] > 0) == parity,
+                      f"tiled server launched {counts}")
+                for k, v in counts.items():
+                    tiled_launches[k] += v
+                for (h, w), (lat, batch) in lats.items():
+                    p50 = lat[len(lat) // 2]
+                    print(f"latency (tiled, {'parity-bn' if parity else 'running'}"
+                          f") LR {h}x{w} -> {2 * h}x{2 * w}: client p50 "
+                          f"{p50:.2f} ms, server batch median "
+                          f"{batch[len(batch) // 2]:.2f} ms, "
+                          f"{4 * h * w / 1e6 / (p50 / 1e3):.2f} MP/s out, on "
+                          f"{smi}", flush=True)
+        except Exception:
+            log.seek(0)
+            sys.stderr.write(log.read().decode(errors="replace")[-8000:])
+            raise
+    for k in launches:
+        launches[k] += tiled_launches[k]
+    del oplain
+    torch.cuda.empty_cache()
+    tiled_upscale_phase()
+
+    # phase 14
     shape, r = rows[-1]
     kernels = []
     for name, line, key, plain_key, lib_key in (
@@ -848,6 +1390,19 @@ def main():
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": r["shape"]})
+    for name, line, key in (("fused_nhwc_stats", 197, "stats"),
+                            ("fused_nhwc_main", 224, "main")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
+            "replaces": f"dcgan_sr_tpu/ops/pallas_fused.py:{line}",
+            "launches": nhwc_launches[name], "max_abs_err": nhwc_err[name],
+            "ms": nhwc_row[f"{key}_ms"],
+            "plain_ms": nhwc_row[f"plain_{key}_ms"],
+            "bound_ms": nhwc_row[f"{key}_bound"][0],
+            "bound_by": nhwc_row[f"{key}_bound"][1],
+            "library_ms": nhwc_row[f"lib_{key}_ms"],
+            "shape": nhwc_row["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -50,6 +50,7 @@ constexpr int XS = T + 2;      // stats: x tile + 1-pixel halo
 constexpr int XM = T + 4;      // main: x tile + 2-pixel halo
 constexpr int HP = T + 2;      // main: x positions whose parities cover the hidden tile
 constexpr int HS = 2 * T + 2;  // main: hidden tile side
+constexpr int MAXB = 65535;    // images per launch: the grid's z limit
 
 // acc[p][cm] += the 2x2 sub-conv of parity p = di*2+dj at one x position.
 // v[r][q] = x[i-1+r][j-1+q]; w = wT for one ci, laid out [cm][kh][kw].
@@ -266,9 +267,18 @@ int launch_stats(const float* x, const float* wT, float* partial, int B,
       bulge_stats_kernel<CM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + T - 1) / T, (H + T - 1) / T, B);
-  bulge_stats_kernel<CM><<<grid, NT, smem, stream>>>(x, wT, partial, ci, H, W);
-  return (int)cudaGetLastError();
+  // The tile batches of the overlap pipeline hold more images than the
+  // grid's z dimension takes: they go MAXB images to a launch.
+  const int ntx = (W + T - 1) / T, nty = (H + T - 1) / T;
+  for (int b0 = 0; b0 < B; b0 += MAXB) {
+    const dim3 grid(ntx, nty, B - b0 < MAXB ? B - b0 : MAXB);
+    bulge_stats_kernel<CM><<<grid, NT, smem, stream>>>(
+        x + (size_t)b0 * ci * H * W, wT,
+        partial + (size_t)b0 * nty * ntx * 2 * CM, ci, H, W);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 template <int CM, int CO>
@@ -280,10 +290,16 @@ int launch_main(const float* x, const float* wT, const float* wC,
       bulge_main_kernel<CM, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((W + T - 1) / T, (H + T - 1) / T, B);
-  bulge_main_kernel<CM, CO><<<grid, NT, smem, stream>>>(
-      x, wT, wC, mu, gain, beta, y, ci, H, W);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += MAXB) {   // see launch_stats
+    const dim3 grid((W + T - 1) / T, (H + T - 1) / T,
+                    B - b0 < MAXB ? B - b0 : MAXB);
+    bulge_main_kernel<CM, CO><<<grid, NT, smem, stream>>>(
+        x + (size_t)b0 * ci * H * W, wT, wC, mu + (size_t)b0 * CM,
+        gain + (size_t)b0 * CM, beta, y + (size_t)b0 * CO * H * W, ci, H, W);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // namespace

@@ -19,10 +19,16 @@ import torch
 
 
 def box_downsample2(x):
-    """2x2 box mean over the last two (spatial) dims; works for HW/CHW/NCHW."""
-    h, w = x.shape[-2], x.shape[-1]
-    shape = tuple(x.shape[:-2]) + (h // 2, 2, w // 2, 2)
-    return x.reshape(shape).mean(dim=(-3, -1))
+    """2x2 box mean over the last two (spatial) dims; works for HW/CHW/NCHW.
+
+    Written as ((a + c) + (b + d)) * 0.25 over the four strided views, the
+    order of ops/preprocess.py: three elementwise sums whose rounding does
+    not depend on the tensor's shape (a reduction's may, on the card), so
+    degrading an image and cutting tiles commute bit for bit — what
+    make_overlap_sr_fn's lr_input mode rests on."""
+    a, b = x[..., 0::2, 0::2], x[..., 0::2, 1::2]
+    c, d = x[..., 1::2, 0::2], x[..., 1::2, 1::2]
+    return ((a + c) + (b + d)) * 0.25
 
 
 def rgb2gray(x):

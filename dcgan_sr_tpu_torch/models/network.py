@@ -15,6 +15,9 @@ the plain composition the fused pair is checked against.
 
 BN statistics (`bn_stats` of forward):
   "pooled"     train mode over the batch given (apply_network train=True);
+               with `groups=G`, over each of G equal runs of consecutive
+               images (the overlap pipeline's vmap over images, each one a
+               pooled batch of its own tiles);
   "per_image"  train mode over each image alone (make_full_sr_fn's vmap);
   "running"    eval mode with the running statistics (bn_eval).
 
@@ -125,13 +128,14 @@ class Layer(nn.Module):
             return N.conv2d(x, self.w, sp["s"], sp["p"])
         return N.conv_transpose2d(x, self.w, sp["s"], sp["p"])
 
-    def post(self, x, bn_stats, track_stats=False, logits=False):
+    def post(self, x, bn_stats, track_stats=False, logits=False, groups=None):
         """BN (if any) and the activation that follow this layer's conv."""
         if self.spec.get("bn"):
             x, new = N.batch_norm(
                 x, self.bn_scale, self.bn_bias,
                 state={"mean": self.bn_mean, "var": self.bn_var},
-                train=bn_stats != "running", per_image=bn_stats == "per_image")
+                train=bn_stats != "running", per_image=bn_stats == "per_image",
+                groups=groups)
             if track_stats and bn_stats == "pooled":
                 # in place: no backward reads the running statistics
                 self.bn_mean.copy_(new["mean"].detach())
@@ -139,14 +143,16 @@ class Layer(nn.Module):
         act = self.spec.get("act")
         return x if logits and act == "sigmoid" else _ACTS[act](x)
 
-    def forward(self, x, bn_stats, track_stats=False, logits=False):
+    def forward(self, x, bn_stats, track_stats=False, logits=False,
+                groups=None):
         kind = self.spec["kind"]
         if kind == "upsample":
             return N.upsample_nearest(x, self.spec["factor"])
         if kind == "flatten":
             return x.reshape(x.shape[0], -1)[:, 0]
         if kind in ("conv", "convT"):
-            return self.post(self.conv(x), bn_stats, track_stats, logits)
+            return self.post(self.conv(x), bn_stats, track_stats, logits,
+                             groups)
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -183,9 +189,12 @@ class Network(nn.Module):
         return params, state
 
     def forward(self, x, bn_stats="pooled", *, track_stats=False,
-                logits=False):
+                logits=False, groups=None):
         if bn_stats not in BN_STATS:
             raise ValueError(f"bn_stats must be one of {BN_STATS}")
+        if groups is not None and (bn_stats != "pooled" or track_stats):
+            raise ValueError("groups goes with bn_stats='pooled' and no "
+                             "track_stats")
         if track_stats and self.pairs:
             raise ValueError("track_stats needs fuse=False: the fused pair "
                              "does not move its BN layer's running statistics")
@@ -196,12 +205,12 @@ class Network(nn.Module):
                 nxt = self.layers[i + 1]
                 x, _ = bulge(
                     x, layer.w, layer.bn_scale, layer.bn_bias, nxt.w,
-                    stats=bn_stats,
+                    stats=bn_stats, groups=groups,
                     running=((layer.bn_mean, layer.bn_var)
                              if bn_stats == "running" else None))
-                x = nxt.post(x, bn_stats, track_stats, logits)
+                x = nxt.post(x, bn_stats, track_stats, logits, groups)
                 i += 2
             else:
-                x = layer(x, bn_stats, track_stats, logits)
+                x = layer(x, bn_stats, track_stats, logits, groups)
                 i += 1
         return x

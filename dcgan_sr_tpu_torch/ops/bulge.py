@@ -13,7 +13,9 @@ the package, and loaded with ctypes.
 
 BN statistics of h, three ways (`stats=`):
   "pooled"     over the whole batch — K2's own statistics
-               (pallas_bulge.py:279-283), train-mode BN;
+               (pallas_bulge.py:279-283), train-mode BN; with `groups=G`
+               over each of G equal runs of consecutive images, the overlap
+               pipeline's per-image tile batches (infer/tiled.py);
   "per_image"  over each image alone — make_full_sr_fn's batch-of-one vmap
                (infer/tiled.py), the parity-BN serving path;
   "running"    the given running (mean, var) — BN eval mode, the default
@@ -68,16 +70,17 @@ def build():
 # ---------------------------------------------------------------------------
 
 def bulge_plain(x, wT, scale, bias, wC, *, stats="pooled", running=None,
-                eps=1e-5):
+                groups=None, eps=1e-5):
     """Unfused convT -> BN -> ReLU -> conv with the statistics of `stats`.
 
     Returns (y, (mean, var)): y (B, Co, H, W); mean/var (Cm,), or (B, Cm)
-    for "per_image", or `running` as given."""
+    for "per_image", or (groups, Cm), or `running` as given."""
     h = N.conv_transpose2d(x, wT, 2, 1)
     if stats == "running":
         mean, var = running
     else:
-        mean, var = N.batch_stats(h, per_image=stats == "per_image")
+        mean, var = N.batch_stats(h, per_image=stats == "per_image",
+                                  groups=groups if stats == "pooled" else None)
     hr = N.relu(N.normalize(h, mean, var, scale, bias, eps))
     return N.conv2d(hr, wC, 2, 1), (mean, var)
 
@@ -86,9 +89,12 @@ def bulge_plain(x, wT, scale, bias, wC, *, stats="pooled", running=None,
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _check(x, wT, scale, bias, wC, stats, running):
+def _check(x, wT, scale, bias, wC, stats, running, groups):
     if stats not in STATS_MODES:
         raise ValueError(f"stats must be one of {STATS_MODES}, got {stats!r}")
+    if groups is not None and (groups < 1 or x.shape[0] % groups):
+        raise ValueError(f"batch {x.shape[0]} does not split into {groups} "
+                         f"groups")
     if stats == "running" and running is None:
         raise ValueError("stats='running' needs running=(mean, var)")
     if x.dim() != 4:
@@ -140,15 +146,18 @@ def launch_main(x, wT, wC, mu, gain, beta):
     return y
 
 
-def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None, eps=1e-5):
+def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
+          groups=None, eps=1e-5):
     """y = conv_k4s2p1(relu(bn(convT_k4s2p1(x)))) and the BN (mean, var).
 
     x (B, Ci, H, W) fp32; wT (Ci, Cm, 4, 4) IOHW; wC (Co, Cm, 4, 4) OIHW;
-    scale, bias (Cm,).  See the module docstring for `stats`."""
-    _check(x, wT, scale, bias, wC, stats, running)
+    scale, bias (Cm,).  See the module docstring for `stats` and `groups`."""
+    _check(x, wT, scale, bias, wC, stats, running, groups)
+    if stats != "pooled":
+        groups = None
     if x.device.type == "cpu":
         return bulge_plain(x, wT, scale, bias, wC, stats=stats,
-                           running=running, eps=eps)
+                           running=running, groups=groups, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"bulge runs on cpu or cuda, not {x.device.type}")
     if x.dtype != torch.float32:
@@ -171,13 +180,16 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None, eps=1e-5):
         else:
             # fixed-order fp64 reduction of the per-tile partials
             sums = launch_stats(x, wT).double().sum(dim=1)   # (B, 2, Cm)
-            if stats == "pooled":
-                sums = sums.sum(dim=0, keepdim=True)
-            n = 4.0 * h * w * (bsz if stats == "pooled" else 1)
+            g = bsz if stats == "per_image" else (groups or 1)
+            sums = sums.reshape(g, bsz // g, 2, cm).sum(dim=1)
+            n = 4.0 * h * w * (bsz // g)
             m64 = sums[:, 0] / n
             v64 = sums[:, 1] / n - m64 * m64
-            mu, v = m64.float().expand(bsz, cm), v64.float().expand(bsz, cm)
-            mean, var = (mu[0], v[0]) if stats == "pooled" else (mu, v)
+            mean, var = m64.float(), v64.float()             # (g, Cm)
+            mu = mean.repeat_interleave(bsz // g, dim=0)
+            v = var.repeat_interleave(bsz // g, dim=0)
+            if stats == "pooled" and groups is None:
+                mean, var = mean[0], var[0]
         gain = torch.rsqrt(v + eps) * scale.float()
         y = launch_main(x, wT, wC, mu.contiguous(), gain.contiguous(),
                         bias.float().contiguous())

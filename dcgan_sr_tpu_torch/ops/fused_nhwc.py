@@ -1,0 +1,278 @@
+"""The fused pair in its channels-last, row-band, packed-weight formulation.
+
+Port of dcgan_sr_tpu/ops/pallas_fused.py fused_convT_bn_relu_conv: the same
+function as ops/bulge.py, y = conv_k4s2p1(relu(bn(convT_k4s2p1(x)))) with
+train-mode batch statistics of the hidden tensor, computed the way that
+kernel computes it:
+
+  * x goes NHWC and is cut into bands of `tm` rows;
+  * convT is one product over K = 4*Ci: position (i, j)'s 2x2 window of x
+    against the packed weight `wtall` (4Ci, 4Cm) gives all four output
+    parities at once, p[i, j, (di, dj, cm)] = h[2i - di, 2j - dj, cm];
+  * BN + ReLU run on the parity planes, and the cells that are the
+    consumer's zero padding are zeroed;
+  * the consumer conv is one product over K = 16*Cm: a 2x2 window from each
+    parity plane against the packed weight `wcall` (16Cm, Co).
+
+`fused_convT_bn_relu_conv()` is the entry, with the JAX function's signature
+and return.  On a CPU tensor it runs `fused_nhwc_plain()`, the same packed
+formulation in PyTorch; on a CUDA tensor it launches the hand-written kernel
+(csrc/fused_nhwc.cu, a stats launch and a main launch) and nothing else.
+The NCHW <-> NHWC transposes are torch calls around the launches, as they
+are XLA's around the Pallas calls.  Nothing in the served or trained paths
+calls this module: like its JAX counterpart it is reached from the
+bench_fused tool (--kernel nhwc).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ._build import compile_and_load, stream_ptr as _stream
+
+# Launches of each kernel in this process: a wrapper adds one where it
+# launches its kernel, and nowhere else (CPU calls run the plain version).
+launches = {"fused_nhwc_stats": 0, "fused_nhwc_main": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+build_log = ""
+
+
+def build():
+    """Compile csrc/fused_nhwc.cu (once per source content, ops/_build.py)
+    and load it."""
+    global _lib, build_log
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib, build_log = compile_and_load("fused_nhwc")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_nhwc_chunk.argtypes, lib.fused_nhwc_chunk.restype = [], i
+        lib.fused_nhwc_smem_bytes.argtypes = [i, i, i]
+        lib.fused_nhwc_smem_bytes.restype = ctypes.c_size_t
+        lib.fused_nhwc_stats_f32.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.fused_nhwc_stats_f32.restype = i
+        lib.fused_nhwc_main_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.fused_nhwc_main_f32.restype = i
+        _lib = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# packed weights
+# ---------------------------------------------------------------------------
+
+def _pack_wT(wT):
+    """(Ci, Cm, 4, 4) IOHW -> (4*Ci, 4*Cm): rows (ti, tj, ci), cols
+    (di, dj, cm); block (ti, tj; di, dj) is wT[:, :, 3-di-2ti, 3-dj-2tj]."""
+    ci, cm = wT.shape[0], wT.shape[1]
+    out = wT.new_zeros((4 * ci, 4 * cm))
+    for ti in (0, 1):
+        for tj in (0, 1):
+            r = ti * 2 + tj
+            for di in (0, 1):
+                for dj in (0, 1):
+                    c = di * 2 + dj
+                    out[r * ci:(r + 1) * ci, c * cm:(c + 1) * cm] = \
+                        wT[:, :, 3 - di - 2 * ti, 3 - dj - 2 * tj]
+    return out
+
+
+def _pack_wC(wC):
+    """(Co, Cm, 4, 4) OIHW -> (16*Cm, Co): rows (k = di*2+dj, sa, sb, cm).
+    An even-row plane (di = 0) feeds kernel rows a = 1 + 2*sa, an odd-row
+    plane a = 2*sa; columns likewise."""
+    co, cm = wC.shape[0], wC.shape[1]
+    out = wC.new_zeros((16 * cm, co))
+    for k in range(4):
+        di, dj = k // 2, k % 2
+        for sa in (0, 1):
+            a = (1 + 2 * sa) if di == 0 else 2 * sa
+            for sb in (0, 1):
+                b = (1 + 2 * sb) if dj == 0 else 2 * sb
+                r = (k * 2 + sa) * 2 + sb
+                out[r * cm:(r + 1) * cm, :] = wC[:, :, a, b].T
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain version: the same packed, banded formulation in PyTorch
+# ---------------------------------------------------------------------------
+
+def _band_parts(xl, t, tm, wtall):
+    """Band t of the padded NHWC input -> parity planes (B, tm+1, W+1, 4Cm):
+    the four shifted 2x2 windows side by side, times the packed weight."""
+    w = xl.shape[2] - 2
+    xw = xl[:, t * tm:t * tm + tm + 2]                   # (B, tm+2, W+2, Ci)
+    xp = torch.cat([xw[:, ti:ti + tm + 1, tj:tj + w + 1]
+                    for ti in (0, 1) for tj in (0, 1)], dim=-1)
+    return xp @ wtall
+
+
+def _pad_nhwc(x):
+    """(B, Ci, H, W) -> NHWC with one zero row and column on every side."""
+    return torch.nn.functional.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))
+
+
+def plain_stats(xl, wtall, tm):
+    """Phase 1 in PyTorch: (mean, biased var) of the hidden tensor from the
+    padded NHWC input, each hidden cell counted once: even rows live at plane
+    positions [0, tm), odd rows at [1, tm]; columns alike."""
+    bsz, h, w = xl.shape[0], xl.shape[1] - 2, xl.shape[2] - 2
+    cm = wtall.shape[1] // 4
+    s = xl.new_zeros(cm)
+    sq = xl.new_zeros(cm)
+    for t in range(h // tm):
+        p = _band_parts(xl, t, tm, wtall)
+        for k in range(4):
+            di, dj = k // 2, k % 2
+            blk = p[:, di:di + tm, dj:dj + w, k * cm:(k + 1) * cm]
+            s = s + blk.sum(dim=(0, 1, 2))
+            sq = sq + (blk * blk).sum(dim=(0, 1, 2))
+    n = bsz * (2 * h) * (2 * w)
+    mean = s / n
+    return mean, sq / n - mean * mean                    # biased (torch BN)
+
+
+def plain_main(xl, wtall, wcall, mean, gain, bias, tm):
+    """Phase 2 in PyTorch: recompute the planes, normalize, mask the
+    consumer's padding, consume.  Returns y (B, H, W, Co) NHWC."""
+    h, w = xl.shape[1] - 2, xl.shape[2] - 2
+    cm = wtall.shape[1] // 4
+    n_tiles = h // tm
+    rows = torch.arange(tm + 1, device=xl.device)[:, None]
+    cols = torch.arange(w + 1, device=xl.device)[None, :]
+    bands = []
+    for t in range(n_tiles):
+        p = _band_parts(xl, t, tm, wtall)
+        p = (p - mean.repeat(4)) * gain.repeat(4) + bias.repeat(4)
+        p = torch.clamp_min(p, 0)
+        parts = []
+        for k in range(4):
+            di, dj = k // 2, k % 2
+            m = (cols == w) if dj == 0 else (cols == 0)   # h col 2W / -1
+            if di == 0 and t == n_tiles - 1:
+                m = m | (rows == tm)                     # h row 2H
+            if di == 1 and t == 0:
+                m = m | (rows == 0)                      # h row -1
+            blk = p[..., k * cm:(k + 1) * cm]
+            parts.append(torch.where(m[None, :, :, None],
+                                     torch.zeros_like(blk), blk))
+        yp = torch.cat([parts[k][:, sa:sa + tm, sb:sb + w]
+                        for k in range(4) for sa in (0, 1) for sb in (0, 1)],
+                       dim=-1)                           # (B, tm, W, 16Cm)
+        bands.append(yp @ wcall)
+    return torch.cat(bands, dim=1)
+
+
+def fused_nhwc_plain(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
+    """fused_convT_bn_relu_conv in plain PyTorch, band by band as the kernel
+    goes: returns (y (B, Co, H, W), (mean, biased_var))."""
+    xl = _pad_nhwc(x)
+    wtall, wcall = _pack_wT(wT), _pack_wC(wC)
+    mean, var = plain_stats(xl, wtall, tm)
+    gain = scale / torch.sqrt(var + eps)
+    y = plain_main(xl, wtall, wcall, mean, gain, bias, tm)
+    return y.permute(0, 3, 1, 2).contiguous(), (mean, var)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+def _check(x, wT, scale, bias, wC, tm):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, Ci, H, W), got {tuple(x.shape)}")
+    ci, cm, co = x.shape[1], wT.shape[1], wC.shape[0]
+    if tuple(wT.shape) != (ci, cm, 4, 4) or tuple(wC.shape) != (co, cm, 4, 4):
+        raise ValueError(f"weights must be wT (Ci, Cm, 4, 4) and wC "
+                         f"(Co, Cm, 4, 4); got {tuple(wT.shape)}, "
+                         f"{tuple(wC.shape)} for x {tuple(x.shape)}")
+    if tuple(scale.shape) != (cm,) or tuple(bias.shape) != (cm,):
+        raise ValueError(f"BN vectors must be ({cm},)")
+    if tm < 1 or x.shape[2] % tm:
+        raise ValueError(f"H = {x.shape[2]} must be a multiple of the band "
+                         f"height tm = {tm}")
+    for t in (wT, scale, bias, wC):
+        if t.device != x.device:
+            raise ValueError("all inputs must be on one device")
+
+
+def launch_stats(xn, wtall, tm):
+    """Stats launch: per-(image, band, column chunk) fp32 (sum, sum of
+    squares) of h, shape (B, H/tm, chunks, 2, Cm).  xn (B, H, W, Ci) NHWC,
+    wtall (4Ci, 4Cm): contiguous fp32 CUDA."""
+    lib = build()
+    bsz, h, w, ci = xn.shape
+    cm = wtall.shape[1] // 4
+    chunk = lib.fused_nhwc_chunk()
+    partial = torch.empty((bsz, h // tm, -(-w // chunk), 2, cm),
+                          device=xn.device, dtype=torch.float32)
+    err = lib.fused_nhwc_stats_f32(xn.data_ptr(), wtall.data_ptr(),
+                                   partial.data_ptr(), bsz, h, w, ci, cm, tm,
+                                   _stream(xn))
+    if err:
+        raise RuntimeError(f"fused_nhwc_stats launch failed: cudaError {err}")
+    launches["fused_nhwc_stats"] += 1
+    return partial
+
+
+def launch_main(xn, wtall, wcall, stats, tm):
+    """Main launch: y (B, H, W, Co) NHWC.  stats (3, 4Cm): mean, gain and
+    bias, each tiled over the four parities; all contiguous fp32 CUDA."""
+    lib = build()
+    bsz, h, w, ci = xn.shape
+    cm, co = wtall.shape[1] // 4, wcall.shape[1]
+    y = torch.empty((bsz, h, w, co), device=xn.device, dtype=torch.float32)
+    err = lib.fused_nhwc_main_f32(xn.data_ptr(), wtall.data_ptr(),
+                                  wcall.data_ptr(), stats.data_ptr(),
+                                  y.data_ptr(), bsz, h, w, ci, cm, co, tm,
+                                  _stream(xn))
+    if err:
+        raise RuntimeError(f"fused_nhwc_main launch failed: cudaError {err}")
+    launches["fused_nhwc_main"] += 1
+    return y
+
+
+def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
+    """y = conv_s2p1k4(relu(bn(convT_s2p1k4(x)))) without storing the
+    2x-resolution hidden tensor.
+
+    x: (B, Ci, H, W) fp32, H a multiple of tm; wT: (Ci, Cm, 4, 4) IOHW;
+    wC: (Co, Cm, 4, 4) OIHW; scale/bias: (Cm,).  Returns (y: (B, Co, H, W),
+    (mean, biased_var)) with train-mode batch statistics of the hidden
+    tensor."""
+    _check(x, wT, scale, bias, wC, tm)
+    if x.device.type == "cpu":
+        return fused_nhwc_plain(x, wT, scale, bias, wC, eps=eps, tm=tm)
+    if x.device.type != "cuda":
+        raise ValueError(f"runs on cpu or cuda, not {x.device.type}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the kernel takes float32, got {x.dtype}")
+    lib = build()
+    bsz, ci, h, w = x.shape
+    cm, co = wT.shape[1], wC.shape[0]
+    if 4 * cm > 256:
+        raise ValueError(f"the kernel takes Cm <= 64, got {cm}")
+    smem = lib.fused_nhwc_smem_bytes(ci, cm, co)
+    if smem > 227 * 1024:
+        raise ValueError(f"a band pass needs {smem} B of shared memory "
+                         f"(Ci={ci}, Cm={cm}, Co={co}); the card offers 232448")
+    with torch.cuda.device(x.device):
+        xn = x.permute(0, 2, 3, 1).contiguous()
+        wtall = _pack_wT(wT.float()).contiguous()
+        wcall = _pack_wC(wC.float()).contiguous()
+        # fixed-order fp64 reduction of the per-block partials
+        sums = launch_stats(xn, wtall, tm).double().sum(dim=(0, 1, 2))
+        n = 4.0 * h * w * bsz
+        m64 = sums[0] / n
+        mean, var = m64.float(), (sums[1] / n - m64 * m64).float()
+        gain = torch.rsqrt(var + eps) * scale.float()
+        stats = torch.stack([mean.repeat(4), gain.repeat(4),
+                             bias.float().repeat(4)]).contiguous()
+        y = launch_main(xn, wtall, wcall, stats, tm)
+    return y.permute(0, 3, 1, 2).contiguous(), (mean, var)

@@ -73,12 +73,20 @@ def conv_transpose2d(x, w, stride=2, padding=1):
     return _Conv.apply(x, w, stride, padding, True)
 
 
-def batch_stats(x, per_image=False):
+def batch_stats(x, per_image=False, groups=None):
     """(mean, biased var) over (N, H, W), or over (H, W) of each image with
-    `per_image` ((N, C) results).  var = E[x^2] - mean^2 in fp32, the JAX
-    package's formula (ops/nn.py batch_norm)."""
-    dims = (2, 3) if per_image else (0, 2, 3)
+    `per_image` ((N, C) results), or pooled within each of `groups` equal
+    runs of consecutive images ((groups, C) results).  var = E[x^2] - mean^2
+    in fp32, the JAX package's formula (ops/nn.py batch_norm)."""
     xf = x.float()
+    if groups is not None and not per_image:
+        n, c, h, w = xf.shape
+        if n % groups:
+            raise ValueError(f"batch {n} does not split into {groups} groups")
+        xf = xf.reshape(groups, n // groups, c, h, w)
+        dims = (1, 3, 4)
+    else:
+        dims = (2, 3) if per_image else (0, 2, 3)
     mean = xf.mean(dims)
     mean_sq = (xf * xf).mean(dims)
     return mean, mean_sq - mean * mean
@@ -86,18 +94,23 @@ def batch_stats(x, per_image=False):
 
 def normalize(x, mean, var, scale, bias, eps=1e-5):
     """(x - mean) * (rsqrt(var + eps) * scale) + bias, in the exact fp32
-    order of the JAX package.  mean/var are (C,) or per-image (N, C)."""
+    order of the JAX package.  mean/var are (C,), per-image (N, C), or per
+    group (G, C) with N a multiple of G (consecutive images share a row)."""
     inv = torch.rsqrt(var + eps)
     a = inv * scale
     if mean.dim() == 1:
         return (x - mean[None, :, None, None]) * a[None, :, None, None] \
             + bias[None, :, None, None]
+    if mean.shape[0] != x.shape[0]:
+        rep = x.shape[0] // mean.shape[0]
+        mean = mean.repeat_interleave(rep, dim=0)
+        a = a.repeat_interleave(rep, dim=0)
     return (x - mean[:, :, None, None]) * a[:, :, None, None] \
         + bias[None, :, None, None]
 
 
 def batch_norm(x, scale, bias, *, state=None, train=True, per_image=False,
-               eps=1e-5, momentum=0.1):
+               groups=None, eps=1e-5, momentum=0.1):
     """Torch SpatialBatchNormalization semantics.
 
     Train mode normalizes with biased batch statistics over (N, H, W), or
@@ -108,13 +121,13 @@ def batch_norm(x, scale, bias, *, state=None, train=True, per_image=False,
 
     Returns (y, new_state); new_state = {"mean", "var"} running stats after
     a train-mode step (unbiased var, momentum 0.1, Torch defaults), None when
-    `state` is None or the statistics are per image.
+    `state` is None or the statistics are per image or per group.
     """
     if not train:
         return normalize(x, state["mean"], state["var"], scale, bias, eps), state
-    mean, var = batch_stats(x, per_image)
+    mean, var = batch_stats(x, per_image, groups)
     new_state = None
-    if state is not None and not per_image:
+    if state is not None and not per_image and groups is None:
         n = x.shape[0] * x.shape[2] * x.shape[3]
         unbiased = var * (n / max(n - 1, 1))
         new_state = {

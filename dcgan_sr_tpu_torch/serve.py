@@ -1,19 +1,24 @@
-"""Persistent batched SR serving on the card (port of the full-image branch of
-tools/serve.py).
+"""Persistent batched SR serving on the card (port of tools/serve.py).
 
 One process holds the generator on its device and serves HTTP requests with
 micro-batching: concurrent requests within a short window coalesce into one
-batched generator call.  Full-image configs (gray-3, and the other non-patch
-variants) feed the whole image to their fully-convolutional net-2x
-generator (infer/tiled.py make_full_sr_fn); pm1 variants' [-1,1] range
-conversion happens inside the service, so HTTP is [0,1] image bytes end to
-end.  The default compute path is true-2x input with running-stats BN
-(bn_eval); `--parity-bn` normalizes each image with its own statistics, the
-reference's math.  The gray-3 generator's layers 3-4 run through the fused
-bulge kernel (ops/bulge.py).
+batched pipeline call.  Every variant serves: patch configs (gray-patch*,
+…-overlap) run the overlap-tile pipeline (infer/tiled.py
+make_overlap_sr_fn, seam-stitched output); full-image configs (gray-3, and
+the other non-patch variants) feed the whole image to their
+fully-convolutional net-2x generator (make_full_sr_fn).  pm1 variants'
+[-1,1] range conversion happens inside the service, so HTTP is [0,1] image
+bytes end to end.  The default compute path is true-2x input with
+running-stats BN (bn_eval) and, for patch configs, the flat (N*T)-tile
+generator call; `--parity-bn` normalizes each image (each image's tiles)
+with its own statistics, the reference's math.  The generators' fusable
+convT+BN+ReLU+conv pair (gray-3 and the patch variants' layers 3-4) runs
+through the fused bulge kernel (ops/bulge.py).
 
   python -m dcgan_sr_tpu_torch.serve --config gray-3 \
       --ckpt fixtures/gray3_textured_net_G.npz --port 8000
+  python -m dcgan_sr_tpu_torch.serve --config gray-patch-batch-overlap \
+      --ckpt fixtures/overlap_textured_net_G.npz --port 8000
   curl --data-binary @face.png http://localhost:8000/upscale > face_sr.png
 
 Endpoints:
@@ -24,13 +29,14 @@ Endpoints:
   GET  /healthz      JSON: ready, LR buckets, request/batch/error counters,
                      batch latency percentiles, kernel launch counts.
 
-Each input dimension is edge-padded to a small ladder of bucket extents, and
-batches to power-of-two sizes, exactly as the JAX server does.  Eager
-PyTorch compiles nothing per shape, but the ladder is kept because it is
-part of the result: under per-image batch-statistics BN (--parity-bn) the
-padding enters each image's statistics, so the same ladder gives the same
+Each input dimension is edge-padded to a small ladder of pipeline-legal
+bucket extents, and batches to power-of-two sizes, exactly as the JAX server
+does.  Eager PyTorch compiles nothing per shape, but the ladder is kept
+because it is part of the result: under per-image batch-statistics BN
+(--parity-bn) the padding enters each image's statistics, and the overlap
+tiling needs legal extents anyway, so the same ladder gives the same
 answers as the JAX server.  There is no --warmup: there is nothing to
-compile.
+compile.  Not yet ported, and refused by name: --t7, --bf16.
 """
 
 from __future__ import annotations
@@ -46,37 +52,49 @@ import time
 import numpy as np
 import torch
 
-from .infer.tiled import make_full_sr_fn
+from .infer.tiled import lr_pad_dim, make_full_sr_fn, make_overlap_sr_fn
 from .ops import bulge as bulge_ops
 
 
+MODES = ("2x", "restore")
+
+
 class SRService:
-    """Owns the generator: per-mode full-image pipelines + a dispatcher
-    thread that coalesces queued requests into batched device calls.
+    """Owns the generator: per-bucket pipelines + a dispatcher thread that
+    coalesces queued requests into batched device calls.
 
     `submit(img_hw, mode)` is thread-safe and blocks until the result is
     ready; all device work happens on the single dispatcher thread."""
 
     def __init__(self, cfg, net, *, max_size=256, max_batch=8,
-                 window_ms=5.0, bn_eval=True, u8_io=False):
-        if cfg.patch_based:
+                 window_ms=5.0, bn_eval=True, self_ensemble=1,
+                 compute_dtype=None, u8_io=False):
+        if compute_dtype is not None:
             raise NotImplementedError(
-                f"{cfg.variant}: the overlap-tile pipeline of the patch "
-                "variants is not yet ported")
+                "compute_dtype: reduced-precision (bf16) serving is not yet "
+                "ported")
         self.cfg = cfg
         self.net = net
         self.device = net.device
         self.max_batch = int(max_batch)
         self.window_s = float(window_ms) / 1e3
         self.bn_eval = bool(bn_eval)
+        self.self_ensemble = int(self_ensemble)
         # uint8 device I/O: the [0,1]<->byte conversion (and the pm1 range
         # map) runs on the device, so host<->device copies carry 1 byte/px
         # instead of 4; responses are identical to quantizing the float path
         self.u8_io = bool(u8_io)
+        # patch variants serve through the overlap-tile pipeline (their G maps
+        # 4x4 tiles); full-image variants feed the whole image to their G
+        self.tiled = cfg.patch_based
         self.pm1 = cfg.data_range == "pm1"
-        # LR-extent ladder: ~1.5x steps snapped to even extents, from the
-        # training grid (fineSize/2) up to max_size
-        snap = lambda d: d + (d % 2)           # noqa: E731
+        if self.tiled:
+            p, ov = cfg.patchSize, cfg.overlap
+            snap = lambda d: lr_pad_dim(d, p, ov)  # noqa: E731
+        else:
+            snap = lambda d: d + (d % 2)           # noqa: E731  even extents
+        # LR-extent ladder: ~1.5x steps snapped to pipeline-legal extents,
+        # from the training grid (fineSize/2) up to max_size
         buckets, d = [], cfg.fineSize // 2
         while d < max_size:
             b = snap(d)
@@ -84,9 +102,7 @@ class SRService:
                 buckets.append(b)
             d = int(d * 1.5)
         self.buckets = buckets + [snap(max_size)]
-        self._fns = {mode: make_full_sr_fn(net, bn_eval=self.bn_eval,
-                                           lr_input=mode == "2x")
-                     for mode in ("2x", "restore")}
+        self._fns = {}            # (bh, bw, mode) -> pipeline
         self._q = queue.Queue()
         self.stats = {"requests": 0, "batches": 0, "errors": 0}
         self._stats_lock = threading.Lock()  # handler threads + dispatcher
@@ -116,8 +132,8 @@ class SRService:
     def _validate(self, img, mode):
         """Reject malformed requests in the CALLER's thread, before they can
         reach the queue and poison a coalesced batch."""
-        if mode not in self._fns:
-            raise ValueError(f"mode must be one of {sorted(self._fns)}")
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {sorted(MODES)}")
         nc = self.cfg.nc
         ok = img.ndim == 2 if nc == 1 else (img.ndim == 3
                                             and img.shape[0] == nc)
@@ -134,6 +150,28 @@ class SRService:
                 f"image {h}x{w} (LR {'x'.join(map(str, self._lr_extent(h, w, mode)))}) "
                 f"exceeds max bucket {self.buckets[-1]} (raise --max-size)"
             ) from None
+
+    def _fn(self, bh, bw, mode):
+        """(bh, bw, mode) -> pipeline(batch) -> SR batch.
+
+        Tiled: (N, H, W) in / (N, ·, ·) seam-stitched out, one pipeline per
+        bucket pair (its index tables belong to the geometry).  Full-image:
+        (N, nc, H, W) in / out, one pipeline per mode.  Range is the
+        generator's own (see _run_batch)."""
+        key = (bh, bw, mode) if self.tiled else (None, None, mode)
+        if key not in self._fns:
+            lr_input = mode != "restore"        # restore = eval protocol
+            if self.tiled:
+                fn = make_overlap_sr_fn(
+                    self.cfg, self.net, fine=(2 * bh, 2 * bw),
+                    lr_input=lr_input, bn_eval=self.bn_eval,
+                    self_ensemble=self.self_ensemble)
+                self._fns[key] = lambda x, _fn=fn: _fn(x)["seam"]
+            else:
+                self._fns[key] = make_full_sr_fn(
+                    self.net, lr_input=lr_input, bn_eval=self.bn_eval,
+                    self_ensemble=self.self_ensemble)
+        return self._fns[key]
 
     def _count(self, key, n=1):
         with self._stats_lock:
@@ -229,11 +267,12 @@ class SRService:
         n = len(batch)
         # power-of-two batch bucket; per-image results do not depend on the
         # padding images in either BN mode (running stats, or per-image
-        # statistics)
+        # statistics: each image's tiles for patch configs, each image for
+        # full-image configs)
         n2 = 1 << (n - 1).bit_length()
         if n2 > n:
             batch = np.concatenate([batch, batch[:1].repeat(n2 - n, axis=0)])
-        if batch.ndim == 3:                  # (N, H, W) -> NCHW
+        if not self.tiled and batch.ndim == 3:   # full pipeline wants NCHW
             batch = batch[:, None]
         t0 = time.monotonic()
         if self.u8_io:
@@ -244,7 +283,7 @@ class SRService:
                                  ).to(self.device)
         if self.pm1:                # HTTP is [0,1]; the G trains on [-1,1]
             x = x * 2.0 - 1.0
-        y = self._fns[mode](x)
+        y = self._fn(bh, bw, mode)(x)
         if self.pm1:
             y = (y + 1.0) * 0.5
         if self.u8_io:
@@ -254,7 +293,7 @@ class SRService:
             sr = y.cpu().numpy()[:n]          # host copy closes the dispatch
         self._lat_ms.append((time.monotonic() - t0) * 1e3)
         del self._lat_ms[:-256]               # ring of recent batch latencies
-        if self.cfg.nc == 1:
+        if not self.tiled and self.cfg.nc == 1:
             sr = sr[:, 0]
         self._count("requests", n)
         self._count("batches")
@@ -281,6 +320,7 @@ class SRService:
             "config": self.cfg.variant,
             "device": str(self.device),
             "bn_eval": self.bn_eval,
+            "tiled": self.tiled,
             "buckets_lr": self.buckets,
             **counters,
             "batch_ms_p50": pct(0.5), "batch_ms_p95": pct(0.95),
@@ -374,6 +414,10 @@ def main(argv=None):
     ap.add_argument("--parity-bn", action="store_true",
                     help="per-image train-mode BN (the reference's math) "
                          "instead of the default running-stats quality mode")
+    ap.add_argument("--self-ensemble", type=int, default=1,
+                    choices=(1, 2, 4, 8))
+    ap.add_argument("--t7", help="not yet ported (reference Torch checkpoint)")
+    ap.add_argument("--bf16", action="store_true", help="not yet ported")
     ap.add_argument("--u8-io", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="uint8 device I/O (default ON): byte<->[0,1] (and "
@@ -383,6 +427,11 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
+    if args.t7:
+        raise NotImplementedError("--t7: .t7 checkpoint import is not yet "
+                                  "ported")
+    if args.bf16:
+        raise NotImplementedError("--bf16: bf16 compute is not yet ported")
 
     from .core import get_config
     from .train.checkpoint import load_generator
@@ -399,7 +448,8 @@ def main(argv=None):
     print(msg)
     service = SRService(cfg, net, max_size=args.max_size,
                         max_batch=args.max_batch, window_ms=args.window_ms,
-                        bn_eval=not args.parity_bn, u8_io=args.u8_io)
+                        bn_eval=not args.parity_bn,
+                        self_ensemble=args.self_ensemble, u8_io=args.u8_io)
     srv = make_http_server(service, args.port, args.host)
     print(f"serving {cfg.variant} on http://{args.host}:{args.port} "
           f"({device}, LR buckets {service.buckets}, max_batch "

@@ -1,18 +1,23 @@
-"""Upscale images with a trained generator on the card (port of the full-image
-branch of tools/upscale.py).
+"""Upscale images with a trained generator on the card (port of
+tools/upscale.py).
 
-Full-image SR for the non-patch configs (gray-3, and rgb-full/gray/gray-2),
-from a framework checkpoint (.npz).  Default is the reference's eval
-protocol: degrade the input 2x2 internally, restore it at its own size and
-print PSNR against the original beside the bilinear control.  --true-2x
-treats the input as the LOW-RES image and writes a 2Hx2W output.  A
-directory input runs every image through one batched generator call.
+Covers the reference's sample-making flows as a tool: full-image SR (gray-3,
+and rgb-full/gray/gray-2), grid-patch SR, or overlap-tile SR with seam-cut
+stitching (the patch configs), from a framework checkpoint (.npz).  Default
+is the reference's eval protocol: degrade the input 2x2 internally, restore
+it at its own size and print PSNR against the original beside the bilinear
+control.  --true-2x treats the input as the LOW-RES image and writes a
+2Hx2W output.  A directory input runs every image through one batched
+pipeline call.
 
   python -m dcgan_sr_tpu_torch.upscale --config gray-3 \
       --ckpt fixtures/gray3_textured_net_G.npz --input face.jpg --output sr.png
+  python -m dcgan_sr_tpu_torch.upscale --config gray-patch-batch-overlap \
+      --mode overlap --ckpt fixtures/overlap_textured_net_G.npz \
+      --input face.jpg --output sr.png
 
-Grid and overlap modes (the patch configs, with --both-seams),
-self-ensembling, data parallelism and .t7 import are not yet ported.
+Not yet ported, and refused by name: --dp (data parallelism), --t7 (.t7
+import), --bf16.
 """
 
 from __future__ import annotations
@@ -36,26 +41,40 @@ def _psnr(nc, a, b):
     return float(cal_psnr_batch(a, b).mean())
 
 
+def _not_ported(args):
+    for flag, what in (("dp", "--dp: data-parallel inference"),
+                       ("t7", "--t7: .t7 checkpoint import"),
+                       ("bf16", "--bf16: bf16 compute")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"{what} is not yet ported")
+
+
 def batch_upscale(args, cfg, net):
-    """Directory mode: ONE batched SR call over all images, edge-padded to a
-    common (Hp, Wp) and cropped back."""
+    """Directory mode: ONE batched SR call over all images.  Patch configs
+    run the overlap-tile pipeline; full-image configs run their net-2x
+    generator on whole images.  Images of mixed sizes are edge-padded to a
+    common pipeline-legal (Hp, Wp) and cropped back."""
     from .image.io import load_image, save_image
     from .image.ops import box_downsample2, resize_bilinear
-    from .infer.tiled import make_full_sr_fn
+    from .infer.tiled import (lr_pad_dim, make_full_sr_fn,
+                              make_overlap_sr_fn, overlap_pad_dim)
 
     names = sorted(n for n in os.listdir(args.input)
                    if n.lower().endswith(_IMG_EXT))
     if not names:
         sys.exit(f"no images in {args.input}")
-    nc = cfg.nc
+    nc, tiled = cfg.nc, cfg.patch_based
     imgs = [load_image(os.path.join(args.input, n), nc=nc) for n in names]
     imgs = [im[0] if nc == 1 else im for im in imgs]   # (H,W) / (C,H,W)
     sizes = [im.shape[-2:] for im in imgs]
+    p, ov = cfg.patchSize, cfg.overlap
 
     def pad_dim(d):
-        # the net-2x full-image G maps any integer extent to twice itself;
-        # the protocol's 2x2 degrade needs even extents
-        return d if args.true_2x else d + (d % 2)
+        if args.true_2x:
+            # LR inputs: overlap tiling needs lr-legal extents; the net-2x
+            # full-image G maps any integer extent to exactly twice itself
+            return lr_pad_dim(d, p, ov) if tiled else d
+        return overlap_pad_dim(d, p, ov) if tiled else d + (d % 2)
 
     Hp = pad_dim(max(h for h, _ in sizes))
     Wp = pad_dim(max(w for _, w in sizes))
@@ -64,17 +83,26 @@ def batch_upscale(args, cfg, net):
                + [(0, Hp - im.shape[-2]), (0, Wp - im.shape[-1])],
                mode="edge") for im in imgs])
     n = len(batch)
-    full_fn = make_full_sr_fn(net, lr_input=args.true_2x, bn_eval=args.bn_eval)
+    ens = dict(self_ensemble=args.self_ensemble,
+               ensemble_batched=args.ensemble_batched)
+    if tiled:
+        fine = (2 * Hp, 2 * Wp) if args.true_2x else (Hp, Wp)
+        ov_fn = make_overlap_sr_fn(cfg, net, fine=fine, lr_input=args.true_2x,
+                                   bn_eval=args.bn_eval,
+                                   both_seams=args.both_seams, **ens)
+        fn = lambda x: ov_fn(x)["seam"]                   # noqa: E731
+    else:
+        full_fn = make_full_sr_fn(net, lr_input=args.true_2x,
+                                  bn_eval=args.bn_eval, **ens)
+        if nc == 1:
+            fn = lambda x: full_fn(x[:, None])[:, 0]      # noqa: E731
+        else:
+            fn = full_fn
     pm1 = cfg.data_range == "pm1"
     x = torch.from_numpy(batch * 2.0 - 1.0 if pm1 else batch).to(net.device)
-    if nc == 1:
-        x = x[:, None]
     t0 = time.perf_counter()
-    out = full_fn(x)
-    sr_all = out.cpu().numpy()
+    sr_all = fn(x).cpu().numpy()
     dt = time.perf_counter() - t0
-    if nc == 1:
-        sr_all = sr_all[:, 0]
     if pm1:
         sr_all = (sr_all + 1.0) * 0.5
     os.makedirs(args.output, exist_ok=True)
@@ -117,29 +145,44 @@ def main(argv=None):
                     help="treat --input as the LOW-RES image (or directory) "
                          "and emit 2Hx2W output; without it the tool runs "
                          "the reference's eval protocol")
+    ap.add_argument("--both-seams", action="store_true",
+                    help="overlap mode: intent-mode stitching (interior "
+                         "patches keep the top seam outside the left band) "
+                         "instead of the committed reference behavior")
     ap.add_argument("--ema", action="store_true",
                     help="use the EMA generator branch of a --ckpt trained "
                          "with --g-ema")
+    ap.add_argument("--self-ensemble", type=int, default=1, metavar="N",
+                    choices=(1, 2, 4, 8),
+                    help="average G over N dihedral transforms of its input "
+                         "(all modes; per-tile in grid/overlap — "
+                         "infer/ensemble.py)")
+    ap.add_argument("--ensemble-batched", action="store_true",
+                    help="run the N ensemble members as ONE (N*B)-batch "
+                         "generator call; exact with --bn-eval, "
+                         "pooled-BN-stats variant in train mode "
+                         "(infer/ensemble.py)")
+    ap.add_argument("--dp", action="store_true",
+                    help="not yet ported (data-parallel batch mode)")
+    ap.add_argument("--t7", help="not yet ported (reference Torch checkpoint)")
+    ap.add_argument("--bf16", action="store_true", help="not yet ported")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
+    _not_ported(args)
 
     from .core import get_config
     from .image.io import load_image, save_image
     from .image.ops import box_downsample2, resize_bilinear
-    from .infer.tiled import make_full_sr_fn, make_generator_fn, sr_full_image
+    from .infer.tiled import (lr_pad_dim, make_full_sr_fn, make_generator_fn,
+                              make_overlap_sr_fn, overlap_pad_dim,
+                              sr_full_image, sr_grid_patches,
+                              sr_overlap_image)
     from .metrics import cal_psnr
     from .train.checkpoint import load_generator
     from .utils.device import pick_device
 
     cfg = get_config(args.config)  # env-var overrides apply (ngf=…, etc.)
-    mode = args.mode
-    if mode == "auto":
-        mode = ("overlap" if cfg.variant.endswith("overlap")
-                else "grid" if cfg.patch_based else "full")
-    if mode != "full":
-        raise NotImplementedError(
-            f"--mode {mode} is not yet ported (full-image SR only)")
 
     device = pick_device(args.cpu)
     try:
@@ -160,12 +203,31 @@ def main(argv=None):
     H, W = hw.shape[-2], hw.shape[-1]
     pm1 = cfg.data_range == "pm1"
 
-    if args.true_2x:        # net-2x G: feed the LR directly
-        fn = make_full_sr_fn(net, lr_input=True, bn_eval=args.bn_eval)
-        net_in = torch.from_numpy(hw * 2.0 - 1.0 if pm1 else hw).to(device)
-        x = net_in[None, None] if cfg.nc == 1 else net_in[None]
-        sr = fn(x)[0].cpu().numpy()
-        sr = sr[0] if cfg.nc == 1 else sr
+    ens = dict(self_ensemble=args.self_ensemble,
+               ensemble_batched=args.ensemble_batched)
+
+    if args.true_2x:
+        hw_np = np.asarray(hw)
+        if cfg.patch_based:     # overlap-tile true-2x (half-geometry tiles)
+            p, ov = cfg.patchSize, cfg.overlap
+            Hp, Wp = lr_pad_dim(H, p, ov), lr_pad_dim(W, p, ov)
+            if (Hp, Wp) != (H, W):
+                hw_np = np.pad(hw_np, [(0, Hp - H), (0, Wp - W)], mode="edge")
+                print(f"padded LR {H}x{W} -> {Hp}x{Wp} for overlap tiling")
+            fn = make_overlap_sr_fn(cfg, net, fine=(2 * Hp, 2 * Wp),
+                                    lr_input=True, bn_eval=args.bn_eval,
+                                    both_seams=args.both_seams, **ens)
+            net_in = torch.from_numpy(
+                hw_np * 2.0 - 1.0 if pm1 else hw_np).to(device)
+            sr = fn(net_in[None])["seam"][0].cpu().numpy()
+        else:                   # full-image net-2x G: feed the LR directly
+            fn = make_full_sr_fn(net, lr_input=True, bn_eval=args.bn_eval,
+                                 **ens)
+            net_in = torch.from_numpy(
+                hw_np * 2.0 - 1.0 if pm1 else hw_np).to(device)
+            x = net_in[None, None] if cfg.nc == 1 else net_in[None]
+            sr = fn(x)[0].cpu().numpy()
+            sr = sr[0] if cfg.nc == 1 else sr
         if pm1:
             sr = (sr + 1.0) * 0.5
         save_image(args.output, np.clip(sr[..., :2 * H, :2 * W], 0, 1))
@@ -173,8 +235,25 @@ def main(argv=None):
         print(f"wrote {args.output}")
         return
 
-    # native-size SR: pad to even extents (the 2x2 degrade), crop after
-    Hp, Wp = H + H % 2, W + W % 2
+    mode = args.mode
+    if mode == "auto":
+        mode = ("overlap" if cfg.variant.endswith("overlap")
+                else "grid" if cfg.patch_based else "full")
+
+    # native-size SR: pad to the mode's tiling requirement, crop after.  The
+    # reference's patch machinery exists exactly so a tiny fixed-size G
+    # covers any image (train-gray-patch-batch-overlap.lua:387-399); here
+    # rectangular H x W generalizes by construction.
+    def pad_to(d):
+        p, ov = cfg.patchSize, cfg.overlap
+        if mode == "grid":
+            q = p if p % 2 == 0 else 2 * p   # patch grid + even (degrade)
+            return max(-(-d // q) * q, p)
+        if mode == "overlap":
+            return overlap_pad_dim(d, p, ov)
+        return d + (d % 2)                    # full-conv G: even dims
+
+    Hp, Wp = pad_to(H), pad_to(W)
     hw_np = np.asarray(hw)
     if (Hp, Wp) != (H, W):
         pad = [(0, 0)] * (hw_np.ndim - 2) + [(0, Hp - H), (0, Wp - W)]
@@ -182,9 +261,15 @@ def main(argv=None):
         hw_np = np.pad(hw_np, pad, mode=pad_mode)
         print(f"padded {H}x{W} -> {Hp}x{Wp} for {mode} tiling")
 
-    gen = make_generator_fn(net, bn_eval=args.bn_eval)
+    gen = make_generator_fn(net, bn_eval=args.bn_eval, **ens)
     net_in = torch.from_numpy(hw_np * 2.0 - 1.0 if pm1 else hw_np).to(device)
-    fake, _ = sr_full_image(gen, net_in)
+    if mode == "overlap":
+        fake = sr_overlap_image(cfg, gen, net_in,
+                                both_seams=args.both_seams)["seam"]
+    elif mode == "grid":
+        fake = sr_grid_patches(cfg, gen, net_in)
+    else:
+        fake, _ = sr_full_image(gen, net_in)
     fake = fake.cpu().numpy()[..., :H, :W]
     if pm1:
         fake = (fake + 1.0) * 0.5

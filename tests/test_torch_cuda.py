@@ -20,6 +20,7 @@ from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.infer.tiled import make_full_sr_fn
 from dcgan_sr_tpu_torch.models import Network
 from dcgan_sr_tpu_torch.ops import bulge as K
+from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
 from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.ops import preprocess as P
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
@@ -31,6 +32,8 @@ STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 Y_TOL = dict(rtol=2e-4, atol=2e-4)
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures", "gray3_textured_net_G.npz")
+PATCH_FIXTURE = os.path.join(os.path.dirname(FIXTURE),
+                             "overlap_textured_net_G.npz")
 
 
 @pytest.fixture
@@ -87,6 +90,97 @@ def test_fused_generator_matches_unfused_on_card(cuda, bn_eval):
     want = make_full_sr_fn(plain, bn_eval=bn_eval, lr_input=True)(x)
     assert K.launches["bulge_main"] == n0 + 1
     np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-5)
+
+
+# ---- K2 at the overlap pipeline's shapes ------------------------------------
+
+@pytest.mark.parametrize("bsz,groups", [(225, None), (450, 2), (900, 4)])
+def test_kernel_at_ci32_with_grouped_statistics(cuda, bsz, groups):
+    """Ci 32 / Cm 16 / Co 32 on 32x32 tiles, statistics pooled within each
+    image's 225 tiles."""
+    t = _inputs(bsz, 32, 16, 32, 32, 32, cuda, seed=2)
+    y, (m, v) = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                        groups=groups)
+    yp, (mp, vp) = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"],
+                                 t["wC"], groups=groups)
+    torch.cuda.synchronize()
+    assert m.shape == ((groups, 16) if groups else (16,))
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+    if groups:      # a group's result is the result of that group alone
+        lo = bsz // groups
+        y1, _ = K.bulge(t["x"][lo:2 * lo], t["wT"], t["scale"], t["bias"],
+                        t["wC"])
+        np.testing.assert_allclose(y[lo:2 * lo].cpu(), y1.cpu(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_kernel_takes_more_images_than_a_grid_dimension(cuda):
+    """70,000 images of 16x16: more than the grid's z dimension takes, so
+    the wrapper's one call goes in two launches."""
+    t = _inputs(70000, 8, 4, 8, 16, 16, cuda, seed=3)
+    run = (t["rmean"], t["rvar"])
+    y, _ = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                   stats="running", running=run)
+    yp, _ = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                          stats="running", running=run)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+@pytest.mark.parametrize("bn_eval", [False, True])
+def test_overlap_pipeline_fused_matches_unfused_on_card(cuda, bn_eval):
+    from dcgan_sr_tpu_torch.infer.seam import seam_stitch
+    from dcgan_sr_tpu_torch.infer.tiled import make_overlap_sr_fn
+    cfg = get_config("gray-patch-batch-overlap", env_override=False)
+    fused, _ = load_generator(cfg, PATCH_FIXTURE, device=cuda)
+    plain = Network(fused.spec, *_lists(fused), device=cuda, fuse=False)
+    imgs = torch.rand((3, 64, 64), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(0))
+    n0 = dict(K.launches)
+    got = make_overlap_sr_fn(cfg, fused, bn_eval=bn_eval)(imgs)
+    assert K.launches["bulge_main"] == n0["bulge_main"] + 1
+    assert K.launches["bulge_stats"] == n0["bulge_stats"] + (not bn_eval)
+    want = make_overlap_sr_fn(cfg, plain, bn_eval=bn_eval)(imgs)
+    np.testing.assert_allclose(got["tiles"].cpu(), want["tiles"].cpu(), **Y_TOL)
+    np.testing.assert_allclose(got["naive"].cpu(), want["naive"].cpu(), **Y_TOL)
+    for g, t in zip(got["seam"].cpu().numpy(), got["tiles"].cpu().numpy()):
+        np.testing.assert_array_equal(g, seam_stitch(t, 64, 8, 4))
+
+
+# ---- K3: the channels-last fused pair ---------------------------------------
+
+@pytest.mark.parametrize("geom,tm", [
+    ((2, 5, 4, 6, 16, 16), 8), ((1, 16, 8, 16, 32, 32), 16),
+    ((3, 3, 2, 3, 8, 8), 8), ((1, 4, 2, 4, 12, 37), 6),
+    ((2, 32, 16, 32, 32, 32), 16), ((2, 16, 8, 16, 64, 100), 32)])
+def test_nhwc_kernel_matches_plain(cuda, geom, tm):
+    t = _inputs(*geom, cuda, seed=4)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    n0 = dict(F3.launches)
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
+    assert F3.launches == {k: c + 1 for k, c in n0.items()}
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
+    yu, _ = K.bulge_plain(*args)
+    torch.cuda.synchronize()
+    assert F3.launches == {k: c + 1 for k, c in n0.items()}
+    assert y.shape == yp.shape and y.is_contiguous()
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+    np.testing.assert_allclose(y.cpu(), yu.cpu(), **Y_TOL)
+
+
+def test_nhwc_kernel_rejects_what_it_does_not_take(cuda):
+    t = _inputs(1, 3, 2, 3, 8, 8, cuda)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    n0 = dict(F3.launches)
+    with pytest.raises(ValueError, match="multiple of the band height"):
+        F3.fused_convT_bn_relu_conv(*args, tm=3)
+    with pytest.raises(ValueError, match="float32"):
+        F3.fused_convT_bn_relu_conv(t["x"].double(), *args[1:], tm=8)
+    assert F3.launches == n0
 
 
 def _lists(net):

@@ -34,7 +34,10 @@ def test_port_modules_import_no_jax():
     for m in ("ops.bulge", "ops.preprocess", "ops._build", "ops.adam",
               "losses.schemes", "train.step", "train.multi_step",
               "train.loop", "train.checkpoint", "data.synthetic",
-              "utils.timers", "utils.logging", "serve", "cli"):
+              "utils.timers", "utils.logging", "serve", "cli", "upscale",
+              "image.patches", "infer.seam", "infer.seam_device",
+              "infer.ensemble", "infer.tiled", "ops.fused_nhwc",
+              "bench_fused", "bench_infer"):
         assert "dcgan_sr_tpu_torch." + m in mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

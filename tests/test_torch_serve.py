@@ -202,9 +202,128 @@ def test_validation_rejects_before_queueing(services):
 
 
 def test_patch_configs_not_yet_ported(net):
-    with pytest.raises(NotImplementedError):
-        SRService(get_config("gray-patch-batch-overlap", env_override=False),
-                  net)
+    """The patch configs serve now (the tiled tests below); what the port
+    still lacks is refused by name."""
+    from dcgan_sr_tpu_torch import serve
+    cfg = get_config("gray-patch-batch-overlap", env_override=False, ngf=4)
+    pnet = load_generator(cfg, None, device="cpu")[0]
+    svc = SRService(cfg, pnet, max_size=16)
+    try:
+        assert svc.tiled and svc.health()["tiled"] is True
+    finally:
+        svc.close()
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        SRService(cfg, pnet, compute_dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="--t7"):
+        serve.main(["--cpu", "--t7", "net_G.t7"])
+    with pytest.raises(NotImplementedError, match="--bf16"):
+        serve.main(["--cpu", "--bf16"])
+
+
+# ---- the tiled service: patch configs through the overlap pipeline ---------
+
+@pytest.fixture(scope="module")
+def tiled_services():
+    """(port, jax) tiled service pairs keyed by (bn_eval, self_ensemble),
+    gray-patch-batch-overlap at ngf 4, LR buckets up to 24."""
+    jcfg = j_get_config("gray-patch-batch-overlap", env_override=False, ngf=4,
+                        ndf=8)
+    cfg = get_config("gray-patch-batch-overlap", env_override=False, ngf=4,
+                     ndf=8)
+    st = init_train_state(jcfg, jax.random.PRNGKey(4))
+    rng = np.random.RandomState(8)
+    gs = jax.tree_util.tree_map(
+        lambda a: jax.numpy.asarray(0.5 + 0.3 * np.abs(rng.randn(*a.shape)),
+                                    jax.numpy.float32), st.g_state)
+    from dcgan_sr_tpu_torch.models import Network, generator_spec
+    tonp = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    pnet = Network(generator_spec(cfg), tonp(st.g_params), tonp(gs),
+                   device="cpu")
+    out = {}
+    for bn_eval, tta in ((False, 1), (True, 1), (True, 2)):
+        out[bn_eval, tta] = (
+            SRService(cfg, pnet, max_size=24, max_batch=4, window_ms=30.0,
+                      bn_eval=bn_eval, self_ensemble=tta),
+            JaxSRService(jcfg, st.g_params, gs, max_size=24, max_batch=4,
+                         window_ms=30.0, bn_eval=bn_eval, self_ensemble=tta))
+    yield out
+    for pair in out.values():
+        for svc in pair:
+            svc.close()
+
+
+def _levels(a):
+    return np.clip(np.round(np.asarray(a) * 255.0), 0, 255).astype(np.int16)
+
+
+def test_tiled_bucket_ladder_matches_jax(tiled_services):
+    svc, jsvc = tiled_services[True, 1]
+    assert svc.buckets == jsvc.buckets == [24]
+    cfg = get_config("gray-patch-batch-overlap", env_override=False, ngf=4)
+    big = SRService(cfg, svc.net)
+    jbig = JaxSRService(j_get_config("gray-patch-batch-overlap",
+                                     env_override=False), None, None)
+    try:
+        assert big.buckets == jbig.buckets
+        assert all((2 * b - 4) % 4 == 0 for b in big.buckets)   # overlap-legal
+        for hw in ((10, 300), (33, 47), (245, 1), (100, 72)):
+            try:
+                assert big.bucket_for(*hw) == jbig.bucket_for(*hw)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    jbig.bucket_for(*hw)
+    finally:
+        big.close()
+        jbig.close()
+
+
+@pytest.mark.parametrize("key", [(False, 1), (True, 1), (True, 2)],
+                         ids=["parity-bn", "bn_eval", "bn_eval-tta2"])
+@pytest.mark.parametrize("mode,shape", [("2x", (14, 20)),
+                                        ("restore", (30, 22))])
+def test_tiled_service_matches_jax_service(tiled_services, key, mode, shape):
+    """Mixed sizes in one request; float outputs within 1 level of 255 of
+    the JAX server's on at least 99% of the pixels (a near-tie of the seam DP
+    may flip between the packages and swaps whole pixels between tiles)."""
+    svc, jsvc = tiled_services[key]
+    rng = np.random.RandomState(shape[0])
+    imgs = [rng.rand(*shape).astype(np.float32),
+            rng.rand(shape[0] - 5, shape[1] - 2).astype(np.float32)]
+    got = svc.submit_many(imgs, mode)
+    want = jsvc.submit_many(imgs, mode)
+    for g, w, im in zip(got, want, imgs):
+        scale = 2 if mode == "2x" else 1
+        assert g.shape == w.shape == (scale * im.shape[0], scale * im.shape[1])
+        assert (np.abs(_levels(g) - _levels(w)) <= 1).mean() >= 0.99
+
+
+def test_tiled_http_round_trip(tiled_services):
+    from PIL import Image
+
+    svc, jsvc = tiled_services[True, 1]
+    srv = make_http_server(svc, port=0)
+    port = srv.server_address[1]
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        arr = (np.random.RandomState(9).rand(13, 18) * 255).astype(np.uint8)
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="PNG")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", "/upscale", body=buf.getvalue())
+        resp = conn.getresponse()
+        assert resp.status == 200
+        got = np.asarray(Image.open(io.BytesIO(resp.read())), np.int16)
+        want = _levels(jsvc.submit(arr.astype(np.float32) / 255.0))
+        assert got.shape == want.shape == (26, 36)
+        assert (np.abs(got - want) <= 1).mean() >= 0.99
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        assert health["tiled"] is True and health["config"] == \
+            "gray-patch-batch-overlap"
+        conn.close()
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 def test_http_round_trip_and_errors(services):

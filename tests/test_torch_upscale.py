@@ -7,6 +7,7 @@ printed 3 decimals; saved PNGs within 1 level of 255 (an fp32 difference
 of a few ulp can cross a rounding edge)."""
 
 import contextlib
+import dataclasses
 import io
 import os
 import re
@@ -137,10 +138,123 @@ def test_upscale_true_2x_directory(tmp_path, jax_weights):
 
 
 def test_upscale_refuses_unported_modes_and_cpu_fallback(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        upscale.main(["--cpu", "--mode", "overlap", "--input", "x.png",
-                      "--output", str(tmp_path / "o.png")])
+    """Grid and overlap modes are ported; what is not is refused by name."""
+    for flag in (["--dp"], ["--t7", "net_G.t7"], ["--bf16"]):
+        with pytest.raises(NotImplementedError, match=flag[0]):
+            upscale.main(["--cpu", "--input", "x.png", "--output",
+                          str(tmp_path / "o.png")] + flag)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--cpu"):
             upscale.main(["--input", "x.png", "--output",
                           str(tmp_path / "o.png")])
+
+
+# ---- the patch configs: grid and overlap modes against tools/upscale.py ----
+
+@pytest.fixture(scope="module")
+def patch_ckpts(tmp_path_factory):
+    """ngf-4 checkpoints of the two patch generators, saved by the JAX
+    package, with running statistics away from the init's 0 / 1."""
+    from dcgan_sr_tpu.train.checkpoint import save_checkpoint
+    d = tmp_path_factory.mktemp("patch_ckpts")
+    out = {}
+    for variant in ("gray-patch-batch-overlap", "gray-patch"):
+        cfg = j_get_config(variant, env_override=False, ngf=4, ndf=8)
+        st = init_train_state(cfg, jax.random.PRNGKey(3))
+        rng = np.random.RandomState(5)
+        st = dataclasses.replace(st, g_state=jax.tree_util.tree_map(
+            lambda a: jnp.asarray(0.5 + 0.3 * np.abs(rng.randn(*a.shape)),
+                                  jnp.float32), st.g_state))
+        sub = d / variant
+        save_checkpoint(str(sub), cfg.name, 1, st)
+        out[variant] = str(sub / f"{cfg.name}_1_net_G.npz")
+    return out
+
+
+def _jax_tool(monkeypatch, argv):
+    """tools/upscale.py main() in this process (it reads sys.argv)."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from tools import upscale as j_upscale
+    monkeypatch.setattr(sys, "argv", ["upscale.py", "--cpu"] + argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        j_upscale.main()
+    return buf.getvalue()
+
+
+def _port_tool(argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        upscale.main(["--cpu"] + argv)
+    return buf.getvalue()
+
+
+def _same_png(a, b, shape):
+    got = np.asarray(Image.open(a), np.int16)
+    want = np.asarray(Image.open(b), np.int16)
+    assert got.shape == want.shape == shape
+    assert np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("variant,mode,extra", [
+    ("gray-patch-batch-overlap", "overlap", []),
+    ("gray-patch-batch-overlap", "overlap", ["--bn-eval", "--both-seams"]),
+    ("gray-patch-batch-overlap", "overlap",
+     ["--self-ensemble", "4", "--ensemble-batched"]),
+    ("gray-patch", "grid", []),
+    ("gray-patch", "grid", ["--bn-eval"]),
+    ("gray-patch", "auto", []),
+], ids=["overlap", "overlap-bn_eval-both_seams", "overlap-tta4-batched",
+        "grid", "grid-bn_eval", "auto-is-grid"])
+def test_upscale_grid_and_overlap_match_jax_tool(tmp_path, monkeypatch,
+                                                 patch_ckpts, variant, mode,
+                                                 extra):
+    monkeypatch.setenv("ngf", "4")
+    monkeypatch.setenv("ndf", "8")
+    src = str(tmp_path / "in.png")
+    Image.fromarray((np.random.RandomState(6).rand(21, 30) * 255)
+                    .astype(np.uint8)).save(src)
+    argv = ["--config", variant, "--mode", mode, "--ckpt",
+            patch_ckpts[variant], "--input", src] + extra
+    want = _jax_tool(monkeypatch, argv + ["--output", str(tmp_path / "j.png")])
+    got = _port_tool(argv + ["--output", str(tmp_path / "t.png")])
+    _same_png(tmp_path / "t.png", tmp_path / "j.png", (21, 30))
+    pad = re.search(r"padded 21x30 -> (\d+x\d+) for (\w+) tiling", got)
+    assert pad and pad.groups() == re.search(
+        r"padded 21x30 -> (\d+x\d+) for (\w+) tiling", want).groups()
+    p_got = float(re.search(r"PSNR\(G\)=([0-9.]+)", got).group(1))
+    p_want = float(re.search(r"PSNR\(G\)=([0-9.]+)", want).group(1))
+    assert p_got == pytest.approx(p_want, abs=2e-3)
+
+
+@pytest.mark.parametrize("extra", [[], ["--bn-eval"]], ids=["parity", "bn_eval"])
+def test_upscale_tiled_true_2x_and_directory_match_jax_tool(
+        tmp_path, monkeypatch, patch_ckpts, extra):
+    monkeypatch.setenv("ngf", "4")
+    monkeypatch.setenv("ndf", "8")
+    variant = "gray-patch-batch-overlap"
+    rng = np.random.RandomState(7)
+    ind = tmp_path / "in"
+    ind.mkdir()
+    for name, shape in (("a.png", (11, 14)), ("b.png", (9, 6))):
+        Image.fromarray((rng.rand(*shape) * 255).astype(np.uint8)).save(ind / name)
+    base = ["--config", variant, "--ckpt", patch_ckpts[variant]] + extra
+    # one LR image -> 2H x 2W through half-geometry tiles
+    one = base + ["--true-2x", "--input", str(ind / "a.png")]
+    _jax_tool(monkeypatch, one + ["--output", str(tmp_path / "j.png")])
+    out = _port_tool(one + ["--output", str(tmp_path / "t.png")])
+    assert "padded LR 11x14 -> 12x14 for overlap tiling" in out
+    assert "true-2x: 11x14 -> 22x28" in out
+    _same_png(tmp_path / "t.png", tmp_path / "j.png", (22, 28))
+    # the directory, protocol mode and true-2x
+    for flags, scale in (([], 1), (["--true-2x"], 2)):
+        jd, td = tmp_path / f"j{scale}", tmp_path / f"t{scale}"
+        _jax_tool(monkeypatch, base + flags + ["--input", str(ind),
+                                               "--output", str(jd)])
+        out = _port_tool(base + flags + ["--input", str(ind),
+                                         "--output", str(td)])
+        assert "batch: 2 images" in out
+        for name, (h, w) in (("a", (11, 14)), ("b", (9, 6))):
+            _same_png(td / f"{name}_sr.png", jd / f"{name}_sr.png",
+                      (scale * h, scale * w))
