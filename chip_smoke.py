@@ -8,12 +8,17 @@ Phases, each fatal on failure:
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
      preprocess.cu, fused_nhwc.cu — started together), timed, with the
      `-Xptxas -v` resource lines.
-  2. kernels: the fused bulge kernel (ops/bulge.py, csrc/bulge.cu) against
-     its plain PyTorch version on the card (cuDNN with TF32 off), at the
-     gray-3 serve shapes x (1,16,256,256), (4,16,1024,1024) and
-     (1,16,2048,2048) (the pair's input at LR 32, 128 and 256), in all three BN
-     statistics modes, with the fixture's layer-3/4 weights.  Times per call
-     for each launch, the plain version and the cuDNN unfused composition.
+  2. kernels: the fused bulge kernel (ops/bulge.py, csrc/bulge.cu), both its
+     implementations (the tensor-core one the paths run, and the earlier
+     fp32 FMA one), against its plain PyTorch version on the card
+     (cuDNN with TF32 off), at the gray-3 serve shapes x (1,16,256,256),
+     (4,16,1024,1024) and (1,16,2048,2048) (the pair's input at LR 32, 128
+     and 256), in all three BN statistics modes, with the fixture's
+     layer-3/4 weights; then at the ragged and small geometries of
+     tests/test_torch_cuda.py and at 70,000 images.  Times per call for each
+     launch of each implementation, taken in turns (old, new, new, old), the
+     plain version and the cuDNN unfused composition; it is an error if
+     `bulge()`'s choice is the slower one.
   3. where a request's time goes: device time of one generator forward at
      LR 256x256, step by step (each layer, and the fused pair), fused and
      unfused, in both BN modes.
@@ -29,7 +34,11 @@ Phases, each fatal on failure:
      (100,1,64,64) flags off, (100,3,64,64) gray+pm1 and pm1 only,
      (1280,1,8,8), the ragged (3,3,50,38), and a bandwidth probe
      (8,3,2048,2048) gray+pm1 that is no path shape.  Times per call for
-     the kernel, the plain version and the avg_pool2d composition.
+     the kernel, the plain version and the avg_pool2d composition; at the
+     path shapes, for the kernel and that composition alike, the host's time
+     to queue a call, the eager time per call, and the device time per call
+     from a captured CUDA graph of 100 calls, replayed (the captured outputs
+     equal the plain version's bit for bit).
   6. the training step, kernel against plain: from one initial state (seed
      0) and the same two batches, two gray-3 steps at full width (ngf 8,
      ndf 64, batch 100) through build_train_step(cfg) and two through the
@@ -56,7 +65,8 @@ Phases, each fatal on failure:
      composition at the last shape.
  10. kernel: the bulge kernel at the overlap pipeline's shapes, with the
      overlap fixture's layer-3/4 weights (Ci 32, Cm 16, Co 32): x
-     (225,32,32,32) pooled, (14400,32,32,32) running and grouped by 225.
+     (225,32,32,32) pooled, (14400,32,32,32) running and grouped by 225;
+     both implementations, timed in turns.
  11. path: `python -m dcgan_sr_tpu_torch.bench_fused --kernel nhwc` and
      `--kernel bulge` as subprocesses at the default batch 100, hw 256,
      fp32; the JSON line parsed, max_abs_diff held to the y tolerance, the
@@ -69,7 +79,8 @@ Phases, each fatal on failure:
      for bit in both seam modes; lr_input on the degraded images giving the
      same input tiles bit for bit and the same output tiles to 1e-5; where the pipeline's time goes, stage by stage, at this
      batch and at one LR 256x256 image; MP/s of both BN modes from
-     bench_infer.measure (random-init weights from a seed).
+     bench_infer.measure (random-init weights from a seed); the patch
+     generator's forward at 14,400 tiles, layer by layer.
  13. path: `python -m dcgan_sr_tpu_torch.serve --config
      gray-patch-batch-overlap --ckpt fixtures/overlap_textured_net_G.npz`,
      with --parity-bn and default: 2x requests at LR 32x32, 100x72 and
@@ -84,7 +95,11 @@ Phases, each fatal on failure:
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
   y                               2e-4 abs + 2e-4 rel (the same file): the
-                                  fused and cuDNN sums run in different orders
+                                  fused and cuDNN sums run in different
+                                  orders; the tensor-core kernel's products
+                                  are error-compensated TF32 (three mma's a
+                                  product), not one TF32 pass, which would
+                                  leave 1e-2
   served PNG bytes                1 level of 255: an fp32 difference of a few
                                   ulp can move a pixel across a rounding edge
   served PNG bytes, tiled         1 level of 255 on all but 1% of the pixels
@@ -123,11 +138,23 @@ FIXTURE = os.path.join(REPO, "fixtures", "gray3_textured_net_G.npz")
 OVERLAP_FIXTURE = os.path.join(REPO, "fixtures", "overlap_textured_net_G.npz")
 GRID_FIXTURE = os.path.join(REPO, "fixtures", "graypatch_textured_net_G.npz")
 TILED_FLIP_SHARE = 0.01
+# The same script's numbers with the FMA kernel on every path (an earlier
+# run on an NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's: keyed by bn_eval, or by (parity, LR size) for the tiled requests.
+EARLIER = {
+    "bench_infer_mp_s": {False: 2.445, True: 3.181},
+    "overlap_pipeline_ms": {False: 107.485, True: 82.4954},
+    "tiled_p50_ms": {(True, 64): 20.63, (False, 64): 18.38,
+                     (True, 256): 145.51, (False, 256): 118.94},
+    "gray3_p50_ms": {"parity-bn": 39.36, "running": 36.63},
+}
 TOL_STATS = 1e-5
 TOL_Y = 2e-4
 TOL_U8 = 1
-# published H100 SXM peaks: fp32 outside the tensor cores, HBM bandwidth
+# published H100 SXM peaks: fp32 outside the tensor cores, TF32 in them
+# (dense; an error-compensated product is three TF32 products), HBM bandwidth
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
 SHAPES = [(1, 16, 256, 256), (4, 16, 1024, 1024), (1, 16, 2048, 2048)]
 
@@ -155,19 +182,171 @@ def time_ms(fn, iters):
     return e0.elapsed_time(e1) / iters
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def in_turns(fns, iters):
+    """Times of {name: fn} taken in turns inside this process: first, second,
+    second, first.  Returns ({name: mean ms of its two turns}, {name: the
+    better of the two})."""
+    (a, fa), (b, fb) = fns.items()
+    got = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        got[name].append(time_ms(fn, iters))
+    return ({k: sum(v) / 2 for k, v in got.items()},
+            {k: min(v) for k, v in got.items()})
+
+
+def _close(a, b, tol):
+    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
+
+
+def hold_pair(K, args, mode, run, groups, label, step=None):
+    """bulge() with each implementation against the plain version on the
+    same inputs (in slices of `step` images where the unfused hidden tensor
+    of the whole batch would not fit), within the y and statistics
+    tolerances.  Returns {impl: (max |dy|, max |dstats|)}."""
+    import torch
+    x = args[0]
+    bsz = x.shape[0]
+    step = step or bsz
+    got = {impl: K.bulge(*args, stats=mode, running=run, groups=groups,
+                         impl=impl) for impl in K.IMPLS}
+    torch.cuda.synchronize()
+    err = {impl: [0.0, 0.0] for impl in K.IMPLS}
+    per = bsz // groups if groups else None
+    for i in range(0, bsz, step):
+        sl = slice(i, min(i + step, bsz))
+        g = None if groups is None else (sl.stop - sl.start) // per
+        yp, (mp, vp) = K.bulge_plain(x[sl], *args[1:], stats=mode,
+                                     running=run, groups=g)
+        for impl, (y, (m, v)) in got.items():
+            check(bool(torch.isfinite(y[sl]).all()),
+                  f"non-finite y, {impl}, {label}")
+            check(_close(y[sl], yp, TOL_Y), f"bulge kernel ({impl}) disagrees "
+                  f"with its plain version at {label}")
+            err[impl][0] = max(err[impl][0], (y[sl] - yp).abs().max().item())
+            if mode == "running":
+                continue
+            if mode == "per_image":
+                ms, vs = m[sl], v[sl]
+            elif groups is not None:
+                ms, vs = m[i // per:i // per + g], v[i // per:i // per + g]
+            elif step >= bsz:
+                ms, vs = m, v
+            else:       # statistics pooled over more than this slice
+                continue
+            check(_close(ms, mp, TOL_STATS) and _close(vs, vp, TOL_STATS),
+                  f"bulge statistics ({impl}) disagree at {label}")
+            err[impl][1] = max(err[impl][1], (ms - mp).abs().max().item(),
+                               (vs - vp).abs().max().item())
+        del yp
+    print(f"kernel {label} {mode:9s} groups {groups}: " + "; ".join(
+        f"{impl} max|dy| {e[0]:.3e} max|dstats| {e[1]:.3e}"
+        for impl, e in err.items()), flush=True)
+    return err
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_phase(params, state):
+# the ragged and small geometries of tests/test_torch_cuda.py, and a batch
+# beyond 65,535 images: (B, Ci, Cm, Co, H, W)
+RAGGED = [(2, 16, 8, 16, 37, 45), (1, 8, 4, 8, 16, 20),
+          (1, 32, 16, 32, 24, 40), (3, 16, 8, 16, 1, 3),
+          (70000, 8, 4, 8, 16, 16)]
+
+
+def pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar, iters,
+               per_image=True):
+    """ms per call at one shape: each launch of each implementation taken in
+    turns (old, new, new, old), the pair through `bulge()`, the plain version
+    and the stock-PyTorch composition, with both bounds."""
     import torch
     import torch.nn.functional as F
+
+    b, ci, h, w = x.shape
+    cm, co = wT.shape[1], wC.shape[0]
+    mu = rmean.expand(b, cm).contiguous()
+    gain = (torch.rsqrt(rvar + 1e-5) * scale).expand(b, cm).contiguous()
+    dims = (2, 3) if per_image else (0, 2, 3)
+    with N.fp32_convs():
+        lib_stats = lambda: torch.var_mean(  # noqa: E731
+            F.conv_transpose2d(x, wT, stride=2, padding=1), dim=dims,
+            correction=0)
+        lib_pair_run = lambda: F.conv2d(F.relu(F.batch_norm(  # noqa: E731
+            F.conv_transpose2d(x, wT, stride=2, padding=1), rmean, rvar,
+            scale, bias, training=False)), wC, stride=2, padding=1)
+        st, st_best = in_turns(
+            {impl: (lambda impl=impl: K.launch_stats(x, wT, impl))
+             for impl in ("fma", "mma")}, iters)
+        mn, mn_best = in_turns(
+            {impl: (lambda impl=impl: K.launch_main(
+                x, wT, wC, mu, gain, bias, impl)) for impl in ("fma", "mma")},
+            iters)
+        chosen = K.choose_impl(ci, cm, co, h, w)
+        r = {
+            "impl": chosen,
+            "stats_ms": st[chosen], "main_ms": mn[chosen],
+            "stats_fma_ms": st["fma"], "stats_mma_ms": st["mma"],
+            "main_fma_ms": mn["fma"], "main_mma_ms": mn["mma"],
+            "pair_run_ms": time_ms(lambda: K.bulge(
+                x, wT, scale, bias, wC, stats="running",
+                running=(rmean, rvar)), iters),
+            "plain_stats_ms": time_ms(lambda: N.batch_stats(
+                N.conv_transpose2d(x, wT, 2, 1), per_image=per_image), iters),
+            "plain_main_ms": time_ms(lambda: K.bulge_plain(
+                x, wT, scale, bias, wC, stats="running",
+                running=(rmean, rvar)), iters),
+            "lib_stats_ms": time_ms(lib_stats, iters),
+            "lib_main_ms": time_ms(lib_pair_run, iters),
+        }
+        if per_image:
+            r["pair_img_ms"] = time_ms(lambda: K.bulge(
+                x, wT, scale, bias, wC, stats="per_image"), iters)
+            r["plain_pair_img_ms"] = time_ms(lambda: K.bulge_plain(
+                x, wT, scale, bias, wC, stats="per_image"), iters)
+    hw = b * h * w
+    flops_convT = 2 * 16 * hw * ci * cm
+    flops_conv = 2 * 16 * hw * co * cm
+    slots = -(-h // 8) * -(-w // 32)
+    f_stats = flops_convT + 3 * 4 * hw * cm
+    f_main = f_stats + flops_conv
+    b_stats = 4 * (hw * ci + wT.numel() + b * slots * 2 * cm)
+    b_main = 4 * (hw * ci + hw * co + wT.numel() + wC.numel()
+                  + 2 * b * cm + cm)
+    # the kernel's own rate (three TF32 products per fp32 product), and the
+    # fp32 FMA rate the FMA kernel's rows were held to
+    peak = PEAK_3XTF32 if chosen == "mma" else PEAK_FP32
+    r["stats_bound"] = bound(f_stats, b_stats, peak)
+    r["main_bound"] = bound(f_main, b_main, peak)
+    r["stats_bound_fp32_fma"] = bound(f_stats, b_stats)
+    r["main_bound_fp32_fma"] = bound(f_main, b_main)
+    for k in ("stats", "main"):
+        r[f"{k}_share_of_bound"] = r[f"{k}_bound"][0] / r[f"{k}_ms"]
+    # the better turn of each, with 5% and 10 us of slack: at launch-bound
+    # shapes both implementations take the host's time to queue a call, and
+    # one stall of the host in one turn is not the kernel's
+    check(mn_best[chosen] <= min(mn_best.values()) * 1.05 + 0.01
+          and st_best[chosen] <= min(st_best.values()) * 1.05 + 0.01,
+          f"bulge() runs {chosen} at {tuple(x.shape)}, which is the slower "
+          f"implementation in this run: stats {st}, main {mn}")
+    return r
+
+
+def _fmt(r):
+    return json.dumps({k: (round(v, 4) if isinstance(v, float) else
+                           [round(v[0], 4), v[1]] if isinstance(v, tuple)
+                           else v) for k, v in r.items()})
+
+
+def kernel_phase(params, state):
+    import numpy as np
+    import torch
 
     from dcgan_sr_tpu_torch.ops import bulge as K
     from dcgan_sr_tpu_torch.ops import nn as N
@@ -177,86 +356,42 @@ def kernel_phase(params, state):
     wT, wC = t(params[3]["w"]), t(params[4]["w"])
     scale, bias = t(params[3]["bn_scale"]), t(params[3]["bn_bias"])
     rmean, rvar = t(state[3]["bn"]["mean"]), t(state[3]["bn"]["var"])
-    ci, cm, co = wT.shape[0], wT.shape[1], wC.shape[0]
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"bulge_stats": 0.0, "bulge_main": 0.0}
+
+    def note(e):
+        chosen = e[K.choose_impl(*pair, 0, 0)]
+        err["bulge_main"] = max(err["bulge_main"], chosen[0])
+        err["bulge_stats"] = max(err["bulge_stats"], chosen[1])
+
     rows = []
+    pair = (wT.shape[0], wT.shape[1], wC.shape[0])
     for shape in SHAPES:
-        b, _, h, w = shape
         x = torch.rand(shape, generator=gen, device=dev)
         for mode in K.STATS_MODES:
             run = (rmean, rvar) if mode == "running" else None
-            y, (m, v) = K.bulge(x, wT, scale, bias, wC, stats=mode,
-                                running=run)
-            yp, (mp, vp) = K.bulge_plain(x, wT, scale, bias, wC, stats=mode,
-                                         running=run)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(y).all()), f"non-finite y {shape} {mode}")
-            ey = (y - yp).abs().max().item()
-            em = (m - mp).abs().max().item()
-            ev = (v - vp).abs().max().item()
-            ok_y = bool(((y - yp).abs() <= TOL_Y + TOL_Y * yp.abs()).all())
-            ok_s = bool(((m - mp).abs() <= TOL_STATS + TOL_STATS * mp.abs()).all()
-                        and ((v - vp).abs() <= TOL_STATS + TOL_STATS * vp.abs()).all())
-            print(f"kernel {shape} {mode:9s} max|dy| {ey:.3e} "
-                  f"max|dmean| {em:.3e} max|dvar| {ev:.3e}", flush=True)
-            check(ok_y and ok_s, f"bulge kernel disagrees with its plain "
-                  f"version at {shape} {mode}")
-            err["bulge_main"] = max(err["bulge_main"], ey)
-            if mode != "running":
-                err["bulge_stats"] = max(err["bulge_stats"], em, ev)
-            del y, yp
-
-        # times per call at this shape
-        iters = 20 if h <= 256 else 5
-        mu = rmean.expand(b, cm).contiguous()
-        gain = (torch.rsqrt(rvar + 1e-5) * scale).expand(b, cm).contiguous()
-        xs = x.contiguous()
-        with N.fp32_convs():
-            lib_stats = lambda: torch.var_mean(  # noqa: E731
-                F.conv_transpose2d(xs, wT, stride=2, padding=1),
-                dim=(2, 3), correction=0)
-            lib_pair_run = lambda: F.conv2d(F.relu(F.batch_norm(  # noqa: E731
-                F.conv_transpose2d(xs, wT, stride=2, padding=1), rmean, rvar,
-                scale, bias, training=False)), wC, stride=2, padding=1)
-            lib_pair_img = lambda: F.conv2d(F.relu(F.instance_norm(  # noqa: E731
-                F.conv_transpose2d(xs, wT, stride=2, padding=1),
-                weight=scale, bias=bias)), wC, stride=2, padding=1)
-            r = {
-                "stats_ms": time_ms(lambda: K.launch_stats(xs, wT), iters),
-                "main_ms": time_ms(lambda: K.launch_main(xs, wT, wC, mu, gain,
-                                                         bias), iters),
-                "pair_img_ms": time_ms(lambda: K.bulge(
-                    xs, wT, scale, bias, wC, stats="per_image"), iters),
-                "pair_run_ms": time_ms(lambda: K.bulge(
-                    xs, wT, scale, bias, wC, stats="running",
-                    running=(rmean, rvar)), iters),
-                "plain_stats_ms": time_ms(lambda: N.batch_stats(
-                    N.conv_transpose2d(xs, wT, 2, 1), per_image=True), iters),
-                "plain_main_ms": time_ms(lambda: K.bulge_plain(
-                    xs, wT, scale, bias, wC, stats="running",
-                    running=(rmean, rvar)), iters),
-                "plain_pair_img_ms": time_ms(lambda: K.bulge_plain(
-                    xs, wT, scale, bias, wC, stats="per_image"), iters),
-                "lib_stats_ms": time_ms(lib_stats, iters),
-                "lib_main_ms": time_ms(lib_pair_run, iters),
-                "lib_pair_img_ms": time_ms(lib_pair_img, iters),
-            }
-        hw = b * h * w
-        flops_convT = 2 * 16 * hw * ci * cm
-        flops_conv = 2 * 16 * hw * co * cm
-        bytes_x, bytes_y = 4 * hw * ci, 4 * hw * co
-        tiles = -(-h // 16) * -(-w // 16)
-        r["stats_bound"] = bound(flops_convT + 3 * 4 * hw * cm,
-                                 bytes_x + 4 * wT.numel() + 4 * b * tiles * 2 * cm)
-        r["main_bound"] = bound(flops_convT + 3 * 4 * hw * cm + flops_conv,
-                                bytes_x + bytes_y + 4 * (wT.numel() + wC.numel()
-                                                         + 2 * b * cm + cm))
-        print(f"times {shape}: " + json.dumps(
-            {k: (round(v, 4) if isinstance(v, float) else
-                 [round(v[0], 4), v[1]]) for k, v in r.items()}), flush=True)
+            note(hold_pair(K, (x, wT, scale, bias, wC), mode, run, None,
+                           str(shape)))
+        r = pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar,
+                       50 if shape[2] <= 256 else 5)
+        print(f"times {shape}: " + _fmt(r), flush=True)
         rows.append((shape, r))
-        del x, xs
+        del x
+        torch.cuda.empty_cache()
+
+    # masked edges, the padded Cm 4, and more images than a grid dimension
+    for bsz, ci, cm, co, h, w in RAGGED:
+        rng = np.random.RandomState(bsz)
+        a = (torch.randn((bsz, ci, h, w), generator=gen, device=dev),
+             t(0.1 * rng.randn(ci, cm, 4, 4)), t(1 + 0.1 * rng.randn(cm)),
+             t(0.1 * rng.randn(cm)), t(0.1 * rng.randn(co, cm, 4, 4)))
+        run = (t(0.1 * rng.randn(cm)), t(0.5 + rng.rand(cm)))
+        pair = (ci, cm, co)
+        for mode in (("running",) if bsz > 65535 else K.STATS_MODES):
+            note(hold_pair(K, a, mode, run if mode == "running" else None,
+                           None, str((bsz, ci, cm, co, h, w)),
+                           step=35000 if bsz > 65535 else None))
+        del a
         torch.cuda.empty_cache()
     return err, rows
 
@@ -265,7 +400,7 @@ def kernel_phase(params, state):
 # phase 3: where a forward's time goes
 # ---------------------------------------------------------------------------
 
-def forward_breakdown(net, x, bn_stats, iters=5):
+def forward_breakdown(net, x, bn_stats, iters=5, groups=None):
     """Mean device ms of one generator forward and of each step in it: a
     layer between its module hooks, or a fused pair (which runs outside
     any layer's call) in the gap between two layers' hooks."""
@@ -287,11 +422,11 @@ def forward_breakdown(net, x, bn_stats, iters=5):
     acc = {}
     try:
         with torch.inference_mode():
-            net(x, bn_stats=bn_stats)
+            net(x, bn_stats=bn_stats, groups=groups)
             for _ in range(iters):
                 marks.clear()
                 mark(("start", None))
-                net(x, bn_stats=bn_stats)
+                net(x, bn_stats=bn_stats, groups=groups)
                 mark(("end", None))
                 torch.cuda.synchronize()
                 for (a, e0), (b, e1) in zip(marks, marks[1:]):
@@ -345,9 +480,32 @@ def _healthz(port):
     return json.loads(body)
 
 
-def serve_phase(cfg, parity, ref_service, log, fixture=FIXTURE,
-                timed=((256, 256),), flip_share=0.0):
-    """Start the port's server, drive it, hold every response against
+def start_server(cfg, parity, log, fixture=FIXTURE):
+    """Start the port's server as a user does; returns (process, port).  The
+    caller starts both BN modes' servers together (a process takes seconds
+    to reach the card) and drives them one after the other."""
+    port = _free_port()
+    cmd = [sys.executable, "-m", "dcgan_sr_tpu_torch.serve", "--config",
+           cfg.variant, "--ckpt", fixture, "--port", str(port),
+           "--max-batch", "8"]
+    if parity:
+        cmd.append("--parity-bn")
+    return subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                            stderr=subprocess.STDOUT), port
+
+
+def stop_server(proc):
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def serve_phase(cfg, parity, ref_service, server, timed=((256, 256),),
+                flip_share=0.0):
+    """Drive a started server (`start_server`), hold every response against
     `ref_service` (the plain-version generator on the card): within TOL_U8
     levels on all but `flip_share` of a response's pixels.  Returns the
     server's kernel launch counts, the timed-request latencies per size and
@@ -357,13 +515,7 @@ def serve_phase(cfg, parity, ref_service, log, fixture=FIXTURE,
 
     from dcgan_sr_tpu_torch.image.io import load_image
 
-    port = _free_port()
-    cmd = [sys.executable, "-m", "dcgan_sr_tpu_torch.serve", "--config",
-           cfg.variant, "--ckpt", fixture, "--port", str(port),
-           "--max-batch", "8"]
-    if parity:
-        cmd.append("--parity-bn")
-    proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    proc, port = server
     name = "parity-bn" if parity else "running-stats BN"
     try:
         t0 = time.monotonic()
@@ -376,7 +528,7 @@ def serve_phase(cfg, parity, ref_service, log, fixture=FIXTURE,
             except (ConnectionError, OSError):
                 check(time.monotonic() - t0 < 180, "server did not come up")
                 time.sleep(0.5)
-        print(f"server ({name}) up in {time.monotonic() - t0:.1f}s", flush=True)
+        print(f"server ({name}) up", flush=True)
         check(h0["device"].startswith("cuda"), f"server on {h0['device']}")
         check(all(v == 0 for v in h0["kernel_launches"].values()),
               f"launch counts not 0 at start: {h0['kernel_launches']}")
@@ -454,16 +606,15 @@ def serve_phase(cfg, parity, ref_service, log, fixture=FIXTURE,
               f"{hz['batches']} batches (burst of 8 in {burst_batches}), max "
               f"byte diff vs plain {worst}, {flipped} of {pixels} compared "
               f"pixels off by more than {TOL_U8}, launches "
-              f"{hz['kernel_launches']}, batch_ms p50 {hz['batch_ms_p50']}",
-              flush=True)
+              f"{hz['kernel_launches']}, by implementation "
+              f"{hz['bulge_impl_launches']}, batch_ms p50 "
+              f"{hz['batch_ms_p50']}", flush=True)
+        check(hz["bulge_impl_launches"]["mma"] > 0
+              and hz["bulge_impl_launches"]["fma"] == 0,
+              f"the served path ran {hz['bulge_impl_launches']}")
         return hz["kernel_launches"], lats, burst_batches
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        stop_server(proc)
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +628,37 @@ PRE_CASES = [((100, 1, 64, 64), False, False, True),
              ((1280, 1, 8, 8), False, False, True),
              ((3, 3, 50, 38), True, True, False),
              ((8, 3, 2048, 2048), True, True, False)]
+
+
+def host_queue_us(fn, calls=1000):
+    """Host time to queue one call: the host clock over `calls` calls with
+    no synchronisation in between."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def graph_ms(fn, calls=100, replays=20):
+    """Device ms per call of `fn` from a CUDA graph of `calls` calls,
+    replayed; and the captured calls' outputs after the last replay."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                    # first use outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(calls)]
+    ms = time_ms(graph.replay, replays) / calls
+    torch.cuda.synchronize()
+    return ms, outs
 
 
 def preprocess_phase():
@@ -520,15 +702,32 @@ def preprocess_phase():
         n_in, n_hr, n_lr = x.numel(), hr.numel(), lr.numel()
         flops = n_hr * ((5 if gray else 0) + (2 if pm1 else 0)) + 4 * n_lr
         b_ms, b_by = bound(flops, 4 * (n_in + n_hr + n_lr))
+        kernel = lambda: P.preprocess(x, rgb_to_gray=gray, to_pm1=pm1)  # noqa: E731
         r = {"shape": list(shape), "gray": gray, "pm1": pm1,
              "on_path": on_path, "max_abs_err": max(e_hr, e_lr),
-             "ms": time_ms(lambda: P.preprocess(
-                 x, rgb_to_gray=gray, to_pm1=pm1), iters),
+             "eager_ms": time_ms(kernel, iters),
              "plain_ms": time_ms(lambda: P.preprocess_plain(
                  x, rgb_to_gray=gray, to_pm1=pm1), iters),
              "library_ms": time_ms(library, iters),
-             "bound_ms": b_ms, "bound_by": b_by,
-             "GB_per_s": None}
+             "bound_ms": b_ms, "bound_by": b_by}
+        if on_path:
+            # what the wrapper costs the host, and the kernel's own time: 100
+            # calls captured into one CUDA graph, replayed
+            r["host_queue_us"] = host_queue_us(kernel)
+            r["library_host_queue_us"] = host_queue_us(library)
+            n0 = P.launches["preprocess"]
+            r["graph_ms"], outs = graph_ms(kernel)
+            check(P.launches["preprocess"] == n0 + 101, "a captured call "
+                  "counts once, at capture (1 warm-up + 100 captured)")
+            check(all(torch.equal(o[0], hp) and torch.equal(o[1], lp)
+                      for o in (outs[0], outs[49], outs[-1])),
+                  f"captured preprocess differs from its plain version at "
+                  f"{shape} gray={gray} pm1={pm1}")
+            check(P.launches["preprocess"] == n0 + 101,
+                  "replays must not move the launch count")
+            r["library_graph_ms"], outs = graph_ms(library)
+            del outs
+        r["ms"] = r.get("graph_ms", r["eager_ms"])
         r["GB_per_s"] = 4 * (n_in + n_hr + n_lr) / (r["ms"] * 1e-3) / 1e9
         print("preprocess " + json.dumps(
             {k: (round(v, 5) if isinstance(v, float) else v)
@@ -771,10 +970,6 @@ NHWC_CASES = [((2, 5, 4, 6, 16, 16), 8), ((1, 16, 8, 16, 32, 32), 16),
               ((100, 16, 8, 16, 256, 256), 32)]
 
 
-def _close(a, b, tol):
-    return bool(((a - b).abs() <= tol + tol * b.abs()).all())
-
-
 def nhwc_phase():
     import numpy as np
     import torch
@@ -880,9 +1075,9 @@ def nhwc_phase():
 def overlap_kernel_phase(params, state):
     """K2 with the overlap generator's layers 3-4 on batches of 32x32 tiles:
     one image's 225 tiles pooled, and 64 images' 14,400 tiles with running
-    statistics and with statistics grouped by image."""
+    statistics and with statistics grouped by image; both implementations
+    against the plain version, and their times in turns."""
     import torch
-    import torch.nn.functional as F
 
     from dcgan_sr_tpu_torch.ops import bulge as K
     from dcgan_sr_tpu_torch.ops import nn as N
@@ -895,74 +1090,24 @@ def overlap_kernel_phase(params, state):
     ci, cm, co = wT.shape[0], wT.shape[1], wC.shape[0]
     check((ci, cm, co) == (32, 16, 32), f"overlap pair is {(ci, cm, co)}")
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = 0.0
+    chosen = K.choose_impl(ci, cm, co, 32, 32)
+    worst, rows = [0.0, 0.0], []
     for bsz, mode, groups in ((225, "pooled", None), (14400, "running", None),
                               (14400, "pooled", 64)):
         x = torch.rand((bsz, ci, 32, 32), generator=gen, device=dev)
         run = (rmean, rvar) if mode == "running" else None
-        y, (m, v) = K.bulge(x, wT, scale, bias, wC, stats=mode, running=run,
-                            groups=groups)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(y).all()), f"non-finite y at {bsz} {mode}")
-        ey = es = 0.0
-        step = 225 * 16             # whole images: the unfused hidden tensor
-        for i in range(0, bsz, step):   # of 16 images is 0.9 GB
-            sl = slice(i, min(i + step, bsz))
-            g = None if groups is None else (sl.stop - sl.start) // 225
-            yp, (mp, vp) = K.bulge_plain(x[sl], wT, scale, bias, wC,
-                                         stats=mode, running=run, groups=g)
-            check(_close(y[sl], yp, TOL_Y), f"bulge kernel disagrees with its "
-                  f"plain version at batch {bsz} {mode} groups {groups}")
-            ey = max(ey, (y[sl] - yp).abs().max().item())
-            if mode == "pooled":
-                ms = m if groups is None else m[i // 225:i // 225 + g]
-                vs = v if groups is None else v[i // 225:i // 225 + g]
-                check(_close(ms, mp, TOL_STATS) and _close(vs, vp, TOL_STATS),
-                      f"bulge statistics disagree at batch {bsz} groups {groups}")
-                es = max(es, (ms - mp).abs().max().item(),
-                         (vs - vp).abs().max().item())
-            del yp
-        worst = max(worst, ey)
-        print(f"K2 overlap x ({bsz},32,32,32) {mode} groups {groups}: "
-              f"max|dy| {ey:.3e} max|dstats| {es:.3e}", flush=True)
+        # whole images: the unfused hidden tensor of 16 images is 0.9 GB
+        e = hold_pair(K, (x, wT, scale, bias, wC), mode, run, groups,
+                      f"({bsz},32,32,32)", step=225 * 16)[chosen]
+        worst = [max(a, b) for a, b in zip(worst, e)]
         if groups is None:
-            mu = rmean.expand(bsz, cm).contiguous()
-            gain = (torch.rsqrt(rvar + 1e-5) * scale).expand(bsz, cm).contiguous()
-            iters = 20 if bsz == 225 else 5
-            with N.fp32_convs():
-                r = {
-                    "stats_ms": time_ms(lambda: K.launch_stats(x, wT), iters),
-                    "main_ms": time_ms(lambda: K.launch_main(
-                        x, wT, wC, mu, gain, bias), iters),
-                    "plain_stats_ms": time_ms(lambda: N.batch_stats(
-                        N.conv_transpose2d(x, wT, 2, 1)), iters),
-                    "plain_main_ms": time_ms(lambda: K.bulge_plain(
-                        x, wT, scale, bias, wC, stats="running",
-                        running=(rmean, rvar)), iters),
-                    "lib_stats_ms": time_ms(lambda: torch.var_mean(
-                        F.conv_transpose2d(x, wT, stride=2, padding=1),
-                        dim=(0, 2, 3), correction=0), iters),
-                    "lib_main_ms": time_ms(lambda: F.conv2d(F.relu(F.batch_norm(
-                        F.conv_transpose2d(x, wT, stride=2, padding=1), rmean,
-                        rvar, scale, bias, training=False)), wC, stride=2,
-                        padding=1), iters),
-                }
-            hw = bsz * 32 * 32
-            flops_T, flops_C = 2 * 16 * hw * ci * cm, 2 * 16 * hw * co * cm
-            r["stats_bound"] = bound(
-                flops_T + 3 * 4 * hw * cm,
-                4 * (hw * ci + wT.numel() + bsz * 4 * 2 * cm))
-            r["main_bound"] = bound(
-                flops_T + 3 * 4 * hw * cm + flops_C,
-                4 * (hw * ci + hw * co + wT.numel() + wC.numel()
-                     + 2 * bsz * cm + cm))
-            print(f"K2 overlap times ({bsz},32,32,32): " + json.dumps(
-                {k: (round(val, 4) if isinstance(val, float) else
-                     [round(val[0], 4), val[1]]) for k, val in r.items()}),
-                flush=True)
-        del x, y
+            r = pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar,
+                           20 if bsz == 225 else 5, per_image=False)
+            print(f"K2 overlap times ({bsz},32,32,32): " + _fmt(r), flush=True)
+            rows.append(((bsz, ci, 32, 32), r))
+        del x
         torch.cuda.empty_cache()
-    return worst
+    return worst, rows
 
 
 # ---------------------------------------------------------------------------
@@ -985,7 +1130,7 @@ def bench_fused_phase():
     for kernel, names in (("nhwc", ("fused_nhwc_stats", "fused_nhwc_main")),
                           ("bulge", ("bulge_stats", "bulge_main"))):
         lines = _module(["dcgan_sr_tpu_torch.bench_fused", "--kernel", kernel,
-                         "--dtype", "fp32"])
+                         "--dtype", "fp32", "--iters", "10"])
         rec = json.loads(lines[-1])
         check(lines[-2].startswith("kernel launches: "), lines[-2])
         counts = json.loads(lines[-2][len("kernel launches: "):])
@@ -1053,7 +1198,7 @@ def overlap_breakdown(cfg, net, images, bn_eval, lr_input):
     return {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()}
 
 
-def overlap_phase(cfg, fused, plain, smi):
+def overlap_phase(cfg, fused, plain, smi, fused_fma):
     import numpy as np
     import torch
 
@@ -1128,8 +1273,30 @@ def overlap_phase(cfg, fused, plain, smi):
               f"{'repeats' if repeats else 'does not repeat'} bit for bit",
               flush=True)
         print(f"overlap breakdown, 64 images of 64x64, {name} (ms) on {smi}: "
-              + json.dumps(overlap_breakdown(cfg, fused, imgs, bn_eval, False)),
-              flush=True)
+              + json.dumps(overlap_breakdown(cfg, fused, imgs, bn_eval, False))
+              + f"; pipeline_ms before the tensor-core kernel: "
+              f"{EARLIER['overlap_pipeline_ms'][bn_eval]}", flush=True)
+        # end to end on the card, the two implementations of the pair in turns
+        with torch.inference_mode():
+            for label, batch, lr_in in (
+                    ("64 images of 64x64", imgs, False),
+                    ("one LR 256x256 image", torch.rand(
+                        (1, 256, 256), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(6)),
+                     True),
+                    ("one LR 64x64 image", torch.rand(
+                        (1, 64, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(8)),
+                     True)):
+                fine_hw = tuple(d * (2 if lr_in else 1) for d in batch.shape[-2:])
+                fns = {impl: make_overlap_sr_fn(cfg, net, fine=fine_hw,
+                                                bn_eval=bn_eval, lr_input=lr_in)
+                       for impl, net in (("fma", fused_fma), ("mma", fused))}
+                t, _ = in_turns({k: (lambda f=f: f(batch))
+                                 for k, f in fns.items()}, 5)
+                print(f"overlap pipeline, {label}, {name}, pair by the FMA "
+                      f"kernel {t['fma']:.4f} ms, by the tensor-core kernel "
+                      f"{t['mma']:.4f} ms (in turns), on {smi}", flush=True)
         one = torch.rand((1, 256, 256), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(6))
         print(f"overlap breakdown, one LR 256x256 image, {name} (ms) on {smi}: "
@@ -1140,13 +1307,19 @@ def overlap_phase(cfg, fused, plain, smi):
     for bn_eval in (False, True):
         for k in K.launches:
             K.launches[k] = 0
-        rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda")
+        for k in K.impl_launches:
+            K.impl_launches[k] = 0
+        rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda",
+                                         steps=10)
         check(rec["value"] > 0 and K.launches["bulge_main"] > 0,
               f"bench_infer: {rec}, launches {K.launches}")
         for k in counts:
             counts[k] += K.launches[k]
         print(f"bench_infer on {smi}: " + json.dumps(rec) + " launches "
-              + json.dumps(K.launches), flush=True)
+              + json.dumps(K.launches) + " by implementation "
+              + json.dumps(K.impl_launches) + "; before the tensor-core "
+              f"kernel: {EARLIER['bench_infer_mp_s'][bn_eval]} MP/s",
+              flush=True)
     return counts
 
 
@@ -1155,6 +1328,8 @@ def overlap_phase(cfg, fused, plain, smi):
 # ---------------------------------------------------------------------------
 
 def tiled_upscale_phase():
+    """`upscale --mode overlap` and `--mode grid`, the two processes side by
+    side (nothing here is timed)."""
     import numpy as np
     from PIL import Image
 
@@ -1162,17 +1337,32 @@ def tiled_upscale_phase():
         src = os.path.join(d, "in.png")
         Image.fromarray((np.random.RandomState(9).rand(70, 90) * 255)
                         .astype(np.uint8)).save(src)
-        for config, mode, fixture in (
-                ("gray-patch-batch-overlap", "overlap", OVERLAP_FIXTURE),
-                ("gray-patch", "grid", GRID_FIXTURE)):
+        runs = (("gray-patch-batch-overlap", "overlap", OVERLAP_FIXTURE),
+                ("gray-patch", "grid", GRID_FIXTURE))
+        out, failed = {}, []
+
+        def run(config, mode, fixture):
+            try:
+                out[mode] = _module([
+                    "dcgan_sr_tpu_torch.upscale", "--config", config, "--mode",
+                    mode, "--ckpt", fixture, "--bn-eval", "--input", src,
+                    "--output", os.path.join(d, mode + ".png")])
+            except Exception as e:      # re-raised below, on the main thread
+                failed.append(e)
+
+        threads = [threading.Thread(target=run, args=r) for r in runs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if failed:
+            raise failed[0]
+        for _, mode, _ in runs:
             dst = os.path.join(d, mode + ".png")
-            lines = _module(["dcgan_sr_tpu_torch.upscale", "--config", config,
-                             "--mode", mode, "--ckpt", fixture, "--bn-eval",
-                             "--input", src, "--output", dst])
             check(os.path.isfile(dst) and Image.open(dst).size == (90, 70),
                   f"upscale --mode {mode} wrote no 70x90 image")
-            psnr = [l for l in lines if l.startswith(f"mode={mode}")]
-            check(len(psnr) == 1 and "PSNR(G)=" in psnr[0], f"{lines}")
+            psnr = [l for l in out[mode] if l.startswith(f"mode={mode}")]
+            check(len(psnr) == 1 and "PSNR(G)=" in psnr[0], f"{out[mode]}")
             print(f"upscale --mode {mode}: {psnr[0]}", flush=True)
 
 
@@ -1191,6 +1381,14 @@ def main():
     from dcgan_sr_tpu_torch.ops import preprocess as P
     from dcgan_sr_tpu_torch.serve import SRService
     from dcgan_sr_tpu_torch.train.checkpoint import load_branch
+
+    started = time.perf_counter()
+    stamps = []
+
+    def stamp():
+        """The script's own clock at the end of a block of phases."""
+        stamps.append(round(time.perf_counter() - started, 1))
+        print(f"elapsed after {len(stamps)} blocks (s): {stamps}", flush=True)
 
     # phase 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1230,9 +1428,11 @@ def main():
         params = load_branch(data, "params", params)
         state = load_branch(data, "state", state)
 
+    stamp()
     # phase 2
     errs, rows = kernel_phase(params, state)
 
+    stamp()
     # phase 3
     plain = Network(spec, params, state, device="cuda", fuse=False)
     fused = Network(spec, params, state, device="cuda")
@@ -1245,16 +1445,20 @@ def main():
     del fused, x
     torch.cuda.empty_cache()
 
+    stamp()
     # phase 4: counts start at 0 in each fresh server process
     launches = {"bulge_stats": 0, "bulge_main": 0}
     lat_all = {}
     with tempfile.TemporaryFile() as log:
+        servers = {parity: start_server(cfg, parity, log)
+                   for parity in (True, False)}
         try:
             for parity in (True, False):
                 ref = SRService(cfg, plain, max_batch=8, window_ms=0,
                                 bn_eval=not parity, u8_io=True)
                 try:
-                    counts, lats, _ = serve_phase(cfg, parity, ref, log)
+                    counts, lats, _ = serve_phase(cfg, parity, ref,
+                                                  servers[parity])
                 finally:
                     ref.close()
                 for k, v in counts.items():
@@ -1265,17 +1469,22 @@ def main():
             log.seek(0)
             sys.stderr.write(log.read().decode(errors="replace")[-8000:])
             raise
+        finally:
+            for proc, _ in servers.values():
+                stop_server(proc)
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the served path")
     for name, lat in lat_all.items():
         p50 = lat[len(lat) // 2]
         print(f"latency ({name}) LR 256x256 -> 512x512: p50 {p50:.2f} ms, "
-              f"{0.512 * 0.512 / (p50 / 1e3):.2f} MP/s out, on {smi}",
+              f"{0.512 * 0.512 / (p50 / 1e3):.2f} MP/s out, on {smi}; before "
+              f"the tensor-core kernel: {EARLIER['gray3_p50_ms'][name]} ms",
               flush=True)
 
     del plain
     torch.cuda.empty_cache()
 
+    stamp()
     # phases 5-8: the training path
     pre_err, pre_rows = preprocess_phase()
     state = step_phase(cfg)
@@ -1301,9 +1510,11 @@ def main():
     del state
     torch.cuda.empty_cache()
 
+    stamp()
     # phase 9: K3 against its plain version
     nhwc_err, nhwc_row = nhwc_phase()
 
+    stamp()
     # phase 10: K2 at the overlap shapes
     ocfg = get_config("gray-patch-batch-overlap", env_override=False)
     ospec = generator_spec(ocfg)
@@ -1311,34 +1522,51 @@ def main():
     with np.load(OVERLAP_FIXTURE) as data:
         oparams = load_branch(data, "params", oparams)
         ostate = load_branch(data, "state", ostate)
-    errs["bulge_main"] = max(errs["bulge_main"],
-                             overlap_kernel_phase(oparams, ostate))
+    o_err, o_rows = overlap_kernel_phase(oparams, ostate)
+    errs["bulge_main"] = max(errs["bulge_main"], o_err[0])
+    errs["bulge_stats"] = max(errs["bulge_stats"], o_err[1])
 
+    stamp()
     # phase 11: bench_fused, each kernel in a process of its own (counts from 0)
     benches = bench_fused_phase()
     for k in launches:
         launches[k] += benches["bulge"][1][k]
     nhwc_launches = benches["nhwc"][1]
 
+    stamp()
     # phase 12: the overlap pipeline in this process
     ofused = Network(ospec, oparams, ostate, device="cuda")
     oplain = Network(ospec, oparams, ostate, device="cuda", fuse=False)
-    pipe_counts = overlap_phase(ocfg, ofused, oplain, smi)
+    pipe_counts = overlap_phase(
+        ocfg, ofused, oplain, smi,
+        Network(ospec, oparams, ostate, device="cuda", bulge_impl="fma"))
     for k in launches:
         launches[k] += pipe_counts[k]
-    del ofused
+    # where the patch generator's time goes at the bulk batch, layer by layer
+    tiles = torch.rand((14400, 1, ocfg.patchSize // 2, ocfg.patchSize // 2),
+                       device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(7))
+    for bn_stats, groups in (("running", None), ("pooled", 64)):
+        print(f"patch generator forward, 14,400 tiles, {bn_stats} groups "
+              f"{groups}, fused (ms) on {smi}: " + json.dumps(forward_breakdown(
+                  ofused, tiles, bn_stats, iters=3, groups=groups)),
+              flush=True)
+    del ofused, tiles
     torch.cuda.empty_cache()
 
+    stamp()
     # phase 13: the tiled server, counts from 0 in each server process
     tiled_launches = {"bulge_stats": 0, "bulge_main": 0}
     with tempfile.TemporaryFile() as log:
+        servers = {parity: start_server(ocfg, parity, log, OVERLAP_FIXTURE)
+                   for parity in (True, False)}
         try:
             for parity in (True, False):
                 ref = SRService(ocfg, oplain, max_batch=8, window_ms=0,
                                 bn_eval=not parity, u8_io=True)
                 try:
                     counts, lats, _ = serve_phase(
-                        ocfg, parity, ref, log, fixture=OVERLAP_FIXTURE,
+                        ocfg, parity, ref, servers[parity],
                         timed=((64, 64), (256, 256)),
                         flip_share=TILED_FLIP_SHARE)
                 finally:
@@ -1355,17 +1583,23 @@ def main():
                           f"{p50:.2f} ms, server batch median "
                           f"{batch[len(batch) // 2]:.2f} ms, "
                           f"{4 * h * w / 1e6 / (p50 / 1e3):.2f} MP/s out, on "
-                          f"{smi}", flush=True)
+                          f"{smi}; before the tensor-core kernel: p50 "
+                          f"{EARLIER['tiled_p50_ms'][parity, h]} ms",
+                          flush=True)
         except Exception:
             log.seek(0)
             sys.stderr.write(log.read().decode(errors="replace")[-8000:])
             raise
+        finally:
+            for proc, _ in servers.values():
+                stop_server(proc)
     for k in launches:
         launches[k] += tiled_launches[k]
     del oplain
     torch.cuda.empty_cache()
     tiled_upscale_phase()
 
+    stamp()
     # phase 14
     shape, r = rows[-1]
     kernels = []
@@ -1380,7 +1614,17 @@ def main():
             "ms": r[f"{key}_ms"], "plain_ms": r[plain_key],
             "bound_ms": r[f"{key}_bound"][0],
             "bound_by": r[f"{key}_bound"][1],
-            "library_ms": r[lib_key], "shape": list(shape)})
+            "library_ms": r[lib_key], "shape": list(shape),
+            "impl": r["impl"], "fma_ms": r[f"{key}_fma_ms"],
+            "bound_fp32_fma_ms": r[f"{key}_bound_fp32_fma"][0],
+            "at_overlap_shapes": [
+                {"shape": list(sh), "ms": ro[f"{key}_ms"],
+                 "fma_ms": ro[f"{key}_fma_ms"],
+                 "bound_ms": ro[f"{key}_bound"][0],
+                 "bound_by": ro[f"{key}_bound"][1],
+                 "bound_fp32_fma_ms": ro[f"{key}_bound_fp32_fma"][0],
+                 "plain_ms": ro[f"plain_{key}_ms"],
+                 "library_ms": ro[f"lib_{key}_ms"]} for sh, ro in o_rows]})
     r = pre_rows[0]       # the trainer's own call: (100, 1, 64, 64), flags off
     kernels.append({
         "name": "preprocess", "route": "cuda",
@@ -1389,7 +1633,10 @@ def main():
         "launches": trainer_counts["preprocess"], "max_abs_err": pre_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "shape": r["shape"]})
+        "shape": r["shape"], "eager_ms": r["eager_ms"],
+        "host_queue_us": r["host_queue_us"],
+        "library_graph_ms": r["library_graph_ms"],
+        "library_host_queue_us": r["library_host_queue_us"]})
     for name, line, key in (("fused_nhwc_stats", 197, "stats"),
                             ("fused_nhwc_main", 224, "main")):
         kernels.append({

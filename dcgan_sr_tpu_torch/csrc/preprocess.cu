@@ -108,18 +108,33 @@ int launch(const float* x, float* hr, float* lr, int B, int C, int H, int W,
 extern "C" {
 
 // x (B, C, H, W), hr (B, C', H, W), lr (B, C', H/2, W/2): contiguous fp32,
-// 8-byte aligned; H and W even; gray needs C == 3.
+// 8-byte aligned; H and W even; gray needs C == 3.  `device` is the card the
+// tensors and the stream live on: if it is not the thread's current device
+// it is made current for the launch and the old one restored, which costs
+// the caller no device guard on the host's critical path.  Nothing here
+// synchronises or allocates, so the call may be captured into a CUDA graph.
 int preprocess_f32(const float* x, float* hr, float* lr, int B, int C, int H,
-                   int W, int gray, int pm1, void* stream) {
+                   int W, int gray, int pm1, int device, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B < 0 || C < 1 || H < 0 || W < 0 || (H & 1) || (W & 1) ||
       (gray && C != 3))
     return (int)cudaErrorInvalidValue;
+  int current = device;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return (int)e;
+  if (current != device && (e = cudaSetDevice(device)) != cudaSuccess)
+    return (int)e;
+  int err;
   if (gray)
-    return pm1 ? launch<true, true>(x, hr, lr, B, C, H, W, s)
-               : launch<true, false>(x, hr, lr, B, C, H, W, s);
-  return pm1 ? launch<false, true>(x, hr, lr, B, C, H, W, s)
-             : launch<false, false>(x, hr, lr, B, C, H, W, s);
+    err = pm1 ? launch<true, true>(x, hr, lr, B, C, H, W, s)
+              : launch<true, false>(x, hr, lr, B, C, H, W, s);
+  else
+    err = pm1 ? launch<false, true>(x, hr, lr, B, C, H, W, s)
+              : launch<false, false>(x, hr, lr, B, C, H, W, s);
+  if (current != device && (e = cudaSetDevice(current)) != cudaSuccess &&
+      err == (int)cudaSuccess)
+    err = (int)e;
+  return err;
 }
 
 }  // extern "C"

@@ -163,9 +163,12 @@ class Network(nn.Module):
     `init_network`, or from numpy arrays a test hands over."""
 
     def __init__(self, spec, params, state, *, device="cuda", fuse=True,
-                 trainable=False):
+                 trainable=False, bulge_impl=None):
         super().__init__()
         self.spec = tuple(spec)
+        # which implementation of the fused pair to ask for by name (a
+        # measurement's business); None leaves it to ops.bulge.choose_impl
+        self.bulge_impl = bulge_impl
         self.layers = nn.ModuleList(
             Layer(layer, params[i], state[i] if state is not None else {},
                   device, trainable)
@@ -205,7 +208,7 @@ class Network(nn.Module):
                 nxt = self.layers[i + 1]
                 x, _ = bulge(
                     x, layer.w, layer.bn_scale, layer.bn_bias, nxt.w,
-                    stats=bn_stats, groups=groups,
+                    stats=bn_stats, groups=groups, impl=self.bulge_impl,
                     running=((layer.bn_mean, layer.bn_var)
                              if bn_stats == "running" else None))
                 x = nxt.post(x, bn_stats, track_stats, logits, groups)

@@ -68,4 +68,14 @@ def compile_and_load(stem):
 
 def stream_ptr(x):
     """PyTorch's current stream on x's device, as ctypes takes it."""
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    return ctypes.c_void_p(raw_stream(x.get_device()))
+
+
+def _raw_stream_public(index):
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# The handle of PyTorch's current CUDA stream on device `index`, a plain int
+# (what a ctypes argument declared c_void_p takes); read without building a
+# torch.cuda.Stream where this PyTorch can.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _raw_stream_public)

@@ -11,6 +11,12 @@ kernel and nothing else (no fallback).  The kernel's shared library is built
 from csrc/bulge.cu with nvcc for sm_90a at first use, into _build/ beside
 the package, and loaded with ctypes.
 
+csrc/bulge.cu holds two implementations (`impl=`): "mma", both stages on the
+tensor cores as error-compensated TF32 products in a persistent grid (host
+side: ops/bulge_mma.py), and "fma", the earlier fp32 FMA kernel.
+`choose_impl` picks one from the shapes alone; an explicit `impl=` is for
+measurements and tests.  Neither is ever a fallback for the other.
+
 BN statistics of h, three ways (`stats=`):
   "pooled"     over the whole batch — K2's own statistics
                (pallas_bulge.py:279-283), train-mode BN; with `groups=G`
@@ -30,14 +36,19 @@ import threading
 
 import torch
 
+from . import bulge_mma as M
 from . import nn as N
-from ._build import compile_and_load, stream_ptr as _stream
+from ._build import compile_and_load, raw_stream
 
 STATS_MODES = ("pooled", "per_image", "running")
+IMPLS = ("mma", "fma")
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
 launches = {"bulge_stats": 0, "bulge_main": 0}
+# The same launches by the implementation that ran (both kernels of a pair
+# counted): which one `choose_impl` sent a path through.
+impl_launches = {"mma": 0, "fma": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -57,12 +68,45 @@ def build():
         lib.bulge_supported.argtypes, lib.bulge_supported.restype = [i, i], i
         lib.bulge_main_smem_bytes.argtypes = [i, i, i]
         lib.bulge_main_smem_bytes.restype = ctypes.c_size_t
-        lib.bulge_stats_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.bulge_mma_supported.argtypes = [i, i, i]
+        lib.bulge_mma_supported.restype = i
+        lib.bulge_mma_smem_bytes.argtypes = [i]
+        lib.bulge_mma_smem_bytes.restype = ctypes.c_size_t
+        lib.bulge_stats_f32.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.bulge_stats_f32.restype = i
-        lib.bulge_main_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.bulge_main_f32.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.bulge_main_f32.restype = i
+        lib.bulge_stats_fma_f32.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.bulge_stats_fma_f32.restype = i
+        lib.bulge_main_fma_f32.argtypes = [p] * 7 + [i] * 6 + [p]
+        lib.bulge_main_fma_f32.restype = i
+        if (lib.bulge_band_rows(), lib.bulge_chunk_cols()) != (
+                M.BAND_ROWS, M.CHUNK_COLS) or not all(
+                    lib.bulge_mma_supported(*t) for t in M.MMA_TRIPLES):
+            raise RuntimeError("csrc/bulge.cu and ops/bulge_mma.py disagree "
+                               "on the work item's size or the channel "
+                               "triples built")
         _lib = lib
         return lib
+
+
+def choose_impl(ci, cm, co, h, w):
+    """The implementation `bulge()` runs at these shapes: the tensor-core
+    kernel wherever it has an instantiation (it was the faster of the two at
+    every path shape measured, PERF.md section 6), else the FMA kernel."""
+    return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
+
+
+_sm_count = {}
+
+
+def _sms(device):
+    """Streaming multiprocessors of the card, read once per device."""
+    n = _sm_count.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device.index] = n
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -112,46 +156,93 @@ def _check(x, wT, scale, bias, wC, stats, running, groups):
             raise ValueError("all bulge inputs must be on one device")
 
 
-def launch_stats(x, wT):
-    """Stats launch: per-(image, tile) fp32 (sum, sum of squares) of
-    h = convT(x), shape (B, tiles, 2, Cm).  x, wT: contiguous fp32 CUDA."""
-    lib = build()
+def _impl_for(impl, x, wT, wC=None):
+    """The implementation a launch runs: `impl` if given (checked), else
+    `choose_impl`'s.  The stats launch has no wC: it takes the choice of the
+    pair it belongs to on the paths, Co = 2 Cm."""
+    ci, cm = x.shape[1], wT.shape[1]
+    co = 2 * cm if wC is None else wC.shape[0]
+    if impl is None:
+        return choose_impl(ci, cm, co, x.shape[2], x.shape[3])
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
+        raise ValueError(f"the tensor-core bulge kernel has no instantiation "
+                         f"for Ci={ci}, Cm={cm}, Co={co} (built: "
+                         f"{M.MMA_TRIPLES})")
+    return impl
+
+
+def launch_stats(x, wT, impl=None):
+    """Stats launch: fp32 (sum, sum of squares) of h = convT(x) per (image,
+    slot), shape (B, slots, 2, Cm); a slot is a work item of
+    bulge_mma.Schedule ("mma") or a 16x16 tile ("fma").  x, wT: contiguous
+    fp32 CUDA.  impl=None takes `choose_impl`'s."""
+    lib = _lib or build()
+    impl = _impl_for(impl, x, wT)
     bsz, ci, h, w = x.shape
     cm = wT.shape[1]
-    t = lib.bulge_tile()
-    partial = torch.empty((bsz, -(-h // t) * -(-w // t), 2, cm),
-                          device=x.device, dtype=torch.float32)
-    err = lib.bulge_stats_f32(x.data_ptr(), wT.data_ptr(), partial.data_ptr(),
-                              bsz, ci, cm, h, w, _stream(x))
+    if impl == "mma":
+        slots = M.slots_per_image(h, w)
+        w1 = M.packed_operand("wT", wT)
+    else:
+        t = lib.bulge_tile()
+        slots = -(-h // t) * -(-w // t)
+    partial = torch.empty((bsz, slots, 2, cm), device=x.device,
+                          dtype=torch.float32)
+    if impl == "mma":
+        err = lib.bulge_stats_f32(x.data_ptr(), w1.data_ptr(),
+                                  partial.data_ptr(), bsz, ci, cm, h, w,
+                                  _sms(x.device), raw_stream(x.get_device()))
+    else:
+        err = lib.bulge_stats_fma_f32(x.data_ptr(), wT.data_ptr(),
+                                      partial.data_ptr(), bsz, ci, cm, h, w,
+                                      raw_stream(x.get_device()))
     if err:
-        raise RuntimeError(f"bulge_stats launch failed: cudaError {err}")
+        raise RuntimeError(f"bulge_stats ({impl}) launch failed: cudaError "
+                           f"{err}")
     launches["bulge_stats"] += 1
+    impl_launches[impl] += 1
     return partial
 
 
-def launch_main(x, wT, wC, mu, gain, beta):
+def launch_main(x, wT, wC, mu, gain, beta, impl=None):
     """Main launch: y (B, Co, H, W) with h normalized as
     (h - mu) * gain + beta; mu, gain (B, Cm), beta (Cm,); all contiguous
-    fp32 CUDA."""
-    lib = build()
+    fp32 CUDA.  impl=None takes `choose_impl`'s."""
+    lib = _lib or build()
+    impl = _impl_for(impl, x, wT, wC)
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
     y = torch.empty((bsz, co, h, w), device=x.device, dtype=torch.float32)
-    err = lib.bulge_main_f32(x.data_ptr(), wT.data_ptr(), wC.data_ptr(),
-                             mu.data_ptr(), gain.data_ptr(), beta.data_ptr(),
-                             y.data_ptr(), bsz, ci, cm, co, h, w, _stream(x))
+    if impl == "mma":
+        w1, w2 = M.packed_operand("wT", wT), M.packed_operand("wC", wC)
+        err = lib.bulge_main_f32(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                                 mu.data_ptr(), gain.data_ptr(),
+                                 beta.data_ptr(), y.data_ptr(), bsz, ci, cm,
+                                 co, h, w, _sms(x.device),
+                                 raw_stream(x.get_device()))
+    else:
+        err = lib.bulge_main_fma_f32(x.data_ptr(), wT.data_ptr(),
+                                     wC.data_ptr(), mu.data_ptr(),
+                                     gain.data_ptr(), beta.data_ptr(),
+                                     y.data_ptr(), bsz, ci, cm, co, h, w,
+                                     raw_stream(x.get_device()))
     if err:
-        raise RuntimeError(f"bulge_main launch failed: cudaError {err}")
+        raise RuntimeError(f"bulge_main ({impl}) launch failed: cudaError "
+                           f"{err}")
     launches["bulge_main"] += 1
+    impl_launches[impl] += 1
     return y
 
 
 def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
-          groups=None, eps=1e-5):
+          groups=None, eps=1e-5, impl=None):
     """y = conv_k4s2p1(relu(bn(convT_k4s2p1(x)))) and the BN (mean, var).
 
     x (B, Ci, H, W) fp32; wT (Ci, Cm, 4, 4) IOHW; wC (Co, Cm, 4, 4) OIHW;
-    scale, bias (Cm,).  See the module docstring for `stats` and `groups`."""
+    scale, bias (Cm,).  See the module docstring for `stats`, `groups` and
+    `impl` (CUDA only; None = `choose_impl`)."""
     _check(x, wT, scale, bias, wC, stats, running, groups)
     if stats != "pooled":
         groups = None
@@ -168,29 +259,30 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
     if not lib.bulge_supported(cm, co):
         raise ValueError(f"the bulge kernel has no instantiation for "
                          f"Cm={cm}, Co={co} (built: 4/8, 8/16, 16/32)")
-    smem = lib.bulge_main_smem_bytes(ci, cm, co)
+    impl = _impl_for(impl, x, wT, wC)
+    smem = lib.bulge_mma_smem_bytes(cm) if impl == "mma" else \
+        lib.bulge_main_smem_bytes(ci, cm, co)
     if smem > 227 * 1024:
         raise ValueError(f"bulge tile needs {smem} B of shared memory "
                          f"(Ci={ci}); the card offers 232448")
-    x, wT, wC = x.contiguous(), wT.float().contiguous(), wC.float().contiguous()
+    x = x.contiguous()
+    if wT.dtype != torch.float32 or not wT.is_contiguous():
+        wT = wT.float().contiguous()
+    if wC.dtype != torch.float32 or not wC.is_contiguous():
+        wC = wC.float().contiguous()
     with torch.cuda.device(x.device):
         if stats == "running":
             mean, var = running[0].float(), running[1].float()
             mu, v = mean.expand(bsz, cm), var.expand(bsz, cm)
         else:
-            # fixed-order fp64 reduction of the per-tile partials
-            sums = launch_stats(x, wT).double().sum(dim=1)   # (B, 2, Cm)
             g = bsz if stats == "per_image" else (groups or 1)
-            sums = sums.reshape(g, bsz // g, 2, cm).sum(dim=1)
-            n = 4.0 * h * w * (bsz // g)
-            m64 = sums[:, 0] / n
-            v64 = sums[:, 1] / n - m64 * m64
-            mean, var = m64.float(), v64.float()             # (g, Cm)
+            mean, var = M.reduce_partials(launch_stats(x, wT, impl),
+                                          4 * h * w, g)      # (g, Cm)
             mu = mean.repeat_interleave(bsz // g, dim=0)
             v = var.repeat_interleave(bsz // g, dim=0)
             if stats == "pooled" and groups is None:
                 mean, var = mean[0], var[0]
         gain = torch.rsqrt(v + eps) * scale.float()
         y = launch_main(x, wT, wC, mu.contiguous(), gain.contiguous(),
-                        bias.float().contiguous())
+                        bias.float().contiguous(), impl)
     return y, (mean, var)

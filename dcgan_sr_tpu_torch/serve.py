@@ -326,6 +326,7 @@ class SRService:
             "batch_ms_p50": pct(0.5), "batch_ms_p95": pct(0.95),
             "recent_batch_ms": [round(v, 3) for v in self._lat_ms[-16:]],
             "kernel_launches": dict(bulge_ops.launches),
+            "bulge_impl_launches": dict(bulge_ops.impl_launches),
         }
 
     def close(self):

@@ -72,6 +72,53 @@ def test_kernel_matches_plain(cuda, geom, stats):
     np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
 
 
+@pytest.mark.parametrize("impl", K.IMPLS)
+@pytest.mark.parametrize("stats", K.STATS_MODES)
+@pytest.mark.parametrize("geom", [(2, 16, 8, 16, 37, 45), (1, 8, 4, 8, 16, 20),
+                                  (1, 32, 16, 32, 24, 40), (3, 16, 8, 16, 1, 3)])
+def test_each_implementation_matches_plain(cuda, geom, stats, impl):
+    """The tensor-core kernel ("mma") and the fp32 FMA kernel ("fma"), each
+    asked for by name, against the plain version; the launch counts move by
+    implementation."""
+    t = _inputs(*geom, cuda)
+    run = (t["rmean"], t["rvar"]) if stats == "running" else None
+    n0, i0 = dict(K.launches), dict(K.impl_launches)
+    y, (m, v) = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                        stats=stats, running=run, impl=impl)
+    yp, (mp, vp) = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"],
+                                 t["wC"], stats=stats, running=run)
+    torch.cuda.synchronize()
+    moved = 1 + (stats != "running")
+    assert K.launches["bulge_main"] == n0["bulge_main"] + 1
+    assert K.impl_launches[impl] == i0[impl] + moved
+    other = K.IMPLS[1 - K.IMPLS.index(impl)]
+    assert K.impl_launches[other] == i0[other]
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+def test_default_implementation_is_the_static_rule(cuda):
+    t = _inputs(1, 16, 8, 16, 16, 20, cuda)
+    i0 = dict(K.impl_launches)
+    K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    assert K.choose_impl(16, 8, 16, 16, 20) == "mma"
+    assert K.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"]}
+    with pytest.raises(ValueError, match="impl must be one of"):
+        K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"], impl="auto")
+
+
+def test_stats_slots_match_the_packed_version(cuda):
+    """The tensor-core stats launch writes, slot by slot, what the packed
+    plain version computes for the same work items."""
+    from dcgan_sr_tpu_torch.ops import bulge_mma as M
+    t = _inputs(2, 16, 8, 16, 20, 70, cuda, seed=5)
+    got = K.launch_stats(t["x"], t["wT"].contiguous(), impl="mma")
+    want = M.packed_stats(t["x"].cpu(), t["wT"].cpu())
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
 def test_kernel_rejects_unbuilt_channel_counts(cuda):
     t = _inputs(1, 6, 3, 6, 8, 8, cuda)
     with pytest.raises(ValueError, match="no instantiation"):
@@ -92,7 +139,51 @@ def test_fused_generator_matches_unfused_on_card(cuda, bn_eval):
     np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_network_runs_the_implementation_it_was_given(cuda, impl):
+    cfg = get_config("gray-3", env_override=False)
+    fused, _ = load_generator(cfg, FIXTURE, device=cuda)
+    named = Network(fused.spec, *_lists(fused), device=cuda, bulge_impl=impl)
+    x = torch.rand((1, 1, 24, 40), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(3))
+    i0 = dict(K.impl_launches)
+    got = named(x, bn_stats="per_image")
+    other = K.IMPLS[1 - K.IMPLS.index(impl)]
+    assert K.impl_launches[impl] == i0[impl] + 2
+    assert K.impl_launches[other] == i0[other]
+    np.testing.assert_allclose(got.cpu(), fused(x, bn_stats="per_image").cpu(),
+                               rtol=1e-4, atol=1e-4)
+
+
 # ---- K2 at the overlap pipeline's shapes ------------------------------------
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+@pytest.mark.parametrize("bsz,groups", [(225, None), (450, 2), (900, 4)])
+def test_each_implementation_at_ci32_with_grouped_statistics(cuda, bsz, groups,
+                                                             impl):
+    t = _inputs(bsz, 32, 16, 32, 32, 32, cuda, seed=2)
+    y, (m, v) = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                        groups=groups, impl=impl)
+    yp, (mp, vp) = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"],
+                                 t["wC"], groups=groups)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+@pytest.mark.parametrize("impl", K.IMPLS)
+def test_each_implementation_takes_more_images_than_a_grid_dimension(cuda,
+                                                                     impl):
+    t = _inputs(70000, 8, 4, 8, 16, 16, cuda, seed=3)
+    run = (t["rmean"], t["rvar"])
+    y, _ = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                   stats="running", running=run, impl=impl)
+    yp, _ = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                          stats="running", running=run)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
 
 @pytest.mark.parametrize("bsz,groups", [(225, None), (450, 2), (900, 4)])
 def test_kernel_at_ci32_with_grouped_statistics(cuda, bsz, groups):
@@ -117,8 +208,9 @@ def test_kernel_at_ci32_with_grouped_statistics(cuda, bsz, groups):
 
 
 def test_kernel_takes_more_images_than_a_grid_dimension(cuda):
-    """70,000 images of 16x16: more than the grid's z dimension takes, so
-    the wrapper's one call goes in two launches."""
+    """70,000 images of 16x16: more than a grid's z dimension takes.  The
+    tensor-core kernel's persistent grid has no such limit; the FMA kernel's
+    one call goes in two launches."""
     t = _inputs(70000, 8, 4, 8, 16, 16, cuda, seed=3)
     run = (t["rmean"], t["rvar"])
     y, _ = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
@@ -230,6 +322,50 @@ def test_preprocess_kernel_single_channel_and_views(cuda):
     odd = torch.rand(1 + 2 * 8 * 8, device=cuda, generator=gen)[1:].view(2, 1, 8, 8)
     assert odd.data_ptr() % 8 == 4
     assert torch.equal(P.preprocess(odd)[1], P.preprocess_plain(odd)[1])
+
+
+@pytest.mark.parametrize("shape,flags", [((100, 1, 64, 64), (False, False)),
+                                         ((100, 3, 64, 64), (True, True)),
+                                         ((3, 3, 50, 38), (False, True))])
+def test_preprocess_under_graph_capture_equals_eager(cuda, shape, flags):
+    """A call captured into a CUDA graph and replayed gives the eager call's
+    bits, also after the input changed in place; the launch count moves once
+    per captured call, at capture, and not on replay."""
+    gray, pm1 = flags
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.rand(shape, device=cuda, generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        P.preprocess(x, rgb_to_gray=gray, to_pm1=pm1)
+    torch.cuda.current_stream().wait_stream(side)
+    n0 = P.launches["preprocess"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [P.preprocess(x, rgb_to_gray=gray, to_pm1=pm1)
+                for _ in range(3)]
+    assert P.launches["preprocess"] == n0 + 3
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert P.launches["preprocess"] == n0 + 3
+        hr, lr = P.preprocess(x, rgb_to_gray=gray, to_pm1=pm1)
+        hp, lp = P.preprocess_plain(x, rgb_to_gray=gray, to_pm1=pm1)
+        for o in outs:
+            assert torch.equal(o[0], hr) and torch.equal(o[1], lr)
+            assert torch.equal(o[0], hp) and torch.equal(o[1], lp)
+        n0 += 1                                   # the eager call above
+        x.copy_(torch.rand(shape, device=cuda, generator=gen))
+
+
+def test_preprocess_outputs_keep_their_contract(cuda):
+    x = torch.rand((100, 3, 64, 64), device=cuda, requires_grad=True)
+    hr, lr = P.preprocess(x, rgb_to_gray=True)
+    assert hr.shape == (100, 1, 64, 64) and lr.shape == (100, 1, 32, 32)
+    assert hr.is_contiguous() and lr.is_contiguous()
+    assert not hr.requires_grad and not lr.requires_grad
+    assert hr.data_ptr() % 8 == 0 and lr.data_ptr() % 8 == 0
+    assert hr.device == lr.device == x.device
 
 
 def test_preprocess_kernel_rejects_what_it_does_not_take(cuda):
