@@ -56,13 +56,17 @@ Phases, each fatal on failure:
      device memory, the same with torch.backends.cudnn.benchmark on, and
      the training generator's forward layer by layer.
   9. kernel: the channels-last fused pair (ops/fused_nhwc.py,
-     csrc/fused_nhwc.cu) against its plain PyTorch version on the card at
-     (B, Ci, Cm, Co, H, W) = (2,5,4,6,16,16) tm 8, (1,16,8,16,32,32) tm 16,
-     (3,3,2,3,8,8) tm 8 (the shapes of tests/test_pallas_fused.py),
-     (1,16,8,16,256,256) and (100,16,8,16,256,256) tm 32, and against the
-     bulge kernel on the same inputs where that has an instantiation.  Times
-     per launch, of the plain version's two phases and of the cuDNN
-     composition at the last shape.
+     csrc/fused_nhwc.cu), each implementation it has at a shape (the
+     tensor-core one at Ci 16 / Cm 8 / Co 16, the FMA one everywhere),
+     against its plain PyTorch version on the card at (B, Ci, Cm, Co, H, W)
+     = (2,5,4,6,16,16) tm 8, (1,16,8,16,32,32) tm 16, (3,3,2,3,8,8) tm 8 (the
+     shapes of tests/test_pallas_fused.py), (1,16,8,16,256,256) and
+     (100,16,8,16,256,256) tm 32, and (70000,16,8,16,8,8) tm 8 (more images
+     than a grid dimension takes); the chosen one also against the bulge
+     kernel on the same inputs.  At (100,16,8,16,256,256): each launch of
+     each implementation and the whole call (`pair_ms`, transposes included)
+     timed in turns (fma, mma, mma, fma), an error if the chosen one is the
+     slower; the plain version's two phases and the cuDNN composition.
  10. kernel: the bulge kernel at the overlap pipeline's shapes, with the
      overlap fixture's layer-3/4 weights (Ci 32, Cm 16, Co 32): x
      (225,32,32,32) pooled, (14400,32,32,32) running and grouped by 225;
@@ -70,7 +74,8 @@ Phases, each fatal on failure:
  11. path: `python -m dcgan_sr_tpu_torch.bench_fused --kernel nhwc` and
      `--kernel bulge` as subprocesses at the default batch 100, hw 256,
      fp32; the JSON line parsed, max_abs_diff held to the y tolerance, the
-     launch counts on the line before it moved from 0.
+     launch counts on the line before it moved from 0, every launch by the
+     tensor-core implementation (the line before that).
  12. path: the overlap pipeline (infer/tiled.py make_overlap_sr_fn) for
      gray-patch-batch-overlap at full width from its fixture, 64 images of
      64x64 from a seed, per-image-tile BN and running-stats BN, fused
@@ -964,13 +969,18 @@ def step_breakdown(cfg, state, smi, warm=2, iters=10):
 # phase 9: the channels-last fused pair against its plain version
 # ---------------------------------------------------------------------------
 
-# ((B, Ci, Cm, Co, H, W), tm)
+# ((B, Ci, Cm, Co, H, W), tm): the shapes of tests/test_pallas_fused.py,
+# bench_fused's, and more images than a grid dimension takes
 NHWC_CASES = [((2, 5, 4, 6, 16, 16), 8), ((1, 16, 8, 16, 32, 32), 16),
               ((3, 3, 2, 3, 8, 8), 8), ((1, 16, 8, 16, 256, 256), 32),
-              ((100, 16, 8, 16, 256, 256), 32)]
+              ((100, 16, 8, 16, 256, 256), 32), ((70000, 16, 8, 16, 8, 8), 8)]
 
 
 def nhwc_phase():
+    """K3 by each implementation it has at each case against its plain
+    version, the chosen one also against K2 (or the unfused pair); at
+    bench_fused's shape both implementations timed in turns.  Returns the
+    chosen implementation's worst errors and the timing row."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -990,20 +1000,36 @@ def nhwc_phase():
         wT, wC = t(0.1 * rng.randn(ci, cm, 4, 4)), t(0.1 * rng.randn(co, cm, 4, 4))
         scale, bias = t(1 + 0.1 * rng.randn(cm)), t(0.1 * rng.randn(cm))
         args = (x, wT, scale, bias, wC)
+        geom = (b, ci, cm, co, h, w)
+        chosen = F3.choose_impl(ci, cm, co, h, w)
         n0 = dict(F3.launches)
-        y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
+        got = {chosen: F3.fused_convT_bn_relu_conv(*args, tm=tm)}
         check(F3.launches == {k: c + 1 for k, c in n0.items()},
               "K3 launch counts did not move by one each")
+        for impl in F3.IMPLS:
+            if impl not in got and (impl == "fma"
+                                    or (ci, cm, co) in F3.M.MMA_TRIPLES):
+                got[impl] = F3.fused_convT_bn_relu_conv(*args, tm=tm,
+                                                        impl=impl)
         yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
         torch.cuda.synchronize()
-        check(tuple(y.shape) == (b, co, h, w) and bool(torch.isfinite(y).all()),
-              f"K3 output {tuple(y.shape)}")
-        ey, em, ev = ((y - yp).abs().max().item(), (m - mp).abs().max().item(),
-                      (v - vp).abs().max().item())
-        check(_close(y, yp, TOL_Y) and _close(m, mp, TOL_STATS)
-              and _close(v, vp, TOL_STATS),
-              f"K3 disagrees with its plain version at {(b, ci, cm, co, h, w)}")
+        for impl, (y, (m, v)) in got.items():
+            check(tuple(y.shape) == (b, co, h, w)
+                  and bool(torch.isfinite(y).all()),
+                  f"K3 ({impl}) output {tuple(y.shape)}")
+            ey, em, ev = ((y - yp).abs().max().item(),
+                          (m - mp).abs().max().item(),
+                          (v - vp).abs().max().item())
+            check(_close(y, yp, TOL_Y) and _close(m, mp, TOL_STATS)
+                  and _close(v, vp, TOL_STATS),
+                  f"K3 ({impl}) disagrees with its plain version at {geom}")
+            print(f"K3 {geom} tm {tm} {impl}: max|dy| {ey:.3e} max|dmean| "
+                  f"{em:.3e} max|dvar| {ev:.3e}", flush=True)
+            if impl == chosen:
+                err["fused_nhwc_main"] = max(err["fused_nhwc_main"], ey)
+                err["fused_nhwc_stats"] = max(err["fused_nhwc_stats"], em, ev)
         del yp
+        y, (m, v) = got[chosen]
         if K.build().bulge_supported(cm, co):
             yk, (mk, vk) = K.bulge(*args)
             other = "K2"
@@ -1013,30 +1039,42 @@ def nhwc_phase():
         ek = (y - yk).abs().max().item()
         check(_close(y, yk, TOL_Y) and _close(m, mk, TOL_STATS)
               and _close(v, vk, TOL_STATS),
-              f"K3 disagrees with {other} at {(b, ci, cm, co, h, w)}")
-        print(f"K3 {(b, ci, cm, co, h, w)} tm {tm}: max|dy| {ey:.3e} "
-              f"max|dmean| {em:.3e} max|dvar| {ev:.3e}; vs {other} max|dy| "
-              f"{ek:.3e}", flush=True)
-        err["fused_nhwc_main"] = max(err["fused_nhwc_main"], ey)
-        err["fused_nhwc_stats"] = max(err["fused_nhwc_stats"], em, ev)
-        del y, yk
-        if b < 100:
+              f"K3 disagrees with {other} at {geom}")
+        print(f"K3 {geom} tm {tm} {chosen} vs {other}: max|dy| {ek:.3e}",
+              flush=True)
+        del got, y, yk
+        if b != 100:
+            del x
+            torch.cuda.empty_cache()
             continue
 
-        # times per launch at bench_fused's geometry
+        # times per launch at bench_fused's geometry: each launch of each
+        # implementation in turns (fma, mma, mma, fma), and the whole call
         xn = x.permute(0, 2, 3, 1).contiguous()
         xl = F3._pad_nhwc(x).contiguous()
         wtall, wcall = F3._pack_wT(wT), F3._pack_wC(wC)
+        ops = {impl: F3.operands(wT, wC, impl) for impl in F3.IMPLS}
         gain = torch.rsqrt(v + 1e-5) * scale
-        st = torch.stack([m.repeat(4), gain.repeat(4), bias.repeat(4)]).contiguous()
+        bn = F3._bn_rows(m, v, scale, bias, 1e-5)
+        st, st_best = in_turns(
+            {impl: (lambda impl=impl: F3.launch_stats(
+                xn, ops[impl][0], cm, tm, impl)) for impl in ("fma", "mma")},
+            10)
+        mn, mn_best = in_turns(
+            {impl: (lambda impl=impl: F3.launch_main(
+                xn, *ops[impl], bn, cm, co, tm, impl))
+             for impl in ("fma", "mma")}, 10)
+        pair, _ = in_turns(
+            {impl: (lambda impl=impl: F3.fused_convT_bn_relu_conv(
+                *args, tm=tm, impl=impl)) for impl in ("fma", "mma")}, 5)
         with N.fp32_convs():
             row = {
-                "shape": [b, ci, h, w], "tm": tm,
-                "stats_ms": time_ms(lambda: F3.launch_stats(xn, wtall, tm), 10),
-                "main_ms": time_ms(lambda: F3.launch_main(xn, wtall, wcall, st,
-                                                          tm), 10),
-                "pair_ms": time_ms(lambda: F3.fused_convT_bn_relu_conv(
-                    *args, tm=tm), 5),
+                "shape": [b, ci, h, w], "tm": tm, "impl": chosen,
+                "stats_ms": st[chosen], "main_ms": mn[chosen],
+                "pair_ms": pair[chosen],
+                "stats_fma_ms": st["fma"], "stats_mma_ms": st["mma"],
+                "main_fma_ms": mn["fma"], "main_mma_ms": mn["mma"],
+                "pair_fma_ms": pair["fma"], "pair_mma_ms": pair["mma"],
                 "plain_stats_ms": time_ms(lambda: F3.plain_stats(xl, wtall, tm), 3),
                 "plain_main_ms": time_ms(lambda: F3.plain_main(
                     xl, wtall, wcall, m, gain, bias, tm), 3),
@@ -1049,20 +1087,30 @@ def nhwc_phase():
                 "K2_stats_ms": time_ms(lambda: K.launch_stats(x, wT), 10),
                 "K2_pair_ms": time_ms(lambda: K.bulge(*args), 5),
             }
+        # the better turn of each, with 5% of slack
+        check(mn_best[chosen] <= min(mn_best.values()) * 1.05
+              and st_best[chosen] <= min(st_best.values()) * 1.05,
+              f"fused_convT_bn_relu_conv runs {chosen} at {geom}, which is "
+              f"the slower implementation in this run: stats {st}, main {mn}")
         hw = b * h * w
         flops_T = 2 * hw * (4 * ci) * (4 * cm)       # the packed products
         flops_C = 2 * hw * (16 * cm) * co
-        chunks = -(-w // 32)
-        row["stats_bound"] = bound(
-            flops_T + 3 * 4 * hw * cm,
-            4 * (hw * ci + wtall.numel() + b * (h // tm) * chunks * 2 * cm))
-        row["main_bound"] = bound(
-            flops_T + 3 * 4 * hw * cm + flops_C,
-            4 * (hw * ci + hw * co + wtall.numel() + wcall.numel() + 12 * cm))
-        print("K3 times: " + json.dumps(
-            {k: (round(val, 4) if isinstance(val, float) else
-                 [round(val[0], 4), val[1]] if isinstance(val, tuple) else val)
-             for k, val in row.items()}), flush=True)
+        slots = F3.M.Schedule(b, h, w, tm).n_items
+        f_stats = flops_T + 3 * 4 * hw * cm
+        f_main = f_stats + flops_C
+        b_stats = 4 * (hw * ci + wtall.numel() + slots * 2 * cm)
+        b_main = 4 * (hw * ci + hw * co + wtall.numel() + wcall.numel()
+                      + 12 * cm)
+        # the kernel's own rate (three TF32 products per fp32 product), and
+        # the fp32 FMA rate the FMA kernel is held to
+        peak = PEAK_3XTF32 if chosen == "mma" else PEAK_FP32
+        row["stats_bound"] = bound(f_stats, b_stats, peak)
+        row["main_bound"] = bound(f_main, b_main, peak)
+        row["stats_bound_fp32_fma"] = bound(f_stats, b_stats)
+        row["main_bound_fp32_fma"] = bound(f_main, b_main)
+        for k in ("stats", "main"):
+            row[f"{k}_share_of_bound"] = row[f"{k}_bound"][0] / row[f"{k}_ms"]
+        print("K3 times: " + _fmt(row), flush=True)
         del x, xn, xl
         torch.cuda.empty_cache()
     return err, row
@@ -1134,6 +1182,8 @@ def bench_fused_phase():
         rec = json.loads(lines[-1])
         check(lines[-2].startswith("kernel launches: "), lines[-2])
         counts = json.loads(lines[-2][len("kernel launches: "):])
+        check(lines[-3].startswith("implementation launches: "), lines[-3])
+        by_impl = json.loads(lines[-3][len("implementation launches: "):])
         check((rec["batch"], rec["hw"], rec["kernel"], rec["dtype"])
               == (100, 256, kernel, "fp32"), f"bench_fused ran {rec}")
         check(rec["device"].startswith("cuda"), f"bench_fused on {rec['device']}")
@@ -1143,8 +1193,14 @@ def bench_fused_phase():
         for n in names:
             check(counts[n] > 0, f"bench_fused --kernel {kernel} did not "
                   f"launch {n}: {counts}")
+        # at Ci 16 / Cm 8 / Co 16 both pairs run on the tensor cores
+        mine = by_impl["fused_nhwc" if kernel == "nhwc" else "bulge"]
+        check(mine["mma"] == counts[names[0]] + counts[names[1]]
+              and mine["fma"] == 0,
+              f"bench_fused --kernel {kernel} launched {by_impl}")
         print(f"bench_fused --kernel {kernel}: " + json.dumps(rec)
-              + " launches " + json.dumps(counts), flush=True)
+              + " launches " + json.dumps(counts) + " by implementation "
+              + json.dumps(by_impl), flush=True)
         out[kernel] = (rec, counts)
     return out
 
@@ -1649,7 +1705,11 @@ def main():
             "bound_ms": nhwc_row[f"{key}_bound"][0],
             "bound_by": nhwc_row[f"{key}_bound"][1],
             "library_ms": nhwc_row[f"lib_{key}_ms"],
-            "shape": nhwc_row["shape"]})
+            "shape": nhwc_row["shape"], "impl": nhwc_row["impl"],
+            "fma_ms": nhwc_row[f"{key}_fma_ms"],
+            "bound_fp32_fma_ms": nhwc_row[f"{key}_bound_fp32_fma"][0],
+            "pair_ms": nhwc_row["pair_ms"],
+            "pair_fma_ms": nhwc_row["pair_fma_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

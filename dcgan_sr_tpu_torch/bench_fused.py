@@ -12,8 +12,10 @@ port's conv_transpose2d, batch statistics, normalize, ReLU and conv2d
 (cuDNN with TF32 off on the card).  A timing is CUDA events around --iters
 back-to-back calls ending in a synchronize, best of --reps; with --cpu the
 host clock (the CPU run checks the plumbing: its times are not the card's).
-Prints one line with the kernels' launch counts, then one JSON line with
-the JAX tool's keys.  --dtype bf16 is not yet ported and raises.
+Prints a line with each kernel's launches by implementation ("mma" tensor
+cores, "fma" the FMA kernel, chosen by the shapes), one with the kernels'
+launch counts, then one JSON line with the JAX tool's keys.  --dtype bf16 is
+not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -100,6 +102,8 @@ def main(argv=None):
         y_ref, _ = unfused()
         y_fused, _ = fused()
         err = float((y_ref - y_fused).abs().max())
+    print("implementation launches: " + json.dumps(
+        {"bulge": K.impl_launches, "fused_nhwc": F.impl_launches}))
     print("kernel launches: " + json.dumps({**K.launches, **F.launches}))
     print(json.dumps({"batch": b, "hw": hw, "dtype": args.dtype,
                       "kernel": args.kernel,

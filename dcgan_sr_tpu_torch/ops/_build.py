@@ -7,8 +7,8 @@ ignores), and ctypes loads the result.  The wrapper declares the argtypes.
 
 The library's name carries a hash of the source and the flags, so an edited
 kernel rebuilds; two threads or processes building the same source at once
-are safe because the finished file is moved into place atomically.  Nothing
-here is cached in memory: each wrapper keeps its own loaded library, so
+are safe because the finished file is moved into place atomically.  No
+library is cached here: each wrapper keeps its own loaded library, so
 distinct sources build in parallel from distinct threads.
 """
 
@@ -66,9 +66,17 @@ def compile_and_load(stem):
     return ctypes.CDLL(so), log
 
 
-def stream_ptr(x):
-    """PyTorch's current stream on x's device, as ctypes takes it."""
-    return ctypes.c_void_p(raw_stream(x.get_device()))
+_sm_count = {}
+
+
+def sm_count(device):
+    """Streaming multiprocessors of the card `device`, read once per device
+    (the persistent kernels launch that many times the blocks that fit)."""
+    n = _sm_count.get(device.index)
+    if n is None:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _sm_count[device.index] = n
+    return n
 
 
 def _raw_stream_public(index):

@@ -38,7 +38,7 @@ import torch
 
 from . import bulge_mma as M
 from . import nn as N
-from ._build import compile_and_load, raw_stream
+from ._build import compile_and_load, raw_stream, sm_count
 
 STATS_MODES = ("pooled", "per_image", "running")
 IMPLS = ("mma", "fma")
@@ -95,18 +95,6 @@ def choose_impl(ci, cm, co, h, w):
     kernel wherever it has an instantiation (it was the faster of the two at
     every path shape measured, PERF.md section 6), else the FMA kernel."""
     return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
-
-
-_sm_count = {}
-
-
-def _sms(device):
-    """Streaming multiprocessors of the card, read once per device."""
-    n = _sm_count.get(device.index)
-    if n is None:
-        n = torch.cuda.get_device_properties(device).multi_processor_count
-        _sm_count[device.index] = n
-    return n
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +181,8 @@ def launch_stats(x, wT, impl=None):
     if impl == "mma":
         err = lib.bulge_stats_f32(x.data_ptr(), w1.data_ptr(),
                                   partial.data_ptr(), bsz, ci, cm, h, w,
-                                  _sms(x.device), raw_stream(x.get_device()))
+                                  sm_count(x.device),
+                                  raw_stream(x.get_device()))
     else:
         err = lib.bulge_stats_fma_f32(x.data_ptr(), wT.data_ptr(),
                                       partial.data_ptr(), bsz, ci, cm, h, w,
@@ -220,7 +209,7 @@ def launch_main(x, wT, wC, mu, gain, beta, impl=None):
         err = lib.bulge_main_f32(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                                  mu.data_ptr(), gain.data_ptr(),
                                  beta.data_ptr(), y.data_ptr(), bsz, ci, cm,
-                                 co, h, w, _sms(x.device),
+                                 co, h, w, sm_count(x.device),
                                  raw_stream(x.get_device()))
     else:
         err = lib.bulge_main_fma_f32(x.data_ptr(), wT.data_ptr(),

@@ -22,6 +22,15 @@ The NCHW <-> NHWC transposes are torch calls around the launches, as they
 are XLA's around the Pallas calls.  Nothing in the served or trained paths
 calls this module: like its JAX counterpart it is reached from the
 bench_fused tool (--kernel nhwc).
+
+csrc/fused_nhwc.cu holds two implementations (`impl=`): "mma", both packed
+products on the tensor cores as error-compensated TF32 products in a
+persistent grid (host side: ops/fused_nhwc_mma.py), for the channel triples
+it is built for, and "fma", the first fp32 FMA kernel, for every triple.
+`choose_impl` picks one from the shapes alone; an explicit `impl=` is for
+measurements and tests.  Neither is ever a fallback for the other.
+`fused_nhwc_packed()` is the "mma" launches' arithmetic in PyTorch, item by
+item from the same operands.
 """
 
 from __future__ import annotations
@@ -31,11 +40,17 @@ import threading
 
 import torch
 
-from ._build import compile_and_load, stream_ptr as _stream
+from . import fused_nhwc_mma as M
+from ._build import compile_and_load, raw_stream, sm_count
+
+IMPLS = ("mma", "fma")
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
 launches = {"fused_nhwc_stats": 0, "fused_nhwc_main": 0}
+# The same launches by the implementation that ran (both kernels of a pair
+# counted).
+impl_launches = {"mma": 0, "fma": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -51,15 +66,49 @@ def build():
             return _lib
         lib, build_log = compile_and_load("fused_nhwc")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_nhwc_chunk.argtypes, lib.fused_nhwc_chunk.restype = [], i
+        for name in ("fused_nhwc_chunk", "fused_nhwc_pass_rows",
+                     "fused_nhwc_chunk_cols"):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [], i
+        lib.fused_nhwc_mma_supported.argtypes = [i, i, i]
+        lib.fused_nhwc_mma_supported.restype = i
         lib.fused_nhwc_smem_bytes.argtypes = [i, i, i]
         lib.fused_nhwc_smem_bytes.restype = ctypes.c_size_t
-        lib.fused_nhwc_stats_f32.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.fused_nhwc_stats_f32.argtypes = [p, p, p] + [i] * 7 + [p]
         lib.fused_nhwc_stats_f32.restype = i
-        lib.fused_nhwc_main_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.fused_nhwc_main_f32.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.fused_nhwc_main_f32.restype = i
+        lib.fused_nhwc_stats_fma_f32.argtypes = [p, p, p] + [i] * 6 + [p]
+        lib.fused_nhwc_stats_fma_f32.restype = i
+        lib.fused_nhwc_main_fma_f32.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.fused_nhwc_main_fma_f32.restype = i
+        if (lib.fused_nhwc_pass_rows(), lib.fused_nhwc_chunk_cols()) != (
+                M.PASS_ROWS, M.CHUNK_COLS) or not all(
+                    lib.fused_nhwc_mma_supported(*t) for t in M.MMA_TRIPLES):
+            raise RuntimeError("csrc/fused_nhwc.cu and ops/fused_nhwc_mma.py "
+                               "disagree on the work item's size or the "
+                               "channel triples built")
         _lib = lib
         return lib
+
+
+def choose_impl(ci, cm, co, h, w):
+    """The implementation `fused_convT_bn_relu_conv` runs at these shapes:
+    the tensor-core kernel wherever it has an instantiation, else the FMA
+    kernel (PERF.md section 6 has both timed in turns)."""
+    return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
+
+
+def _impl_for(impl, ci, cm, co, h, w):
+    """`impl` if given (checked), else `choose_impl`'s."""
+    if impl is None:
+        return choose_impl(ci, cm, co, h, w)
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
+        raise ValueError(f"the tensor-core NHWC kernel has no instantiation "
+                         f"for Ci={ci}, Cm={cm}, Co={co} (built: "
+                         f"{M.MMA_TRIPLES})")
+    return impl
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +229,72 @@ def fused_nhwc_plain(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
     return y.permute(0, 3, 1, 2).contiguous(), (mean, var)
 
 
+_index_cache = {}
+
+
+def _operand_index(kind, ci, cm, co, device):
+    """Flat gather indices of wT (kind "wT", into wT's elements) or wC
+    ("wC") into the tensor-core kernel's operand; the padding points one past
+    the weight's end, where `operands` keeps a zero.  The JAX packers run on
+    an index tensor, so the operand is theirs element for element."""
+    key = (kind, ci, cm, co, str(device))
+    if key not in _index_cache:
+        if kind == "wT":
+            n = ci * cm * 16
+            idx = M.w1_operand_index(
+                _pack_wT(torch.arange(n).reshape(ci, cm, 4, 4)), ci, cm, n)
+        else:
+            n = co * cm * 16
+            idx = M.w2_operand_index(
+                _pack_wC(torch.arange(n).reshape(co, cm, 4, 4)), cm, co, n)
+        _index_cache[key] = idx.to(device)
+    return _index_cache[key]
+
+
+def operands(wT, wC, impl):
+    """The kernel's two weight operands, contiguous fp32 on the weights'
+    device: wtall (4Ci, 4Cm) and wcall (16Cm, Co) for "fma"; W1 and W2 in
+    fragment order (ops/fused_nhwc_mma.py) for "mma"."""
+    wT, wC = wT.detach().float(), wC.detach().float()
+    if impl == "fma":
+        return _pack_wT(wT).contiguous(), _pack_wC(wC).contiguous()
+    ci, cm, co = wT.shape[0], wT.shape[1], wC.shape[0]
+    return tuple(torch.cat([w.reshape(-1), w.new_zeros(1)])[
+        _operand_index(kind, ci, cm, co, w.device)]
+        for kind, w in (("wT", wT), ("wC", wC)))
+
+
+def _moments(partial, n):
+    """(mean, biased var) of the hidden tensor from the stats launch's
+    slots: a fixed-order fp64 reduction; n = hidden cells."""
+    sums = partial.double().sum(dim=tuple(range(partial.dim() - 2)))
+    m64 = sums[0] / n
+    return m64.float(), (sums[1] / n - m64 * m64).float()
+
+
+def _bn_rows(mean, var, scale, bias, eps):
+    """(3, 4Cm): mean, gain and bias, each tiled over the four parities."""
+    gain = torch.rsqrt(var + eps) * scale.float()
+    return torch.stack([mean.repeat(4), gain.repeat(4),
+                        bias.float().repeat(4)]).contiguous()
+
+
+def fused_nhwc_packed(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
+    """The tensor-core implementation's arithmetic in PyTorch: the wrapper's
+    steps, with ops/fused_nhwc_mma.py's packed_stats and packed_main in place
+    of the two launches, item by item from the fragment-order operands.
+    Returns (y (B, Co, H, W), (mean, biased_var)); any channel counts (the
+    operands pad Ci, Cm and Co to multiples of 8)."""
+    bsz, ci, h, w = x.shape
+    cm, co = wT.shape[1], wC.shape[0]
+    xn = x.permute(0, 2, 3, 1).contiguous()
+    w1, w2 = operands(wT, wC, "mma")
+    mean, var = _moments(M.packed_stats(xn, w1, ci, cm, tm), 4.0 * h * w * bsz)
+    y = M.packed_main(xn, w1, w2, _bn_rows(mean, var, scale, bias, eps), ci,
+                      cm, co, tm)
+    return y.permute(0, 3, 1, 2).contiguous(), (mean, var)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 # ---------------------------------------------------------------------------
@@ -202,51 +317,76 @@ def _check(x, wT, scale, bias, wC, tm):
             raise ValueError("all inputs must be on one device")
 
 
-def launch_stats(xn, wtall, tm):
-    """Stats launch: per-(image, band, column chunk) fp32 (sum, sum of
-    squares) of h, shape (B, H/tm, chunks, 2, Cm).  xn (B, H, W, Ci) NHWC,
-    wtall (4Ci, 4Cm): contiguous fp32 CUDA."""
-    lib = build()
+def launch_stats(xn, w1, cm, tm, impl):
+    """Stats launch: fp32 (sum, sum of squares) of h per (image, slot), shape
+    (B, slots, 2, Cm); a slot is a work item of fused_nhwc_mma.Schedule
+    ("mma": H/tm bands x ceil(tm/8) passes x ceil(W/32) chunks) or a block of
+    the FMA kernel ("fma": H/tm bands x ceil(W/32) chunks).  xn (B, H, W, Ci)
+    NHWC and w1 (`operands`' first for `impl`): contiguous fp32 CUDA."""
+    lib = _lib or build()
     bsz, h, w, ci = xn.shape
-    cm = wtall.shape[1] // 4
-    chunk = lib.fused_nhwc_chunk()
-    partial = torch.empty((bsz, h // tm, -(-w // chunk), 2, cm),
-                          device=xn.device, dtype=torch.float32)
-    err = lib.fused_nhwc_stats_f32(xn.data_ptr(), wtall.data_ptr(),
-                                   partial.data_ptr(), bsz, h, w, ci, cm, tm,
-                                   _stream(xn))
+    if impl == "mma":
+        slots = M.Schedule(1, h, w, tm).per_image
+    else:
+        slots = h // tm * -(-w // lib.fused_nhwc_chunk())
+    partial = torch.empty((bsz, slots, 2, cm), device=xn.device,
+                          dtype=torch.float32)
+    stream = raw_stream(xn.get_device())
+    if impl == "mma":
+        err = lib.fused_nhwc_stats_f32(xn.data_ptr(), w1.data_ptr(),
+                                       partial.data_ptr(), bsz, h, w, ci, cm,
+                                       tm, sm_count(xn.device), stream)
+    else:
+        err = lib.fused_nhwc_stats_fma_f32(xn.data_ptr(), w1.data_ptr(),
+                                           partial.data_ptr(), bsz, h, w, ci,
+                                           cm, tm, stream)
     if err:
-        raise RuntimeError(f"fused_nhwc_stats launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_nhwc_stats ({impl}) launch failed: "
+                           f"cudaError {err}")
     launches["fused_nhwc_stats"] += 1
+    impl_launches[impl] += 1
     return partial
 
 
-def launch_main(xn, wtall, wcall, stats, tm):
-    """Main launch: y (B, H, W, Co) NHWC.  stats (3, 4Cm): mean, gain and
-    bias, each tiled over the four parities; all contiguous fp32 CUDA."""
-    lib = build()
+def launch_main(xn, w1, w2, bn, cm, co, tm, impl):
+    """Main launch: y (B, H, W, Co) NHWC.  bn (3, 4Cm): mean, gain and bias,
+    each tiled over the four parities; w1, w2 `operands`' for `impl`; all
+    contiguous fp32 CUDA."""
+    lib = _lib or build()
     bsz, h, w, ci = xn.shape
-    cm, co = wtall.shape[1] // 4, wcall.shape[1]
     y = torch.empty((bsz, h, w, co), device=xn.device, dtype=torch.float32)
-    err = lib.fused_nhwc_main_f32(xn.data_ptr(), wtall.data_ptr(),
-                                  wcall.data_ptr(), stats.data_ptr(),
-                                  y.data_ptr(), bsz, h, w, ci, cm, co, tm,
-                                  _stream(xn))
+    stream = raw_stream(xn.get_device())
+    if impl == "mma":
+        err = lib.fused_nhwc_main_f32(xn.data_ptr(), w1.data_ptr(),
+                                      w2.data_ptr(), bn.data_ptr(),
+                                      y.data_ptr(), bsz, h, w, ci, cm, co, tm,
+                                      sm_count(xn.device), stream)
+    else:
+        err = lib.fused_nhwc_main_fma_f32(xn.data_ptr(), w1.data_ptr(),
+                                          w2.data_ptr(), bn.data_ptr(),
+                                          y.data_ptr(), bsz, h, w, ci, cm, co,
+                                          tm, stream)
     if err:
-        raise RuntimeError(f"fused_nhwc_main launch failed: cudaError {err}")
+        raise RuntimeError(f"fused_nhwc_main ({impl}) launch failed: "
+                           f"cudaError {err}")
     launches["fused_nhwc_main"] += 1
+    impl_launches[impl] += 1
     return y
 
 
-def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
+def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
+                             impl=None):
     """y = conv_s2p1k4(relu(bn(convT_s2p1k4(x)))) without storing the
     2x-resolution hidden tensor.
 
     x: (B, Ci, H, W) fp32, H a multiple of tm; wT: (Ci, Cm, 4, 4) IOHW;
     wC: (Co, Cm, 4, 4) OIHW; scale/bias: (Cm,).  Returns (y: (B, Co, H, W),
     (mean, biased_var)) with train-mode batch statistics of the hidden
-    tensor."""
+    tensor.  impl (CUDA only): "mma" or "fma", None = `choose_impl`'s."""
     _check(x, wT, scale, bias, wC, tm)
+    bsz, ci, h, w = x.shape
+    cm, co = wT.shape[1], wC.shape[0]
+    impl = _impl_for(impl, ci, cm, co, h, w)
     if x.device.type == "cpu":
         return fused_nhwc_plain(x, wT, scale, bias, wC, eps=eps, tm=tm)
     if x.device.type != "cuda":
@@ -254,25 +394,21 @@ def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
     if x.dtype != torch.float32:
         raise ValueError(f"the kernel takes float32, got {x.dtype}")
     lib = build()
-    bsz, ci, h, w = x.shape
-    cm, co = wT.shape[1], wC.shape[0]
-    if 4 * cm > 256:
-        raise ValueError(f"the kernel takes Cm <= 64, got {cm}")
-    smem = lib.fused_nhwc_smem_bytes(ci, cm, co)
-    if smem > 227 * 1024:
-        raise ValueError(f"a band pass needs {smem} B of shared memory "
-                         f"(Ci={ci}, Cm={cm}, Co={co}); the card offers 232448")
+    if impl == "fma":
+        if 4 * cm > 256:
+            raise ValueError(f"the kernel takes Cm <= 64, got {cm}")
+        smem = lib.fused_nhwc_smem_bytes(ci, cm, co)
+        if smem > 227 * 1024:
+            raise ValueError(f"a band pass needs {smem} B of shared memory "
+                             f"(Ci={ci}, Cm={cm}, Co={co}); the card offers "
+                             f"232448")
     with torch.cuda.device(x.device):
         xn = x.permute(0, 2, 3, 1).contiguous()
-        wtall = _pack_wT(wT.float()).contiguous()
-        wcall = _pack_wC(wC.float()).contiguous()
-        # fixed-order fp64 reduction of the per-block partials
-        sums = launch_stats(xn, wtall, tm).double().sum(dim=(0, 1, 2))
-        n = 4.0 * h * w * bsz
-        m64 = sums[0] / n
-        mean, var = m64.float(), (sums[1] / n - m64 * m64).float()
-        gain = torch.rsqrt(var + eps) * scale.float()
-        stats = torch.stack([mean.repeat(4), gain.repeat(4),
-                             bias.float().repeat(4)]).contiguous()
-        y = launch_main(xn, wtall, wcall, stats, tm)
+        if xn.data_ptr() % 16:          # the kernels copy x 16 bytes at a time
+            xn = xn.clone()
+        w1, w2 = operands(wT, wC, impl)
+        mean, var = _moments(launch_stats(xn, w1, cm, tm, impl),
+                             4.0 * h * w * bsz)
+        y = launch_main(xn, w1, w2, _bn_rows(mean, var, scale, bias, eps), cm,
+                        co, tm, impl)
     return y.permute(0, 3, 1, 2).contiguous(), (mean, var)

@@ -42,6 +42,9 @@ def test_bench_fused_prints_the_jax_tools_keys(kernel):
     assert set(counts) == {"bulge_stats", "bulge_main", "fused_nhwc_stats",
                            "fused_nhwc_main"}
     assert all(v == 0 for v in counts.values())      # CPU: plain versions
+    assert lines[-3].startswith("implementation launches: ")
+    by_impl = json.loads(lines[-3][len("implementation launches: "):])
+    assert by_impl == {k: {"mma": 0, "fma": 0} for k in ("bulge", "fused_nhwc")}
 
 
 def test_bench_fused_bf16_and_cpu_fallback_refused():

@@ -264,6 +264,69 @@ def test_nhwc_kernel_matches_plain(cuda, geom, tm):
     np.testing.assert_allclose(y.cpu(), yu.cpu(), **Y_TOL)
 
 
+NHWC_GEOMS = [((1, 16, 8, 16, 32, 32), 16), ((1, 8, 4, 8, 12, 37), 6),
+               ((2, 32, 16, 32, 32, 32), 16), ((2, 16, 8, 16, 64, 100), 32),
+               ((3, 16, 8, 16, 6, 3), 6), ((2, 16, 8, 16, 24, 45), 12),
+               ((2, 5, 4, 6, 16, 16), 8)]
+
+
+@pytest.mark.parametrize("geom,tm,impl", [
+    (g, tm, impl) for g, tm in NHWC_GEOMS for impl in F3.IMPLS
+    if impl == "fma" or g[1:4] in F3.M.MMA_TRIPLES])
+def test_nhwc_each_implementation_matches_plain(cuda, geom, tm, impl):
+    """The tensor-core kernel ("mma", at the triples it is built for) and the
+    FMA kernel ("fma", every triple), each asked for by name, against the
+    plain version; the counts move by implementation."""
+    t = _inputs(*geom, cuda, seed=6)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    i0 = dict(F3.impl_launches)
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm, impl=impl)
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
+    torch.cuda.synchronize()
+    other = F3.IMPLS[1 - F3.IMPLS.index(impl)]
+    assert F3.impl_launches[impl] == i0[impl] + 2
+    assert F3.impl_launches[other] == i0[other]
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+def test_nhwc_default_implementation_is_the_static_rule(cuda):
+    t = _inputs(1, 16, 8, 16, 16, 20, cuda)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    i0 = dict(F3.impl_launches)
+    F3.fused_convT_bn_relu_conv(*args, tm=8)
+    assert F3.choose_impl(16, 8, 16, 16, 20) == "mma"
+    assert F3.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"]}
+
+
+def test_nhwc_stats_slots_match_the_packed_version(cuda):
+    """The tensor-core stats launch writes, slot by slot, what the packed
+    plain version computes for the same work items."""
+    t = _inputs(2, 16, 8, 16, 24, 70, cuda, seed=5)
+    xn = t["x"].permute(0, 2, 3, 1).contiguous()
+    w1, _ = F3.operands(t["wT"], t["wC"], "mma")
+    got = F3.launch_stats(xn, w1, 8, 12, "mma")
+    want = F3.M.packed_stats(xn.cpu(), w1.cpu(), 16, 8, 12)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("impl", F3.IMPLS)
+def test_nhwc_each_implementation_takes_more_images_than_a_grid_dimension(
+        cuda, impl):
+    """70,000 images of 8x8: the persistent grid has no limit, the FMA
+    kernel's call goes in two launches of its grid."""
+    t = _inputs(70000, 16, 8, 16, 8, 8, cuda, seed=3)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=8, impl=impl)
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=8)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
 def test_nhwc_kernel_rejects_what_it_does_not_take(cuda):
     t = _inputs(1, 3, 2, 3, 8, 8, cuda)
     args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
@@ -272,6 +335,8 @@ def test_nhwc_kernel_rejects_what_it_does_not_take(cuda):
         F3.fused_convT_bn_relu_conv(*args, tm=3)
     with pytest.raises(ValueError, match="float32"):
         F3.fused_convT_bn_relu_conv(t["x"].double(), *args[1:], tm=8)
+    with pytest.raises(ValueError, match="no instantiation"):
+        F3.fused_convT_bn_relu_conv(*args, tm=8, impl="mma")
     assert F3.launches == n0
 
 

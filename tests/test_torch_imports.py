@@ -37,6 +37,7 @@ def test_port_modules_import_no_jax():
               "utils.timers", "utils.logging", "serve", "cli", "upscale",
               "image.patches", "infer.seam", "infer.seam_device",
               "infer.ensemble", "infer.tiled", "ops.fused_nhwc",
+              "ops.fused_nhwc_mma",
               "bench_fused", "bench_infer"):
         assert "dcgan_sr_tpu_torch." + m in mods
     code = ("import importlib, json, sys\n"
