@@ -94,8 +94,33 @@ Phases, each fatal on failure:
      pipeline on the card; /healthz must show bulge_main moved from 0.
      `python -m dcgan_sr_tpu_torch.upscale --mode overlap` and `--mode
      grid` (graypatch fixture) each write one image.
- 14. a {"kernels": [...]} line (K1, K2 stats, K2 main, K3 stats, K3 main),
-     then the contract line {"ok": true, "device": {...}}.
+ 14. kernel: the bulge kernel's bf16 instantiation (x, weights, h fed to
+     the second product and y in bf16; statistics and BN in fp32) against
+     its plain bf16 version on the card: x (1,16,2048,2048) with the gray-3
+     fixture's pair, (225,32,32,32) and (14400,32,32,32) with the overlap
+     fixture's, every statistics mode (grouped by 225 at 14,400 tiles), and
+     the ragged shapes of BF16_RAGGED; at the three path shapes each launch
+     timed in turns against the fp32 tensor-core kernel on the same values,
+     beside the plain version, the cuDNN bf16 composition and the bound at
+     the bf16 rate.
+ 15. the bf16 training step at bench.py's geometry, K = 20 steps a call
+     (train/multi_step.py): gray-3 (100,1,64,64), rgb-full (100,3,64,64),
+     gray-patch-batch (1280,1,8,8) = 20 images, full width from a seed; ms
+     per step and images/s over two calls after a warm one (60 preprocess
+     launches), the stage breakdown, and for gray-3 whether G backward
+     still runs cuDNN's fp32 dgrad_engine / wgrad_alg0_engine (profiler),
+     beside phase 8's fp32 step.
+ 16. path: `python -m dcgan_sr_tpu_torch.serve --bf16 --warmup` for gray-3
+     and gray-patch-batch-overlap, both BN modes, four servers started
+     together: timed requests at LR 64 and 256 first (the first after the
+     warmup at most 3x the p50 of the next ten), then the requests of phase
+     4, each held to the unfused bf16 generator in this process; /healthz
+     must show the bf16 kernel's launches (and no fp32 launch) move after
+     the warmup.  bench_infer in bf16 (both BN modes) and `bench_fused
+     --kernel bulge --dtype bf16` as a subprocess.
+ 17. a {"kernels": [...]} line (K1, K2 stats, K2 main, K2 stats bf16, K2
+     main bf16, K3 stats, K3 main), then the contract line {"ok": true,
+     "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
@@ -116,6 +141,15 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
   seam stitch, device vs host     0 on the same tiles
   preprocess hr, lr               0: the kernel sums in the plain version's
                                   order and contracts nothing into an FMA
+  bf16 bulge y                    2 bf16 steps of max |y| on every element,
+                                  at most 1% of elements different at all:
+                                  h is rounded to bf16 after an fp32 sum in
+                                  another order, and may round the other
+                                  way; then y rounds once more (statistics
+                                  as for fp32)
+  bf16 served PNG bytes           2 levels of 255 on all but 5% of a
+                                  response's pixels, against the UNFUSED
+                                  bf16 generator (TOL_U8_BF16 below)
   step, kernel vs plain           hr and lr are bit-equal, but cuDNN's
                                   backward sums atomically, and Adam's first
                                   steps are sign-like: losses rtol 1e-4
@@ -161,6 +195,22 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_3XTF32 = PEAK_TF32 / 3
 PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12          # dense bf16 on the tensor cores
+# bf16 kernel against its plain version: y within this many bf16 steps of
+# max |y| (h's rounding to bf16 may go the other way on one side, and y's
+# own rounding once more), at most this share of y's elements different
+TOL_Y_BF16_STEPS = 2
+TOL_Y_BF16_SHARE = 0.01
+# bf16 served bytes against the unfused bf16 generator: the fused pair
+# rounds h to bf16 once where the unfused layers round it after the convT
+# and again after the affine, a step of |h| (2^-8 relative) that moves a
+# pixel by up to a few levels downstream (on the CPU at LR 32-128: gray-3
+# 3.5% of pixels beyond 1 level, 0.1% beyond 2; tiled 5% and 1.2%, seam
+# flips included)
+TOL_U8_BF16 = 2
+TOL_U8_BF16_SHARE = 0.05
+# bench_fused --dtype bf16: the same two roundings of h, at y of O(1)
+TOL_BENCH_BF16 = 0.125
 SHAPES = [(1, 16, 256, 256), (4, 16, 1024, 1024), (1, 16, 2048, 2048)]
 
 
@@ -485,14 +535,14 @@ def _healthz(port):
     return json.loads(body)
 
 
-def start_server(cfg, parity, log, fixture=FIXTURE):
+def start_server(cfg, parity, log, fixture=FIXTURE, extra=()):
     """Start the port's server as a user does; returns (process, port).  The
     caller starts both BN modes' servers together (a process takes seconds
     to reach the card) and drives them one after the other."""
     port = _free_port()
     cmd = [sys.executable, "-m", "dcgan_sr_tpu_torch.serve", "--config",
            cfg.variant, "--ckpt", fixture, "--port", str(port),
-           "--max-batch", "8"]
+           "--max-batch", "8", *extra]
     if parity:
         cmd.append("--parity-bn")
     return subprocess.Popen(cmd, cwd=REPO, stdout=log,
@@ -508,37 +558,78 @@ def stop_server(proc):
         proc.wait()
 
 
+def wait_up(server, name):
+    """/healthz of a started server once it answers (after its warmup)."""
+    proc, port = server
+    t0 = time.monotonic()
+    while True:
+        check(proc.poll() is None, f"server ({name}) exited with "
+              f"{proc.returncode}")
+        try:
+            return _healthz(port)
+        except (ConnectionError, OSError):
+            check(time.monotonic() - t0 < 300, "server did not come up")
+            time.sleep(0.5)
+
+
+def _timed_requests(port, rng, size, name, cfg):
+    """11 sequential 2x requests of one image; returns (client ms of each, in
+    order, and the server's last 10 batch ms, sorted)."""
+    import numpy as np
+    body = _png((rng.rand(*size) * 255).astype(np.uint8))
+    lat = []
+    for _ in range(11):
+        t1 = time.perf_counter()
+        status, _ = _request(port, "POST", "/upscale", body)
+        lat.append((time.perf_counter() - t1) * 1e3)
+        check(status == 200, f"timed request answered {status}")
+    hz = _healthz(port)
+    print(f"timed ({cfg.variant}, {name}, LR {size[0]}x{size[1]}): "
+          f"client ms {[round(v, 2) for v in lat]}; server batch ms "
+          f"(last 10) {hz['recent_batch_ms'][-10:]}", flush=True)
+    return lat, sorted(hz["recent_batch_ms"][-10:])
+
+
 def serve_phase(cfg, parity, ref_service, server, timed=((256, 256),),
-                flip_share=0.0):
+                flip_share=0.0, levels=TOL_U8, bf16=False):
     """Drive a started server (`start_server`), hold every response against
-    `ref_service` (the plain-version generator on the card): within TOL_U8
-    levels on all but `flip_share` of a response's pixels.  Returns the
-    server's kernel launch counts, the timed-request latencies per size and
-    the burst's batch count."""
+    `ref_service` (the plain-version generator on the card): within `levels`
+    of 255 on all but `flip_share` of a response's pixels.  A bf16 server
+    (`bf16`, started with --bf16 --warmup) has run its warmup when it
+    answers: its timed requests come first, and the first of each size
+    after the warmup must take at most 3x the median of the ten after it;
+    launch counts are read from its first /healthz on.  Returns the server's
+    kernel launch counts, the timed-request latencies per size (the first
+    left out) and the burst's batch count."""
     import numpy as np
     from PIL import Image
 
     from dcgan_sr_tpu_torch.image.io import load_image
 
     proc, port = server
-    name = "parity-bn" if parity else "running-stats BN"
+    name = ("parity-bn" if parity else "running-stats BN") + \
+        (", bf16" if bf16 else "")
     try:
-        t0 = time.monotonic()
-        while True:
-            check(proc.poll() is None, f"server ({name}) exited with "
-                  f"{proc.returncode}")
-            try:
-                h0 = _healthz(port)
-                break
-            except (ConnectionError, OSError):
-                check(time.monotonic() - t0 < 180, "server did not come up")
-                time.sleep(0.5)
+        h0 = wait_up(server, name)
         print(f"server ({name}) up", flush=True)
         check(h0["device"].startswith("cuda"), f"server on {h0['device']}")
-        check(all(v == 0 for v in h0["kernel_launches"].values()),
-              f"launch counts not 0 at start: {h0['kernel_launches']}")
+        if bf16:
+            check(h0["dtype"] == "bf16", f"server not in bf16: {h0}")
+        else:
+            check(all(v == 0 for v in h0["kernel_launches"].values()),
+                  f"launch counts not 0 at start: {h0['kernel_launches']}")
 
         rng = np.random.RandomState(1 if parity else 2)
+        lats = {}
+        if bf16:
+            for size in timed:
+                lat, batch = _timed_requests(port, rng, size, name, cfg)
+                first, rest = lat[0], sorted(lat[1:])
+                check(first <= 3 * rest[len(rest) // 2],
+                      f"first request after warmup took {first:.2f} ms, "
+                      f"p50 of the next ten {rest[len(rest) // 2]:.2f} ms "
+                      f"({name}, LR {size})")
+                lats[size] = (rest, batch, first)
         worst, flipped, pixels = 0, 0, 0
 
         def post(arr8, mode="2x"):
@@ -555,7 +646,7 @@ def serve_phase(cfg, parity, ref_service, server, timed=((256, 256),),
             ref = ref_service.submit(img, mode)
             ref8 = np.clip(np.round(ref * 255.0), 0, 255).astype(np.int16)
             diff = np.abs(got - ref8)
-            d, off = int(diff.max()), int((diff > TOL_U8).sum())
+            d, off = int(diff.max()), int((diff > levels).sum())
             worst = max(worst, d)
             flipped += off
             pixels += diff.size
@@ -589,35 +680,28 @@ def serve_phase(cfg, parity, ref_service, server, timed=((256, 256),),
         check(burst_batches < 8, "8 concurrent requests did not coalesce")
 
         # timed requests, 2x, sequential, one warm first at each size
-        lats = {}
-        for size in timed:
-            body = _png((rng.rand(*size) * 255).astype(np.uint8))
-            lat = []
-            for _ in range(11):
-                t1 = time.perf_counter()
-                status, _ = _request(port, "POST", "/upscale", body)
-                lat.append((time.perf_counter() - t1) * 1e3)
-                check(status == 200, f"timed request answered {status}")
-            lat = sorted(lat[1:])
-            hz = _healthz(port)
-            print(f"timed ({cfg.variant}, {name}, LR {size[0]}x{size[1]}): "
-                  f"client ms {[round(v, 2) for v in lat]}; server batch ms "
-                  f"(last 10) {hz['recent_batch_ms'][-10:]}", flush=True)
-            lats[size] = (lat, sorted(hz["recent_batch_ms"][-10:]))
+        if not bf16:
+            for size in timed:
+                lat, batch = _timed_requests(port, rng, size, name, cfg)
+                lats[size] = (sorted(lat[1:]), batch)
+        hz = _healthz(port)
         check(hz["errors"] == 0, f"server counted {hz['errors']} errors")
         check(hz["requests"] >= 3 + 1 + 8 + 11 * len(timed),
               f"requests {hz['requests']}")
+        counts = {k: v - h0["kernel_launches"][k] if bf16 else v
+                  for k, v in hz["kernel_launches"].items()}
+        by_impl = hz["bulge_impl_launches"]
         print(f"served ({cfg.variant}, {name}): {hz['requests']} images in "
               f"{hz['batches']} batches (burst of 8 in {burst_batches}), max "
               f"byte diff vs plain {worst}, {flipped} of {pixels} compared "
-              f"pixels off by more than {TOL_U8}, launches "
-              f"{hz['kernel_launches']}, by implementation "
-              f"{hz['bulge_impl_launches']}, batch_ms p50 "
-              f"{hz['batch_ms_p50']}", flush=True)
-        check(hz["bulge_impl_launches"]["mma"] > 0
-              and hz["bulge_impl_launches"]["fma"] == 0,
-              f"the served path ran {hz['bulge_impl_launches']}")
-        return hz["kernel_launches"], lats, burst_batches
+              f"pixels off by more than {levels}, launches after the first "
+              f"/healthz {counts}, by implementation {by_impl}, batch_ms "
+              f"p50 {hz['batch_ms_p50']}", flush=True)
+        mine = "mma_bf16" if bf16 else "mma"
+        check(by_impl[mine] > 0 and all(v == 0 for k, v in by_impl.items()
+                                        if k != mine),
+              f"the served path ran {by_impl}")
+        return counts, lats, burst_batches
     finally:
         stop_server(proc)
 
@@ -908,7 +992,8 @@ STAGES = ("preprocess", "g_forward", "d_real_forward_backward",
           "d_fake_forward", "d_fake_pullbacks", "g_backward", "adam_updates")
 
 
-def step_breakdown(cfg, state, smi, warm=2, iters=10):
+def step_breakdown(cfg, state, smi, warm=2, iters=10, batches=None,
+                   benchmarks=(False, True)):
     """Device time of each stage of the step, from CUDA events the step
     records as it queues each stage.  The host queues all `iters` steps
     without waiting (as the trainer does between two log lines), so a
@@ -921,9 +1006,9 @@ def step_breakdown(cfg, state, smi, warm=2, iters=10):
 
     dev = torch.device("cuda")
     step = build_train_step(cfg)
-    batches = _batches(cfg, 4, dev)
+    batches = batches or _batches(cfg, 4, dev)
     out = {}
-    for bench in (False, True):
+    for bench in benchmarks:
         torch.backends.cudnn.benchmark = bench
         try:
             for i in range(warm):
@@ -956,11 +1041,12 @@ def step_breakdown(cfg, state, smi, warm=2, iters=10):
         r["stages_sum_ms"] = round(sum(acc.values()) / iters, 4)
         r["host_queue_ms"] = round(queued, 4)
         r["step_ms"] = round(wall, 4)
-        r["images_per_s"] = round(cfg.batchSize / (wall / 1e3), 2)
+        r["images_per_s"] = round(cfg.images_consumed_per_step
+                                  / (wall / 1e3), 2)
         r["peak_memory_GB"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
-        print(f"step breakdown, batch {cfg.batchSize}, cudnn.benchmark="
-              f"{bench} (ms, mean of {iters}) on {smi}: " + json.dumps(r),
-              flush=True)
+        print(f"step breakdown, {cfg.variant} {cfg.compute_dtype}, batch "
+              f"{cfg.batchSize}, cudnn.benchmark={bench} (ms, mean of "
+              f"{iters}) on {smi}: " + json.dumps(r), flush=True)
         out[bench] = r
     return out
 
@@ -1366,7 +1452,7 @@ def overlap_phase(cfg, fused, plain, smi, fused_fma):
         for k in K.impl_launches:
             K.impl_launches[k] = 0
         rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda",
-                                         steps=10)
+                                         steps=10, dtype="fp32")
         check(rec["value"] > 0 and K.launches["bulge_main"] > 0,
               f"bench_infer: {rec}, launches {K.launches}")
         for k in counts:
@@ -1420,6 +1506,417 @@ def tiled_upscale_phase():
             psnr = [l for l in out[mode] if l.startswith(f"mode={mode}")]
             check(len(psnr) == 1 and "PSNR(G)=" in psnr[0], f"{out[mode]}")
             print(f"upscale --mode {mode}: {psnr[0]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the bulge kernel in bf16 against its plain version
+# ---------------------------------------------------------------------------
+
+# ragged and small geometries (B, Ci, Cm, Co, H, W), every triple
+BF16_RAGGED = [(2, 16, 8, 16, 37, 45), (1, 32, 16, 32, 24, 40),
+               (1, 8, 4, 8, 16, 20), (3, 16, 8, 16, 1, 3)]
+
+
+def bf16_step(y):
+    """One bf16 step (2^-7 relative) at the magnitude of max |y|."""
+    import math
+    m = y.abs().max().item()
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def hold_bf16(K, args, mode, run, groups, label, step=None):
+    """bulge() on bf16 x against bulge_plain on the same bf16 x (in slices
+    of `step` images where the unfused hidden tensor would not fit): y
+    within TOL_Y_BF16_STEPS bf16 steps of max |y|, at most TOL_Y_BF16_SHARE
+    of y's elements different at all, statistics within TOL_STATS.  Returns
+    (max |dy|, max |dstats|, share of y elements that differ)."""
+    import torch
+    x = args[0]
+    bsz = x.shape[0]
+    step = step or bsz
+    n0 = dict(K.launches)
+    y, (m, v) = K.bulge(*args, stats=mode, running=run, groups=groups)
+    torch.cuda.synchronize()
+    check(y.dtype == torch.bfloat16 and m.dtype == torch.float32,
+          f"bf16 bulge gave y {y.dtype}, stats {m.dtype}")
+    check(K.launches["bulge_main_bf16"] == n0["bulge_main_bf16"] + 1
+          and K.launches["bulge_main"] == n0["bulge_main"],
+          f"bf16 bulge launched {K.launches} (before {n0})")
+    err, differ, per = [0.0, 0.0], 0, bsz // groups if groups else None
+    for i in range(0, bsz, step):
+        sl = slice(i, min(i + step, bsz))
+        g = None if groups is None else (sl.stop - sl.start) // per
+        yp, (mp, vp) = K.bulge_plain(x[sl], *args[1:], stats=mode,
+                                     running=run, groups=g)
+        d = (y[sl].float() - yp.float()).abs()
+        check(bool(torch.isfinite(y[sl]).all()), f"non-finite y, {label}")
+        check(d.max().item() <= TOL_Y_BF16_STEPS * bf16_step(yp.float()),
+              f"bf16 bulge kernel differs from its plain version by "
+              f"{d.max().item():.3e} at {label} {mode}")
+        err[0] = max(err[0], d.max().item())
+        differ += int((d > 0).sum())
+        del yp, d
+        if mode == "running":
+            continue
+        if mode == "per_image":
+            ms, vs = m[sl], v[sl]
+        elif groups is not None:
+            ms, vs = m[i // per:i // per + g], v[i // per:i // per + g]
+        elif step >= bsz:
+            ms, vs = m, v
+        else:       # statistics pooled over more than this slice
+            continue
+        check(_close(ms, mp, TOL_STATS) and _close(vs, vp, TOL_STATS),
+              f"bf16 bulge statistics disagree at {label} {mode}")
+        err[1] = max(err[1], (ms - mp).abs().max().item(),
+                     (vs - vp).abs().max().item())
+    share = differ / y.numel()
+    check(share <= TOL_Y_BF16_SHARE, f"bf16 bulge: {share:.4%} of y differs "
+          f"from the plain version at {label} {mode}")
+    print(f"kernel bf16 {label} {mode:9s} groups {groups}: max|dy| "
+          f"{err[0]:.3e} max|dstats| {err[1]:.3e}, {share:.4%} of y differs",
+          flush=True)
+    return err[0], err[1], share
+
+
+def bf16_pair_times(K, N, x32, wT, wC, scale, bias, rmean, rvar, iters):
+    """ms per call of the bf16 kernel's two launches beside the fp32
+    tensor-core kernel's on the same values (x rounded to bf16), in turns
+    (fp32, bf16, bf16, fp32); the plain bf16 version, the cuDNN bf16
+    composition (convT, var_mean / batch_norm, ReLU, conv), both bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    xb = x32.to(torch.bfloat16)
+    x32 = xb.float()
+    b, ci, h, w = x32.shape
+    cm, co = wT.shape[1], wC.shape[0]
+    mu = rmean.expand(b, cm).contiguous()
+    gain = (torch.rsqrt(rvar + 1e-5) * scale).expand(b, cm).contiguous()
+    wTb, wCb = wT.to(torch.bfloat16), wC.to(torch.bfloat16)
+    st, _ = in_turns({"fp32": lambda: K.launch_stats(x32, wT, "mma"),
+                      "bf16": lambda: K.launch_stats(xb, wT, "mma")}, iters)
+    mn, _ = in_turns({"fp32": lambda: K.launch_main(x32, wT, wC, mu, gain,
+                                                    bias, "mma"),
+                      "bf16": lambda: K.launch_main(xb, wT, wC, mu, gain,
+                                                    bias, "mma")}, iters)
+    lib_stats = lambda: torch.var_mean(  # noqa: E731
+        F.conv_transpose2d(xb, wTb, stride=2, padding=1), dim=(0, 2, 3),
+        correction=0)
+    lib_main = lambda: F.conv2d(F.relu(F.batch_norm(  # noqa: E731
+        F.conv_transpose2d(xb, wTb, stride=2, padding=1), rmean, rvar,
+        scale, bias, training=False)), wCb, stride=2, padding=1)
+    with N.fp32_convs():
+        r = {"stats_ms": st["bf16"], "main_ms": mn["bf16"],
+             "stats_fp32_ms": st["fp32"], "main_fp32_ms": mn["fp32"],
+             "plain_stats_ms": time_ms(lambda: N.batch_stats(
+                 N.conv_transpose2d(x32, wTb.float(), 2, 1)), iters),
+             "plain_main_ms": time_ms(lambda: K.bulge_plain(
+                 xb, wT, scale, bias, wC, stats="running",
+                 running=(rmean, rvar)), iters),
+             "lib_stats_ms": time_ms(lib_stats, iters),
+             "lib_main_ms": time_ms(lib_main, iters)}
+    hw = b * h * w
+    flops_convT = 2 * 16 * hw * ci * cm
+    f_stats = flops_convT + 3 * 4 * hw * cm
+    f_main = f_stats + 2 * 16 * hw * co * cm
+    slots = -(-h // 8) * -(-w // 32)
+    b_stats = 2 * (hw * ci + wT.numel()) + 4 * b * slots * 2 * cm
+    b_main = 2 * (hw * ci + hw * co + wT.numel() + wC.numel()) \
+        + 4 * (2 * b * cm + cm)
+    r["stats_bound"] = bound(f_stats, b_stats, PEAK_BF16)
+    r["main_bound"] = bound(f_main, b_main, PEAK_BF16)
+    for k in ("stats", "main"):
+        r[f"{k}_share_of_bound"] = r[f"{k}_bound"][0] / r[f"{k}_ms"]
+    return r
+
+
+def bf16_kernel_phase(params, state, oparams, ostate):
+    """K2's bf16 instantiation against its plain version on the card at the
+    path shapes (gray-3 LR 256, one image's and 64 images' overlap tiles),
+    every statistics mode, and ragged shapes; times at the path shapes.
+    Returns ({kernel: worst |diff|}, [(shape, times)])."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+
+    def weights(p, s):
+        return (t(p[3]["w"]), t(p[4]["w"]), t(p[3]["bn_scale"]),
+                t(p[3]["bn_bias"]), t(s[3]["bn"]["mean"]), t(s[3]["bn"]["var"]))
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    err = {"bulge_stats_bf16": 0.0, "bulge_main_bf16": 0.0}
+    rows = []
+    cases = ((weights(params, state), (1, 16, 2048, 2048),
+              [(m, None) for m in K.STATS_MODES], None, 5),
+             (weights(oparams, ostate), (225, 32, 32, 32),
+              [(m, None) for m in K.STATS_MODES], None, 20),
+             (weights(oparams, ostate), (14400, 32, 32, 32),
+              [("running", None), ("pooled", 64)], 225 * 16, 5))
+    for (wT, wC, scale, bias, rmean, rvar), shape, modes, step, iters in cases:
+        x = torch.rand(shape, generator=gen, device=dev)
+        xb = x.to(torch.bfloat16)
+        for mode, groups in modes:
+            run = (rmean, rvar) if mode == "running" else None
+            e = hold_bf16(K, (xb, wT, scale, bias, wC), mode, run, groups,
+                          str(shape), step=step)
+            err["bulge_main_bf16"] = max(err["bulge_main_bf16"], e[0])
+            err["bulge_stats_bf16"] = max(err["bulge_stats_bf16"], e[1])
+        r = bf16_pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar, iters)
+        print(f"bf16 times {shape}: " + _fmt(r), flush=True)
+        rows.append((shape, r))
+        del x, xb
+        torch.cuda.empty_cache()
+    for bsz, ci, cm, co, h, w in BF16_RAGGED:
+        rng = np.random.RandomState(bsz + ci)
+        a = (torch.randn((bsz, ci, h, w), generator=gen, device=dev).to(
+            torch.bfloat16), t(0.1 * rng.randn(ci, cm, 4, 4)),
+             t(1 + 0.1 * rng.randn(cm)), t(0.1 * rng.randn(cm)),
+             t(0.1 * rng.randn(co, cm, 4, 4)))
+        run = (t(0.1 * rng.randn(cm)), t(0.5 + rng.rand(cm)))
+        for mode in K.STATS_MODES:
+            e = hold_bf16(K, a, mode, run if mode == "running" else None,
+                          None, str((bsz, ci, cm, co, h, w)))
+            err["bulge_main_bf16"] = max(err["bulge_main_bf16"], e[0])
+            err["bulge_stats_bf16"] = max(err["bulge_stats_bf16"], e[1])
+    return err, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the bf16 training step at bench.py's geometry
+# ---------------------------------------------------------------------------
+
+# (variant, the step's batch as bench.py feeds it, bench.py:38-45)
+BF16_TRAIN = (("gray-3", (100, 1, 64, 64)), ("rgb-full", (100, 3, 64, 64)),
+              ("gray-patch-batch", (1280, 1, 8, 8)))
+K_STEPS = 20
+
+
+def _cli_batches(cfg, n, device):
+    """n consecutive trainer batches as the CLI builds them (the patch
+    variants' grids, the pm1 range), on the card."""
+    import torch
+
+    from dcgan_sr_tpu_torch import cli
+    batch_fn = cli.build_data(cfg, type("Args", (), {"synthetic": True})())
+    return torch.stack([torch.from_numpy(batch_fn(1, i)) for i in range(n)]
+                       ).to(device)
+
+
+def profile_kernels(cfg, state, batches):
+    """profile_step.profile_steps over 3 steps (every kernel), per step: the
+    device's busy share of the wall time, its kernel and copy ms and
+    launches, the device ms of cuDNN's fp32 backward engines named in
+    PERF.md (dgrad_engine, wgrad_alg0_engine), and the six kernels that take
+    most."""
+    from dcgan_sr_tpu_torch.profile_step import profile_steps
+
+    r = profile_steps(cfg, state, batches, 3, top=None)
+    kernels = r["device_top"]
+    return {"device_busy_share": round(r["device_busy_share"], 4),
+            "device_ms_per_step": round(sum(ms for _, _, ms in kernels), 4),
+            "launches_per_step": r["launches_per_step"],
+            "cudnn_fp32_backward_ms": {
+                k: round(sum(ms for name, _, ms in kernels if k in name), 4)
+                for k in ("dgrad_engine", "wgrad_alg0_engine")},
+            "top_kernels": [(name[:60], round(ms, 4))
+                            for name, _, ms in kernels[:6]]}
+
+
+def bf16_step_phase(smi, fp32_gray3):
+    """K = 20 bf16 steps a call (train/multi_step.py) for each of bench.py's
+    three trainers at full width from a seed: ms per step and images/s over
+    two calls after one warm call; the stage breakdown (10 queued single
+    steps); for gray-3, whether G backward still runs cuDNN's fp32
+    engines."""
+    import math
+
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+    from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+    from dcgan_sr_tpu_torch.train.step import init_train_state
+
+    dev = torch.device("cuda")
+    out = {}
+    for variant, shape in BF16_TRAIN:
+        cfg = get_config(variant, env_override=False,
+                         compute_dtype="bfloat16")
+        state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                 device=dev)
+        hr = _cli_batches(cfg, K_STEPS, dev)
+        check(tuple(hr.shape[1:]) == shape, f"{variant} batch {hr.shape}")
+        multi = build_multi_step(cfg)
+        n0 = P.launches["preprocess"]
+        _, m = multi(state, hr)
+        check(all(math.isfinite(v) for v in m["errG"].tolist()),
+              f"{variant} bf16 losses not finite")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            _, m = multi(state, hr)
+        last = {k: v[-1].item() for k, v in m.items()}
+        wall = (time.perf_counter() - t0) / (2 * K_STEPS) * 1e3
+        check(P.launches["preprocess"] - n0 == 3 * K_STEPS,
+              f"{variant}: preprocess launched "
+              f"{P.launches['preprocess'] - n0} times in {3 * K_STEPS} steps")
+        check(all(math.isfinite(v) for v in last.values()),
+              f"{variant} bf16 losses {last}")
+        imgs = cfg.images_consumed_per_step
+        r = {"step_ms": round(wall, 4),
+             "images_per_s": round(imgs / (wall / 1e3), 2),
+             "losses_after_60_steps": {k: round(v, 5) for k, v in
+                                       last.items()}}
+        bd = step_breakdown(cfg, state, smi, batches=list(hr[:4]),
+                            benchmarks=(False,))[False]
+        r["breakdown"] = bd
+        r["profile"] = profile_kernels(cfg, state, list(hr[:4]))
+        print(f"bf16 train step, {variant} {shape} ({imgs} images a step), "
+              f"K={K_STEPS} a call, on {smi}: " + json.dumps(r), flush=True)
+        out[variant] = r
+        del state, hr
+        torch.cuda.empty_cache()
+    g = out["gray-3"]
+    print(f"bf16 gray-3 step {g['step_ms']} ms ({g['images_per_s']} images/s) "
+          f"beside the fp32 step of phase 8, {fp32_gray3['step_ms']} ms "
+          f"({fp32_gray3['images_per_s']} images/s), on {smi}; cuDNN's "
+          f"dgrad_engine / wgrad_alg0_engine in the bf16 step: "
+          f"{g['profile']['cudnn_fp32_backward_ms']} ms a step (30.2 / 11.9 "
+          f"in the fp32 step, PERF.md section 5); device busy "
+          f"{g['profile']['device_busy_share']} of the wall time", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: bf16 serving, bench_infer and bench_fused in bf16
+# ---------------------------------------------------------------------------
+
+def bf16_serve_phase(smi):
+    """`serve --bf16 --warmup` for gray-3 and the tiled config, both BN
+    modes, the four servers started together and driven one after the
+    other once all are up; each response held to the unfused bf16 generator
+    in this process.  Returns the launch counts after warmup."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.serve import SRService
+    from dcgan_sr_tpu_torch.train.checkpoint import load_branch
+
+    launches = dict.fromkeys(K.launches, 0)
+    runs = []
+    for variant, fixture, timed in (
+            ("gray-3", FIXTURE, ((64, 64), (256, 256))),
+            ("gray-patch-batch-overlap", OVERLAP_FIXTURE,
+             ((64, 64), (256, 256)))):
+        cfg = get_config(variant, env_override=False)
+        spec = generator_spec(cfg)
+        params, state = init_network(spec, torch.Generator().manual_seed(0))
+        with np.load(fixture) as data:
+            params = load_branch(data, "params", params)
+            state = load_branch(data, "state", state)
+        plain = Network(spec, params, state, device="cuda", fuse=False)
+        for parity in (True, False):
+            runs.append((cfg, fixture, timed, plain, parity))
+    with tempfile.TemporaryFile() as log:
+        servers = [start_server(cfg, parity, log, fixture,
+                                extra=("--bf16", "--warmup"))
+                   for cfg, fixture, _, _, parity in runs]
+        try:
+            for srv, (cfg, _, _, _, parity) in zip(servers, runs):
+                wait_up(srv, f"{cfg.variant} bf16")
+            for srv, (cfg, _, timed, plain, parity) in zip(servers, runs):
+                bn = "parity-bn" if parity else "running"
+                ref = SRService(cfg, plain, max_batch=8, window_ms=0,
+                                bn_eval=not parity, u8_io=True,
+                                compute_dtype=torch.bfloat16)
+                try:
+                    counts, lats, _ = serve_phase(
+                        cfg, parity, ref, srv, timed=timed,
+                        flip_share=TOL_U8_BF16_SHARE, levels=TOL_U8_BF16,
+                        bf16=True)
+                finally:
+                    ref.close()
+                check(counts["bulge_main_bf16"] > 0
+                      and (counts["bulge_stats_bf16"] > 0) == parity
+                      and counts["bulge_main"] == 0,
+                      f"bf16 server ({cfg.variant}, {bn}) launched {counts}")
+                for k, v in counts.items():
+                    launches[k] += v
+                for (h, w), (lat, batch, first) in lats.items():
+                    p50 = lat[len(lat) // 2]
+                    print(f"latency (bf16, {cfg.variant}, {bn}) LR {h}x{w} -> "
+                          f"{2 * h}x{2 * w}: client p50 {p50:.2f} ms, first "
+                          f"request after warmup {first:.2f} ms, server batch "
+                          f"median {batch[len(batch) // 2]:.2f} ms, "
+                          f"{4 * h * w / 1e6 / (p50 / 1e3):.2f} MP/s out, on "
+                          f"{smi}", flush=True)
+        except Exception:
+            log.seek(0)
+            sys.stderr.write(log.read().decode(errors="replace")[-8000:])
+            raise
+        finally:
+            for proc, _ in servers:
+                stop_server(proc)
+        log.seek(0)
+        for line in log.read().decode(errors="replace").splitlines():
+            if line.startswith("warmup:"):
+                print("server| " + line, flush=True)
+    return launches
+
+
+def bf16_bench_phase(smi):
+    """bench_infer in bf16 in this process (both BN modes), and
+    `bench_fused --kernel bulge --dtype bf16` as a subprocess.  Returns the
+    bf16 kernels' launch counts of both."""
+    from dcgan_sr_tpu_torch import bench_infer
+    from dcgan_sr_tpu_torch.ops import bulge as K
+
+    counts = dict.fromkeys(K.launches, 0)
+    for bn_eval in (False, True):
+        for d in (K.launches, K.impl_launches):
+            for k in d:
+                d[k] = 0
+        rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda",
+                                         steps=10, dtype="bf16")
+        check(rec["value"] > 0 and rec["dtype"] == "bf16"
+              and K.launches["bulge_main_bf16"] > 0
+              and K.impl_launches["mma"] == K.impl_launches["fma"] == 0,
+              f"bench_infer bf16: {rec}, launches {K.launches}")
+        for k in counts:
+            counts[k] += K.launches[k]
+        print(f"bench_infer bf16 on {smi}: " + json.dumps(rec) + " launches "
+              + json.dumps(K.launches), flush=True)
+    lines = _module(["dcgan_sr_tpu_torch.bench_fused", "--kernel", "bulge",
+                     "--dtype", "bf16", "--iters", "10"])
+    rec = json.loads(lines[-1])
+    fused_counts = json.loads(lines[-2][len("kernel launches: "):])
+    by_impl = json.loads(lines[-3][len("implementation launches: "):])
+    check((rec["batch"], rec["hw"], rec["dtype"], rec["kernel"])
+          == (100, 256, "bf16", "bulge") and rec["device"].startswith("cuda"),
+          f"bench_fused bf16 ran {rec}")
+    check(0 <= rec["max_abs_diff"] <= TOL_BENCH_BF16,
+          f"bench_fused bf16: max_abs_diff {rec['max_abs_diff']}")
+    check(fused_counts["bulge_stats_bf16"] > 0
+          and fused_counts["bulge_main_bf16"] > 0
+          and by_impl["bulge"]["mma_bf16"] == fused_counts["bulge_stats_bf16"]
+          + fused_counts["bulge_main_bf16"]
+          and by_impl["bulge"]["mma"] == by_impl["bulge"]["fma"] == 0,
+          f"bench_fused bf16 launched {fused_counts}, {by_impl}")
+    print(f"bench_fused --kernel bulge --dtype bf16 on {smi}: "
+          + json.dumps(rec) + " launches " + json.dumps(fused_counts),
+          flush=True)
+    for k in counts:
+        counts[k] += fused_counts[k]
+    return counts
 
 
 def main():
@@ -1483,6 +1980,7 @@ def main():
     with np.load(FIXTURE) as data:
         params = load_branch(data, "params", params)
         state = load_branch(data, "state", state)
+    fixture_g = (params, state)     # `state` names the trainer's below
 
     stamp()
     # phase 2
@@ -1503,7 +2001,7 @@ def main():
 
     stamp()
     # phase 4: counts start at 0 in each fresh server process
-    launches = {"bulge_stats": 0, "bulge_main": 0}
+    launches = dict.fromkeys(K.launches, 0)
     lat_all = {}
     with tempfile.TemporaryFile() as log:
         servers = {parity: start_server(cfg, parity, log)
@@ -1528,8 +2026,9 @@ def main():
         finally:
             for proc, _ in servers.values():
                 stop_server(proc)
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the served path")
+    for k in ("bulge_stats", "bulge_main"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the served "
+              f"path")
     for name, lat in lat_all.items():
         p50 = lat[len(lat) // 2]
         print(f"latency ({name}) LR 256x256 -> 512x512: p50 {p50:.2f} ms, "
@@ -1612,7 +2111,7 @@ def main():
 
     stamp()
     # phase 13: the tiled server, counts from 0 in each server process
-    tiled_launches = {"bulge_stats": 0, "bulge_main": 0}
+    tiled_launches = dict.fromkeys(K.launches, 0)
     with tempfile.TemporaryFile() as log:
         servers = {parity: start_server(ocfg, parity, log, OVERLAP_FIXTURE)
                    for parity in (True, False)}
@@ -1656,7 +2155,28 @@ def main():
     tiled_upscale_phase()
 
     stamp()
-    # phase 14
+    # phase 14: K2 in bf16 against its plain version, and its times
+    bf16_err, bf16_rows = bf16_kernel_phase(*fixture_g, oparams, ostate)
+
+    stamp()
+    # phase 15: the bf16 training step at bench.py's geometry
+    bf16_step_phase(smi, breakdown[False])
+
+    stamp()
+    # phase 16: the bf16 paths as users start them; counts from 0 here and
+    # in each server process (read after its warmup)
+    for k in K.launches:
+        K.launches[k] = 0
+    bf16_launches = bf16_serve_phase(smi)
+    for k, v in bf16_bench_phase(smi).items():
+        bf16_launches[k] += v
+    for k in ("bulge_stats_bf16", "bulge_main_bf16"):
+        check(bf16_launches[k] > 0, f"kernel {k} was not launched on the "
+              f"bf16 paths")
+        launches[k] += bf16_launches[k]
+
+    stamp()
+    # phase 17
     shape, r = rows[-1]
     kernels = []
     for name, line, key, plain_key, lib_key in (
@@ -1681,6 +2201,27 @@ def main():
                  "bound_fp32_fma_ms": ro[f"{key}_bound_fp32_fma"][0],
                  "plain_ms": ro[f"plain_{key}_ms"],
                  "library_ms": ro[f"lib_{key}_ms"]} for sh, ro in o_rows]})
+    bshape, br = bf16_rows[-1]    # 64 images' overlap tiles, bf16
+    for name, line, key in (("bulge_stats_bf16", 159, "stats"),
+                            ("bulge_main_bf16", 206, "main")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dcgan_sr_tpu_torch/csrc/bulge.cu",
+            "replaces": f"dcgan_sr_tpu/ops/pallas_bulge.py:{line}",
+            "launches": launches[name], "max_abs_err": bf16_err[name],
+            "ms": br[f"{key}_ms"], "plain_ms": br[f"plain_{key}_ms"],
+            "bound_ms": br[f"{key}_bound"][0],
+            "bound_by": br[f"{key}_bound"][1],
+            "library_ms": br[f"lib_{key}_ms"], "shape": list(bshape),
+            "dtype": "bf16", "fp32_mma_ms": br[f"{key}_fp32_ms"],
+            "at_other_shapes": [
+                {"shape": list(sh), "ms": ro[f"{key}_ms"],
+                 "fp32_mma_ms": ro[f"{key}_fp32_ms"],
+                 "bound_ms": ro[f"{key}_bound"][0],
+                 "bound_by": ro[f"{key}_bound"][1],
+                 "plain_ms": ro[f"plain_{key}_ms"],
+                 "library_ms": ro[f"lib_{key}_ms"]}
+                for sh, ro in bf16_rows[:-1]]})
     r = pre_rows[0]       # the trainer's own call: (100, 1, 64, 64), flags off
     kernels.append({
         "name": "preprocess", "route": "cuda",
@@ -1693,8 +2234,8 @@ def main():
         "host_queue_us": r["host_queue_us"],
         "library_graph_ms": r["library_graph_ms"],
         "library_host_queue_us": r["library_host_queue_us"]})
-    for name, line, key in (("fused_nhwc_stats", 197, "stats"),
-                            ("fused_nhwc_main", 224, "main")):
+    for name, line, key in (("fused_nhwc_stats", 98, "stats"),
+                            ("fused_nhwc_main", 119, "main")):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",

@@ -14,8 +14,12 @@ back-to-back calls ending in a synchronize, best of --reps; with --cpu the
 host clock (the CPU run checks the plumbing: its times are not the card's).
 Prints a line with each kernel's launches by implementation ("mma" tensor
 cores, "fma" the FMA kernel, chosen by the shapes), one with the kernels'
-launch counts, then one JSON line with the JAX tool's keys.  --dtype bf16 is
-not yet ported and raises.
+launch counts, then one JSON line with the JAX tool's keys.  `--dtype bf16`
+feeds x in bf16 (the weights stay fp32, as in the JAX tool) to the bulge
+kernel's bf16 instantiation and to the unfused composition in bf16 (the
+port's bf16 convolutions and BN); `--kernel nhwc --dtype bf16` raises,
+because the NHWC pair has no bf16 kernel yet.  The default stays fp32 until
+it has.
 """
 
 from __future__ import annotations
@@ -25,13 +29,23 @@ import json
 import time
 
 
+def _unfused_bf16(x, wT, scale, bias, wC):
+    """Layers 3-4 unfused in bf16, as the bf16 generator runs them: convT,
+    BN (fp32 statistics, bf16 affine), ReLU, conv (ops/nn.py)."""
+    from .ops import nn as N
+    bf16 = x.dtype
+    h = N.conv_transpose2d(x, wT, 2, 1, compute_dtype=bf16)
+    h, _ = N.batch_norm(h, scale, bias)
+    return N.conv2d(N.relu(h), wC, 2, 1, compute_dtype=bf16), None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, default=100)
     ap.add_argument("--hw", type=int, default=256)
     ap.add_argument("--dtype", default="fp32", choices=["bf16", "fp32"],
-                    help="bf16 is not yet ported (raises NotImplementedError)")
+                    help="x's dtype; bf16 runs --kernel bulge only")
     ap.add_argument("--kernel", default="bulge", choices=["bulge", "nhwc"])
     ap.add_argument("--tm", type=int, default=32,
                     help="band height of the nhwc kernel")
@@ -41,9 +55,9 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
-    if args.dtype == "bf16":
+    if args.dtype == "bf16" and args.kernel == "nhwc":
         raise NotImplementedError(
-            "--dtype bf16 is not yet ported (fp32 only)")
+            "--kernel nhwc --dtype bf16: the NHWC pair has no bf16 kernel yet")
 
     import numpy as np
     import torch
@@ -57,12 +71,16 @@ def main(argv=None):
     b, hw = args.batch, args.hw
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
     x = t(rng.rand(b, 16, hw, hw))
+    if args.dtype == "bf16":
+        x = x.to(torch.bfloat16)
     wT = t(0.05 * rng.randn(16, 8, 4, 4))
     wC = t(0.05 * rng.randn(16, 8, 4, 4))
     scale = torch.ones(8, device=device)
     bias = torch.zeros(8, device=device)
 
     def unfused():
+        if x.dtype == torch.bfloat16:      # the JAX tool's unfused bf16 layers
+            return _unfused_bf16(x, wT, scale, bias, wC)
         return K.bulge_plain(x, wT, scale, bias, wC)
 
     if args.kernel == "bulge":
@@ -101,7 +119,7 @@ def main(argv=None):
     with torch.inference_mode():
         y_ref, _ = unfused()
         y_fused, _ = fused()
-        err = float((y_ref - y_fused).abs().max())
+        err = float((y_ref.float() - y_fused.float()).abs().max())
     print("implementation launches: " + json.dumps(
         {"bulge": K.impl_launches, "fused_nhwc": F.impl_launches}))
     print("kernel launches: " + json.dumps({**K.launches, **F.launches}))

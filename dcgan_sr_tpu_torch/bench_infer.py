@@ -1,12 +1,15 @@
 """Patch-overlap SR inference throughput (upscaled MP/s) on one card: the
 port of bench_infer.py's device side (measure_tpu, main).
 
-  python -m dcgan_sr_tpu_torch.bench_infer [--bn-eval] [--images 64] [--cpu]
+  python -m dcgan_sr_tpu_torch.bench_infer [--bn-eval] [--images 64]
+         [--dtype bf16|fp32] [--cpu]
 
 The pipeline is make_overlap_sr_fn for gray-patch-batch-overlap at full
 width (train-gray-patch-batch-overlap.lua:377-704: 225-tile extraction,
 per-tile 2x2 degrade, generator over the tile batch, naive + seam-cut
-stitch), fp32, random-init weights from a seed, batches of 64 images of
+stitch), in bf16 as bench_infer.py measures it (`make_overlap_sr_fn(...,
+compute_dtype=bfloat16)`, bench_infer.py:120; `--dtype fp32` for the fp32
+pipeline), random-init weights from a seed, batches of 64 images of
 64x64 from a seed.  A repetition is `steps` pipeline calls queued back to
 back; both stitched outputs are summed into an accumulator that is fetched
 at the end, so the clock stops only when every call has finished.  Prints
@@ -23,8 +26,11 @@ import time
 N_IMAGES = 64
 
 
+DTYPES = ("bf16", "fp32")
+
+
 def measure(n_images=N_IMAGES, reps=3, steps=20, bn_eval=False, device="cuda",
-            seed=0, cfg=None):
+            seed=0, cfg=None, dtype="bf16"):
     """Sustained MP/s of the overlap pipeline on `device`: one value per
     repetition.  bn_eval=False is the parity pipeline (each image's 225
     tiles one train-mode BN batch — the reference's convention,
@@ -41,7 +47,11 @@ def measure(n_images=N_IMAGES, reps=3, steps=20, bn_eval=False, device="cuda",
     if cfg is None:
         cfg = get_config("gray-patch-batch-overlap", env_override=False)
     net, _ = load_generator(cfg, None, device=device, seed=seed)
-    run = make_overlap_sr_fn(cfg, net, bn_eval=bn_eval)
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
+    run = make_overlap_sr_fn(
+        cfg, net, bn_eval=bn_eval,
+        compute_dtype=torch.bfloat16 if dtype == "bf16" else None)
     fs = cfg.fineSize
     batches = torch.from_numpy(np.random.RandomState(seed).rand(
         steps, n_images, fs, fs).astype(np.float32)).to(device)
@@ -79,7 +89,7 @@ def overlap_record(bn_eval=False, **kw):
         "value": round(med, 3),
         "unit": "MP/s",
         "rep_spread": round((mps[-1] - mps[0]) / med, 4),
-        "dtype": "fp32",
+        "dtype": kw.get("dtype", "bf16"),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
     }
@@ -95,6 +105,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="bf16", choices=DTYPES,
+                    help="compute dtype of the generator (default bf16, the "
+                         "JAX bench's)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
@@ -106,7 +119,8 @@ def main(argv=None):
     for bn_eval in ((True,) if args.bn_eval else (False, True)):
         print(json.dumps(overlap_record(
             bn_eval=bn_eval, n_images=args.images, reps=args.reps,
-            steps=args.steps, device=str(device), seed=args.seed)), flush=True)
+            steps=args.steps, device=str(device), seed=args.seed,
+            dtype=args.dtype)), flush=True)
     print("kernel launches: " + json.dumps(bulge.launches))
 
 

@@ -5,7 +5,7 @@
 // (models/specs.py), y = conv(relu(bn(convT(x)))), without writing the
 // 2x-resolution hidden tensor h to device memory.
 //
-// Two kernels live here.
+// Three kernels live here.
 //
 // (1) The tensor-core kernel (namespace tc; entries bulge_stats_f32,
 //     bulge_main_f32).  Both stages are matrix products on
@@ -75,6 +75,36 @@
 //     tensor-core kernel is timed against and serves the channel triples the
 //     tensor-core kernel has no instantiation for (Ci != 2 Cm).
 //
+// (3) The tensor-core kernel in bf16 (namespace tcb; entries
+//     bulge_stats_bf16, bulge_main_bf16): the function of fused_bulge_fwd
+//     with bf16 x (pallas_bulge.py:93-97, 216-230, 261-262).  x, the packed
+//     weights, the hidden tensor fed to stage 2 and y are bf16; each product
+//     is ONE mma.sync.m16n8k16 bf16 pass with fp32 accumulators (no split);
+//     statistics, BN and ReLU run in fp32 on the accumulators, and h is
+//     rounded to bf16 only after the edge mask.  Same items, schedule,
+//     persistent grid and cp.async staging as (1).
+//
+//     A register of an m16n8k16 fragment holds two k-adjacent bf16 values.
+//     k keeps (1)'s order, so in stage 1 the pair is channels c, c+1 of one
+//     position: two 2-byte loads from the NCHW x planes (which cp.async fills
+//     straight from device memory; the halo columns go as 4-byte copies of a
+//     pair whose outer element nothing reads).  The stage-1 epilogue stores
+//     the hidden planes channel-pair interleaved, a word per (cm, cm+1), so
+//     stage 2's pair is one 4-byte load.  The host packs W1 and W2 in
+//     m16n8k16 B-fragment order: a lane's two registers are one 8-byte load.
+//     Plane strides: xs 488 bf16 (channel 2t at word 8t mod 32), hp 312
+//     words, so a fragment load's four k-lanes hit disjoint banks.
+//
+//     Shared memory at Ci 32 / Cm 16 / Co 32, bytes: W1 16,384 + W2 16,384
+//     + xs 32*488*2 = 31,232 + hp 4*8*312*4 = 39,936 + BN vectors 192 =
+//     104,128: two blocks of 8 warps fit an SM (launch bound 2, at most 128
+//     registers).  At Ci 16: 4,096 + 4,096 + 15,616 + 19,968 + 96 = 43,872.
+//
+//     Bounds on an H100 (bf16 dense 989 TFLOP/s; 3.35 TB/s): at x
+//     (14400,32,32,32) bf16 the main launch moves 0.94 GB of x and 0.94 GB
+//     of y, 0.56 ms, against 483 GFLOP, 0.49 ms: bound by bytes; the stats
+//     launch reads x, 0.28 ms.
+//
 // Any H and W: ragged edges are masked (the TPU version asserted
 // W % 128 == 0 and H % tm == 0).  Any batch: the persistent grid has no z
 // limit; the FMA launcher splits at 65,535 images.
@@ -82,6 +112,7 @@
 // Plain C interface, loaded with ctypes (dcgan_sr_tpu_torch/ops/bulge.py).
 // Each entry returns the cudaError_t of its launch (0 = launched).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -664,6 +695,471 @@ int launch_stats(const float* x, const float* w1, float* partial, int B,
 
 }  // namespace tc
 
+// The bf16 instantiation of the tensor-core kernel; see (3) in the header.
+namespace tcb {
+
+using tc::HPS;
+using tc::Item;
+using tc::M1PAIRS;
+using tc::M1T;
+using tc::NG;
+using tc::NPOS;
+using tc::NT;
+using tc::NWARP;
+using tc::PC;
+using tc::R;
+using tc::TW;
+using tc::XR;
+
+constexpr int XC = 48;     // xs row stride in bf16: column c0-1+q sits at q + XO
+constexpr int XO = 7;      // column c0 16-byte aligned, halo pairs 4-byte aligned
+constexpr int XPS = 488;   // xs plane stride (>= XR*XC; channel 2t at word t*XPS)
+
+static_assert(XR * XC <= XPS && XPS % 8 == 0 && XPS % 32 == 8 &&
+              XC % 8 == 0 && (XO + 1) % 8 == 0 && XO % 2 == 1 &&
+              XO + TW + 3 <= XC, "bf16 xs layout");
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.  Each
+// 32-bit register holds two k-adjacent values, the lower k in the lower half.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16 (to nearest even), `lo` in the lower half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Channels c and c+1 of one staged position: the register of an A pair.
+__device__ __forceinline__ uint32_t x_pair(const uint16_t* xs, int off) {
+  return (uint32_t)xs[off] | ((uint32_t)xs[off + XPS] << 16);
+}
+
+// xs[ci][r][XO + q] = x[ci][r0-1+r][c0-1+q], zero outside the image.  With
+// `vec` (W a multiple of 8 and x 16-byte aligned) the 32 columns from c0 go
+// as four 16-byte copies a row, and each halo column as a 4-byte copy of it
+// and its outer neighbour, which nothing reads; else every element is loaded
+// and stored alone.
+template <int CI>
+__device__ __forceinline__ void stage_x(uint16_t* xs,
+                                        const uint16_t* __restrict__ xb, int r0,
+                                        int c0, int H, int W, bool vec,
+                                        int tid) {
+  if (vec) {
+    constexpr int PER_ROW = TW / 8 + 2;
+    for (int k = tid; k < CI * XR * PER_ROW; k += NT) {
+      const int c = k / (XR * PER_ROW), rem = k - c * (XR * PER_ROW);
+      const int r = rem / PER_ROW, v = rem - r * PER_ROW;
+      const int gi = r0 - 1 + r;
+      const bool row = gi >= 0 && gi < H;
+      const uint16_t* src = xb + ((size_t)c * H + gi) * W;
+      uint16_t* dst = xs + c * XPS + r * XC + XO;
+      if (v < TW / 8) {
+        const int gj = c0 + 8 * v;
+        if (row && gj < W)
+          tc::cp_async16(reinterpret_cast<float*>(dst + 1 + 8 * v),
+                         reinterpret_cast<const float*>(src + gj));
+        else
+          *reinterpret_cast<uint4*>(dst + 1 + 8 * v) = make_uint4(0, 0, 0, 0);
+      } else if (v == TW / 8) {          // columns c0-2 (unread) and c0-1
+        if (row && c0 > 0)
+          tc::cp_async4(reinterpret_cast<float*>(dst - 1),
+                        reinterpret_cast<const float*>(src + c0 - 2));
+        else
+          *reinterpret_cast<uint32_t*>(dst - 1) = 0u;
+      } else {                           // columns c0+32 and c0+33 (unread)
+        if (row && c0 + TW < W)
+          tc::cp_async4(reinterpret_cast<float*>(dst + TW + 1),
+                        reinterpret_cast<const float*>(src + c0 + TW));
+        else
+          *reinterpret_cast<uint32_t*>(dst + TW + 1) = 0u;
+      }
+    }
+  } else {
+    constexpr int PER_ROW = TW + 2;
+    for (int k = tid; k < CI * XR * PER_ROW; k += NT) {
+      const int c = k / (XR * PER_ROW), rem = k - c * (XR * PER_ROW);
+      const int r = rem / PER_ROW, q = rem - r * PER_ROW;
+      const int gi = r0 - 1 + r, gj = c0 - 1 + q;
+      xs[c * XPS + r * XC + XO + q] =
+          (gi >= 0 && gi < H && gj >= 0 && gj < W)
+              ? xb[((size_t)c * H + gi) * W + gj] : (uint16_t)0;
+    }
+  }
+  tc::cp_async_commit();
+}
+
+// One unit of stage 1 in bf16: acc (MT m16 tiles from tile m0 x NG n8 tiles
+// of group nh) = A1 @ W1, handed to epi(m0, nh*NG*8, acc).  Register hh of
+// a row holds k = ks*16 + 8hh + 2t and the next: channels cb + 2t and
+// cb + 2t + 1 of tap (ks*16 + 8hh) / CI, cb = (ks*16 + 8hh) % CI.  w1 is in
+// m16n8k16 B-fragment order: a lane's four values of an n8 tile at
+// ((ks*N1T + nt)*32 + lane)*4 (ops/bulge_mma.py to_fragments_bf16).
+template <int CI, int CMP, int MT, class Epi>
+__device__ __forceinline__ void stage1_unit(const uint16_t* xs,
+                                            const uint16_t* w1, int m0, int nh,
+                                            int lane, Epi& epi) {
+  constexpr int KS = 4 * CI / 16;      // k16 steps
+  constexpr int N1T = 4 * CMP / 8;     // n8 tiles: 4 or 8
+  const int g = lane >> 2, t = lane & 3;
+  int aoff[2 * MT];   // rows g, g+8 of each tile, at channel 2t
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    int q = m0 * 16 + r * 8 + g;
+    q = q < NPOS ? q : NPOS - 1;       // phantom rows read a valid cell
+    aoff[r] = (q / PC) * XC + (q % PC) + XO + 2 * t * XPS;
+  }
+  float acc[MT][NG][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][ng][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kb = ks * 16 + 8 * hh, tap = kb / CI, cb = kb % CI;
+      const int koff = cb * XPS + (tap >> 1) * XC + (tap & 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][2 * hh] = x_pair(xs, aoff[2 * mt] + koff);
+        a[mt][2 * hh + 1] = x_pair(xs, aoff[2 * mt + 1] + koff);
+      }
+    }
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng) {
+      const uint2 bv = *reinterpret_cast<const uint2*>(
+          w1 + ((ks * N1T + nh * NG + ng) * 32 + lane) * 4);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][ng], a[mt], bv.x, bv.y);
+    }
+  }
+  epi(m0, nh * NG * 8, acc);
+}
+
+// Stage 1 for one warp, the units shared out as in tc::stage1.
+template <int CI, int CMP, class Epi>
+__device__ __forceinline__ void stage1(const uint16_t* xs, const uint16_t* w1,
+                                       int warp, int lane, Epi& epi) {
+  constexpr int NH = 4 * CMP / 8 / NG;
+  static_assert(NWARP % NH == 0, "a warp keeps its group of n tiles");
+  for (int u = warp; u < M1PAIRS * NH; u += NWARP)
+    stage1_unit<CI, CMP, 2>(xs, w1, 2 * (u / NH), u % NH, lane, epi);
+  for (int u = warp; u < (M1T - 2 * M1PAIRS) * NH; u += NWARP)
+    stage1_unit<CI, CMP, 1>(xs, w1, 2 * M1PAIRS + u / NH, u % NH, lane, epi);
+}
+
+// Main epilogue: normalise, rectify and zero the consumer's padding in fp32,
+// then round to bf16 and store channel pair (n, n+1) of a position as one
+// word: plane n/2 of hp.  A lane's two columns are that pair.
+template <int CMP>
+struct MainEpi {
+  uint32_t* hp;
+  const float* bn;    // mu[CMP], gain[CMP], beta[CMP]
+  int r0, c0, H, W, lane;
+  template <int MT>
+  __device__ __forceinline__ void operator()(int m0, int n0,
+                                             const float (&acc)[MT][NG][4]) {
+    const int g = lane >> 2, t = lane & 3;
+    float mu[NG][2], gain[NG][2], beta[NG][2];
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {
+        const int cm = (ng * 8) % CMP + 2 * t + col;
+        mu[ng][col] = bn[cm];
+        gain[ng][col] = bn[CMP + cm];
+        beta[ng][col] = bn[2 * CMP + cm];
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = (m0 + mt) * 16 + half * 8 + g;
+        if (q >= NPOS) continue;
+        const int pi = q / PC, pj = q - pi * PC;
+        bool row_in[2], col_in[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          row_in[d] = (unsigned)(r0 - d + pi) < (unsigned)H;
+          col_in[d] = (unsigned)(c0 - d + pj) < (unsigned)W;
+        }
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng) {
+          const int par = n0 / CMP + (ng * 8) / CMP;
+          const bool in = row_in[par >> 1] && col_in[par & 1];
+          float v[2];
+#pragma unroll
+          for (int col = 0; col < 2; ++col) {
+            const float h = (acc[mt][ng][half * 2 + col] - mu[ng][col]) *
+                                gain[ng][col] + beta[ng][col];
+            v[col] = in ? fmaxf(h, 0.f) : 0.f;
+          }
+          hp[((n0 + ng * 8) / 2 + t) * HPS + q] = pack_bf16(v[0], v[1]);
+        }
+      }
+  }
+};
+
+// Stage 2 in bf16: warp `warp` computes y row r0 + warp of the band.  Register
+// hh of a pixel holds k = ks*16 + 8hh + 2t and the next: channels cm0 + 2t,
+// +1 of tap (a, c) = ((ks*16 + 8hh) / CMP) as a*4 + c, one word of hp.
+template <int CMP, int CO>
+__device__ __forceinline__ void stage2(const uint32_t* hp, const uint16_t* w2,
+                                       int warp, int lane,
+                                       uint16_t* __restrict__ yb, int r0,
+                                       int c0, int H, int W) {
+  constexpr int KS = CMP;              // 16 * CMP / 16 k16 steps
+  constexpr int N2T = CO / 8;
+  static_assert(N2T <= NG, "stage 2 holds all of Co at once");
+  const int g = lane >> 2, t = lane & 3;
+  const int ml = warp;
+  int aoff[4];     // pixels g, g+8, g+16, g+24 of the row, at channel pair t
+#pragma unroll
+  for (int r = 0; r < 4; ++r) aoff[r] = ml * PC + r * 8 + g + t * HPS;
+  float acc[2][N2T][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < N2T; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int kb = ks * 16 + 8 * hh, tap = kb / CMP, cm0 = kb % CMP;
+      const int ta = tap >> 2, tcol = tap & 3;
+      const int par = ((ta + 1) & 1) * 2 + ((tcol + 1) & 1);
+      const int koff = (par * CMP / 2 + cm0 / 2) * HPS + (ta >> 1) * PC +
+                       (tcol >> 1);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        a[mt][2 * hh] = hp[aoff[2 * mt] + koff];
+        a[mt][2 * hh + 1] = hp[aoff[2 * mt + 1] + koff];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < N2T; ++nt) {
+      const uint2 bv = *reinterpret_cast<const uint2*>(
+          w2 + ((ks * N2T + nt) * 32 + lane) * 4);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], bv.x, bv.y);
+    }
+  }
+  const int m = r0 + ml;
+  if (m >= H) return;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = c0 + mt * 16 + half * 8 + g;
+      if (n >= W) continue;
+#pragma unroll
+      for (int nt = 0; nt < N2T; ++nt)
+#pragma unroll
+        for (int col = 0; col < 2; ++col) {
+          const int co = nt * 8 + 2 * t + col;
+          yb[((size_t)co * H + m) * W + n] = __bfloat16_as_ushort(
+              __float2bfloat16_rn(acc[mt][nt][half * 2 + col]));
+        }
+    }
+}
+
+template <int CI, int CMP, int CO>
+struct MainSmem {
+  static constexpr int W1N = 4 * CI * 4 * CMP;   // bf16
+  static constexpr int W2N = 16 * CMP * CO;      // bf16
+  static constexpr int XN = CI * XPS;            // bf16
+  static constexpr int HN = 2 * CMP * HPS;       // words: 4 parities x CMP/2 pairs
+  static constexpr int BNN = 3 * CMP;            // fp32
+  static constexpr size_t bytes = 2 * (size_t)(W1N + W2N + XN) +
+                                  4 * (size_t)(HN + BNN);
+  static_assert((2 * (W1N + W2N + XN)) % 16 == 0, "hp 16-byte aligned");
+};
+
+template <int CI, int CMP, int CO>
+__global__ void __launch_bounds__(NT, 2)
+bulge_main_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w1,
+                  const uint16_t* __restrict__ w2, const float* __restrict__ mu,
+                  const float* __restrict__ gain,
+                  const float* __restrict__ beta, uint16_t* __restrict__ y,
+                  int cm_n, int H, int W, int nbands, int nchunks,
+                  long long n_items, bool vec) {
+  using S = MainSmem<CI, CMP, CO>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* s_w1 = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* s_w2 = s_w1 + S::W1N;
+  uint16_t* xs = s_w2 + S::W2N;
+  uint32_t* hp = reinterpret_cast<uint32_t*>(xs + S::XN);
+  float* s_bn = reinterpret_cast<float*>(hp + S::HN);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t x_img = (size_t)CI * H * W, y_img = (size_t)CO * H * W;
+  long long idx = blockIdx.x;
+  if (idx >= n_items) return;
+  tc::stage_weights(reinterpret_cast<float*>(s_w1),
+                    reinterpret_cast<const float*>(w1), S::W1N / 2, tid);
+  tc::stage_weights(reinterpret_cast<float*>(s_w2),
+                    reinterpret_cast<const float*>(w2), S::W2N / 2, tid);
+  {
+    const Item it = tc::decode(idx, nbands, nchunks);
+    stage_x<CI>(xs, x + it.b * x_img, it.r0, it.c0, H, W, vec, tid);
+  }
+  for (; idx < n_items; idx += gridDim.x) {
+    const Item it = tc::decode(idx, nbands, nchunks);
+    if (tid < CMP) {
+      const bool real = tid < cm_n;
+      s_bn[tid] = real ? mu[(size_t)it.b * cm_n + tid] : 0.f;
+      s_bn[CMP + tid] = real ? gain[(size_t)it.b * cm_n + tid] : 0.f;
+      s_bn[2 * CMP + tid] = real ? beta[tid] : 0.f;
+    }
+    tc::cp_async_wait_all();
+    __syncthreads();   // xs (and the weights) arrived; hp is free
+    MainEpi<CMP> epi{hp, s_bn, it.r0, it.c0, H, W, lane};
+    stage1<CI, CMP>(xs, s_w1, warp, lane, epi);
+    __syncthreads();   // hp complete; xs is free
+    const long long next = idx + gridDim.x;
+    if (next < n_items) {
+      const Item nx = tc::decode(next, nbands, nchunks);
+      stage_x<CI>(xs, x + nx.b * x_img, nx.r0, nx.c0, H, W, vec, tid);
+    }
+    stage2<CMP, CO>(hp, s_w2, warp, lane, y + it.b * y_img, it.r0, it.c0, H,
+                    W);
+  }
+}
+
+template <int CI, int CMP>
+struct StatsSmem {
+  static constexpr int W1N = 4 * CI * 4 * CMP;   // bf16
+  static constexpr int XN = CI * XPS;            // bf16
+  static constexpr int REDN = NWARP * NG * 8 * 2;
+  static constexpr size_t bytes =
+      2 * (size_t)(W1N + XN) + sizeof(float) * (size_t)REDN;
+};
+
+// partial[idx][0][cm] = sum, partial[idx][1][cm] = sum of squares of the
+// hidden cells item idx owns, in fp32 from the fp32 accumulators.
+template <int CI, int CMP>
+__global__ void __launch_bounds__(NT, 2)
+bulge_stats_kernel(const uint16_t* __restrict__ x,
+                   const uint16_t* __restrict__ w1, float* __restrict__ partial,
+                   int cm_n, int H, int W, int nbands, int nchunks,
+                   long long n_items, bool vec) {
+  using S = StatsSmem<CI, CMP>;
+  constexpr int NH = 4 * CMP / 8 / NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* s_w1 = reinterpret_cast<uint16_t*>(smem_raw);
+  uint16_t* xs = s_w1 + S::W1N;
+  float* red = reinterpret_cast<float*>(xs + S::XN);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t x_img = (size_t)CI * H * W;
+  long long idx = blockIdx.x;
+  if (idx >= n_items) return;
+  tc::stage_weights(reinterpret_cast<float*>(s_w1),
+                    reinterpret_cast<const float*>(w1), S::W1N / 2, tid);
+  {
+    const Item it = tc::decode(idx, nbands, nchunks);
+    stage_x<CI>(xs, x + it.b * x_img, it.r0, it.c0, H, W, vec, tid);
+  }
+  for (; idx < n_items; idx += gridDim.x) {
+    const Item it = tc::decode(idx, nbands, nchunks);
+    tc::cp_async_wait_all();
+    __syncthreads();   // xs arrived; red of the previous item was read
+    tc::StatsEpi<CMP> epi;
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int col = 0; col < 2; ++col)
+        epi.s[ng][col][0] = epi.s[ng][col][1] = 0.f;
+    epi.r0 = it.r0; epi.c0 = it.c0; epi.H = H; epi.W = W; epi.lane = lane;
+    stage1<CI, CMP>(xs, s_w1, warp, lane, epi);
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int col = 0; col < 2; ++col)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float v = epi.s[ng][col][k];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) red[(warp * 32 + ng * 8 + 2 * t + col) * 2 + k] = v;
+        }
+    __syncthreads();   // red complete; xs is free
+    const long long next = idx + gridDim.x;
+    if (next < n_items) {
+      const Item nx = tc::decode(next, nbands, nchunks);
+      stage_x<CI>(xs, x + nx.b * x_img, nx.r0, nx.c0, H, W, vec, tid);
+    }
+    if (tid < 2 * CMP) {
+      const int k = tid / CMP, cm = tid - k * CMP;
+      float v = 0.f;
+      for (int w = 0; w < NWARP; ++w)
+#pragma unroll
+        for (int par = 0; par < 4; ++par) {
+          const int n = par * CMP + cm;
+          if (n / 32 == w % NH) v += red[(w * 32 + n % 32) * 2 + k];
+        }
+      if (cm < cm_n) partial[((size_t)idx * 2 + k) * cm_n + cm] = v;
+    }
+  }
+}
+
+// May stage_x copy 16 bytes at a time: rows of x start 16-byte aligned.
+inline bool vector_rows(const void* x, int W) {
+  return W % 8 == 0 && ((uintptr_t)x & 15) == 0;
+}
+
+template <int CI, int CMP, int CO>
+int launch_main(const uint16_t* x, const uint16_t* w1, const uint16_t* w2,
+                const float* mu, const float* gain, const float* beta,
+                uint16_t* y, int B, int cm, int H, int W, int n_sm,
+                cudaStream_t stream) {
+  const int nbands = (H + R - 1) / R, nchunks = (W + TW - 1) / TW;
+  const long long n_items = (long long)B * nbands * nchunks;
+  if (n_items == 0) return (int)cudaSuccess;
+  const size_t smem = MainSmem<CI, CMP, CO>::bytes;
+  int grid = 0;
+  cudaError_t e = tc::persistent_grid(bulge_main_kernel<CI, CMP, CO>, smem,
+                                      n_sm, n_items, &grid);
+  if (e != cudaSuccess) return (int)e;
+  bulge_main_kernel<CI, CMP, CO><<<grid, NT, smem, stream>>>(
+      x, w1, w2, mu, gain, beta, y, cm, H, W, nbands, nchunks, n_items,
+      vector_rows(x, W));
+  return (int)cudaGetLastError();
+}
+
+template <int CI, int CMP>
+int launch_stats(const uint16_t* x, const uint16_t* w1, float* partial, int B,
+                 int cm, int H, int W, int n_sm, cudaStream_t stream) {
+  const int nbands = (H + R - 1) / R, nchunks = (W + TW - 1) / TW;
+  const long long n_items = (long long)B * nbands * nchunks;
+  if (n_items == 0) return (int)cudaSuccess;
+  const size_t smem = StatsSmem<CI, CMP>::bytes;
+  int grid = 0;
+  cudaError_t e = tc::persistent_grid(bulge_stats_kernel<CI, CMP>, smem, n_sm,
+                                      n_items, &grid);
+  if (e != cudaSuccess) return (int)e;
+  bulge_stats_kernel<CI, CMP><<<grid, NT, smem, stream>>>(
+      x, w1, partial, cm, H, W, nbands, nchunks, n_items, vector_rows(x, W));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tcb
+
 // The fp32 FMA kernel: one block per (image, T x T tile); see (2) in the
 // header.
 namespace fp32fma {
@@ -978,6 +1474,50 @@ int bulge_main_f32(const float* x, const float* w1, const float* w2,
     case 4: return tc::launch_main<8, 8, 8>(x, w1, w2, mu, gain, beta, y, B, cm, H, W, n_sm, s);
     case 8: return tc::launch_main<16, 8, 16>(x, w1, w2, mu, gain, beta, y, B, cm, H, W, n_sm, s);
     case 16: return tc::launch_main<32, 16, 32>(x, w1, w2, mu, gain, beta, y, B, cm, H, W, n_sm, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- the tensor-core kernel in bf16 ----------------------------------------
+
+size_t bulge_mma_bf16_smem_bytes(int cm) {
+  switch (cm) {
+    case 4: return tcb::MainSmem<8, 8, 8>::bytes;
+    case 8: return tcb::MainSmem<16, 8, 16>::bytes;
+    case 16: return tcb::MainSmem<32, 16, 32>::bytes;
+  }
+  return 0;
+}
+
+// x, y bf16 (B, C, H, W); w1: W1 in bf16 m16n8k16 B-fragment order.
+int bulge_stats_bf16(const void* x, const void* w1, float* partial, int B,
+                     int ci, int cm, int H, int W, int n_sm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint16_t* xb = (const uint16_t*)x;
+  const uint16_t* w = (const uint16_t*)w1;
+  if (ci != 2 * cm) return (int)cudaErrorInvalidValue;
+  switch (cm) {
+    case 4: return tcb::launch_stats<8, 8>(xb, w, partial, B, cm, H, W, n_sm, s);
+    case 8: return tcb::launch_stats<16, 8>(xb, w, partial, B, cm, H, W, n_sm, s);
+    case 16: return tcb::launch_stats<32, 16>(xb, w, partial, B, cm, H, W, n_sm, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int bulge_main_bf16(const void* x, const void* w1, const void* w2,
+                    const float* mu, const float* gain, const float* beta,
+                    void* y, int B, int ci, int cm, int co, int H, int W,
+                    int n_sm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const uint16_t* xb = (const uint16_t*)x;
+  const uint16_t* a = (const uint16_t*)w1;
+  const uint16_t* b = (const uint16_t*)w2;
+  uint16_t* yb = (uint16_t*)y;
+  if (!bulge_mma_supported(ci, cm, co)) return (int)cudaErrorInvalidValue;
+  switch (cm) {
+    case 4: return tcb::launch_main<8, 8, 8>(xb, a, b, mu, gain, beta, yb, B, cm, H, W, n_sm, s);
+    case 8: return tcb::launch_main<16, 8, 16>(xb, a, b, mu, gain, beta, yb, B, cm, H, W, n_sm, s);
+    case 16: return tcb::launch_main<32, 16, 32>(xb, a, b, mu, gain, beta, yb, B, cm, H, W, n_sm, s);
   }
   return (int)cudaErrorInvalidValue;
 }

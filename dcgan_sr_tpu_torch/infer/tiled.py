@@ -11,8 +11,10 @@ Everything runs eagerly on the generator's device — patch extraction,
 per-patch box downsample, the batched generator, the naive stitch and the
 batched seam DP (infer/seam_device.py); there is no jit and so nothing to
 compile per shape.  The host replay of the seam DP (infer/seam.py) is kept
-as its oracle.  A device mesh and reduced-precision compute are not yet
-ported and raise when asked for.
+as its oracle.  `compute_dtype=torch.bfloat16` runs the generator in bf16
+(models/network.py: fp32 in and out, the fused pair through the bf16 kernel);
+the stitches see its fp32 output, as in the JAX package.  A device mesh is
+not yet ported and raises when asked for.
 """
 
 from __future__ import annotations
@@ -36,11 +38,7 @@ from .seam_device import seam_stitch_device
 TILE_BUDGET = 32768
 
 
-def _not_ported(compute_dtype, mesh):
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype: reduced-precision (bf16) inference is not yet "
-            "ported")
+def _not_ported(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "mesh: sharded (data-parallel) inference is not yet ported")
@@ -81,7 +79,7 @@ def _wrap_ensemble(gen, self_ensemble, ensemble_batched):
 
 
 def make_generator_fn(net, bn_eval=False, self_ensemble=1,
-                      ensemble_batched=False):
+                      ensemble_batched=False, compute_dtype=None):
     """Returns gen(lr_batch) -> hr_batch, (B, nc, h, w) in/out.
 
     Default runs in train mode (batch statistics of the batch given) — the
@@ -92,11 +90,12 @@ def make_generator_fn(net, bn_eval=False, self_ensemble=1,
     `self_ensemble=N` (2/4/8) averages the forward over N dihedral
     transforms of the input (infer/ensemble.py).  `ensemble_batched=True`
     runs the N members as ONE (N*B)-batch generator call instead of N calls
-    (exact under bn_eval: see ensemble.py; square inputs only)."""
+    (exact under bn_eval: see ensemble.py; square inputs only).
+    `compute_dtype=torch.bfloat16` runs the generator in bf16 (fp32 out)."""
     stats = "running" if bn_eval else "pooled"
 
     def gen(lr):
-        return net(lr, bn_stats=stats)
+        return net(lr, bn_stats=stats, compute_dtype=compute_dtype)
 
     return torch.inference_mode()(
         _wrap_ensemble(gen, self_ensemble, ensemble_batched))
@@ -172,10 +171,14 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
     per-image statistics the batched form pools each image's N members: the
     members of image i are rows i, B+i, 2B+i, ... of the joint batch, so the
     images are moved next to their members and grouped.
+
+    `compute_dtype=torch.bfloat16` runs the generator in bf16 (fp32 out).
     """
-    _not_ported(compute_dtype, mesh)
+    _not_ported(mesh)
+    cdt = compute_dtype              # the generator's compute dtype
     if bn_eval:
-        gen = lambda lr: net(lr, bn_stats="running")      # noqa: E731
+        gen = lambda lr: net(lr, bn_stats="running",      # noqa: E731
+                             compute_dtype=cdt)
         gen = _wrap_ensemble(gen, self_ensemble, ensemble_batched)
     elif self_ensemble != 1 and ensemble_batched:
         def members_pooled(big, n_img):
@@ -183,7 +186,8 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
             m = big.shape[0] // n_img
             by_img = big.reshape((m, n_img) + tuple(big.shape[1:])
                                  ).transpose(0, 1).reshape(big.shape)
-            y = net(by_img, bn_stats="pooled", groups=n_img)
+            y = net(by_img, bn_stats="pooled", groups=n_img,
+                    compute_dtype=cdt)
             return y.reshape((n_img, m) + tuple(y.shape[1:])
                              ).transpose(0, 1).reshape(y.shape)
 
@@ -192,7 +196,8 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
             return _wrap_ensemble(lambda big: members_pooled(big, n_img),
                                   self_ensemble, True)(lr)
     else:
-        gen = lambda lr: net(lr, bn_stats="per_image")    # noqa: E731
+        gen = lambda lr: net(lr, bn_stats="per_image",   # noqa: E731
+                             compute_dtype=cdt)
         gen = _wrap_ensemble(gen, self_ensemble, False)
 
     @torch.inference_mode()
@@ -245,8 +250,11 @@ def make_overlap_sr_fn(cfg, net, *, compute_dtype=None, mesh=None, fine=None,
     even-aligned tile grid, those LR tiles are BIT-IDENTICAL to the
     protocol's degraded HR tiles — the generator sees exactly its training
     regime.  Requires even patchSize and overlap.
+
+    `compute_dtype=torch.bfloat16` runs the generator in bf16; its tiles come
+    back in fp32 and are stitched in fp32.
     """
-    _not_ported(compute_dtype, mesh)
+    _not_ported(mesh)
     patch, ov = cfg.patchSize, cfg.overlap
     fine = (cfg.fineSize, cfg.fineSize) if fine is None else tuple(fine)
     if flat_tiles is None:
@@ -267,8 +275,8 @@ def make_overlap_sr_fn(cfg, net, *, compute_dtype=None, mesh=None, fine=None,
     def gen_images(lr, **kw):
         """(n*T, 1, p/2, p/2) tiles of n whole images -> (n*T, 1, p, p)."""
         if bn_eval:
-            return net(lr, bn_stats="running")
-        return net(lr, bn_stats="pooled", **kw)
+            return net(lr, bn_stats="running", compute_dtype=compute_dtype)
+        return net(lr, bn_stats="pooled", compute_dtype=compute_dtype, **kw)
 
     def gen_tiles(lr, n):
         if self_ensemble == 1:

@@ -13,6 +13,12 @@ fused kernel on a card, its plain version on the CPU); the second conv's own
 BN and activation follow as usual.  `fuse=False` runs every layer unfused,
 the plain composition the fused pair is checked against.
 
+bf16 compute (`compute_dtype=torch.bfloat16` of forward, JAX
+apply_network(compute_dtype=)): the input is cast at entry, every layer
+computes in bf16 from the fp32 master parameters (ops/nn.py), BN statistics
+stay fp32, and the output goes back to fp32 for the losses, labels and
+metrics.  The fused pair takes the bf16 tensor as it is (ops/bulge.py).
+
 BN statistics (`bn_stats` of forward):
   "pooled"     train mode over the batch given (apply_network train=True);
                with `groups=G`, over each of G equal runs of consecutive
@@ -122,11 +128,13 @@ class Layer(nn.Module):
                 self.register_buffer("bn_mean", as_t(s["bn"]["mean"]))
                 self.register_buffer("bn_var", as_t(s["bn"]["var"]))
 
-    def conv(self, x):
+    def conv(self, x, compute_dtype=None):
         sp = self.spec
         if sp["kind"] == "conv":
-            return N.conv2d(x, self.w, sp["s"], sp["p"])
-        return N.conv_transpose2d(x, self.w, sp["s"], sp["p"])
+            return N.conv2d(x, self.w, sp["s"], sp["p"],
+                            compute_dtype=compute_dtype)
+        return N.conv_transpose2d(x, self.w, sp["s"], sp["p"],
+                                  compute_dtype=compute_dtype)
 
     def post(self, x, bn_stats, track_stats=False, logits=False, groups=None):
         """BN (if any) and the activation that follow this layer's conv."""
@@ -144,15 +152,15 @@ class Layer(nn.Module):
         return x if logits and act == "sigmoid" else _ACTS[act](x)
 
     def forward(self, x, bn_stats, track_stats=False, logits=False,
-                groups=None):
+                groups=None, compute_dtype=None):
         kind = self.spec["kind"]
         if kind == "upsample":
             return N.upsample_nearest(x, self.spec["factor"])
         if kind == "flatten":
             return x.reshape(x.shape[0], -1)[:, 0]
         if kind in ("conv", "convT"):
-            return self.post(self.conv(x), bn_stats, track_stats, logits,
-                             groups)
+            return self.post(self.conv(x, compute_dtype), bn_stats,
+                             track_stats, logits, groups)
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -192,7 +200,7 @@ class Network(nn.Module):
         return params, state
 
     def forward(self, x, bn_stats="pooled", *, track_stats=False,
-                logits=False, groups=None):
+                logits=False, groups=None, compute_dtype=None):
         if bn_stats not in BN_STATS:
             raise ValueError(f"bn_stats must be one of {BN_STATS}")
         if groups is not None and (bn_stats != "pooled" or track_stats):
@@ -201,6 +209,8 @@ class Network(nn.Module):
         if track_stats and self.pairs:
             raise ValueError("track_stats needs fuse=False: the fused pair "
                              "does not move its BN layer's running statistics")
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
         i = 0
         while i < len(self.layers):
             layer = self.layers[i]
@@ -214,6 +224,7 @@ class Network(nn.Module):
                 x = nxt.post(x, bn_stats, track_stats, logits, groups)
                 i += 2
             else:
-                x = layer(x, bn_stats, track_stats, logits, groups)
+                x = layer(x, bn_stats, track_stats, logits, groups,
+                          compute_dtype)
                 i += 1
-        return x
+        return x if compute_dtype is None else x.float()

@@ -17,6 +17,14 @@ side: ops/bulge_mma.py), and "fma", the earlier fp32 FMA kernel.
 `choose_impl` picks one from the shapes alone; an explicit `impl=` is for
 measurements and tests.  Neither is ever a fallback for the other.
 
+bf16 (x in bfloat16, JAX fused_bulge_fwd with bf16 x): the tensor-core
+kernel's bf16 instantiation, one bf16 mma (m16n8k16, fp32 accumulators) a
+product.  x, the packed weights, the hidden tensor fed to the second
+product and y are bf16; the statistics, the BN gain and shift and the
+normalisation of h are fp32, and h is rounded to bf16 only after BN, ReLU
+and the edge mask (pallas_bulge.py:216-228).  Only "mma" has a bf16
+instantiation, at bulge_mma.MMA_TRIPLES; "fma" or another triple raises.
+
 BN statistics of h, three ways (`stats=`):
   "pooled"     over the whole batch — K2's own statistics
                (pallas_bulge.py:279-283), train-mode BN; with `groups=G`
@@ -45,10 +53,12 @@ IMPLS = ("mma", "fma")
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
-launches = {"bulge_stats": 0, "bulge_main": 0}
+launches = {"bulge_stats": 0, "bulge_main": 0, "bulge_stats_bf16": 0,
+            "bulge_main_bf16": 0}
 # The same launches by the implementation that ran (both kernels of a pair
-# counted): which one `choose_impl` sent a path through.
-impl_launches = {"mma": 0, "fma": 0}
+# counted): which one `choose_impl` sent a path through; bf16 launches of
+# the tensor-core kernel under "mma_bf16".
+impl_launches = {"mma": 0, "fma": 0, "mma_bf16": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -72,6 +82,8 @@ def build():
         lib.bulge_mma_supported.restype = i
         lib.bulge_mma_smem_bytes.argtypes = [i]
         lib.bulge_mma_smem_bytes.restype = ctypes.c_size_t
+        lib.bulge_mma_bf16_smem_bytes.argtypes = [i]
+        lib.bulge_mma_bf16_smem_bytes.restype = ctypes.c_size_t
         lib.bulge_stats_f32.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.bulge_stats_f32.restype = i
         lib.bulge_main_f32.argtypes = [p] * 7 + [i] * 7 + [p]
@@ -80,6 +92,10 @@ def build():
         lib.bulge_stats_fma_f32.restype = i
         lib.bulge_main_fma_f32.argtypes = [p] * 7 + [i] * 6 + [p]
         lib.bulge_main_fma_f32.restype = i
+        lib.bulge_stats_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.bulge_stats_bf16.restype = i
+        lib.bulge_main_bf16.argtypes = [p] * 7 + [i] * 7 + [p]
+        lib.bulge_main_bf16.restype = i
         if (lib.bulge_band_rows(), lib.bulge_chunk_cols()) != (
                 M.BAND_ROWS, M.CHUNK_COLS) or not all(
                     lib.bulge_mma_supported(*t) for t in M.MMA_TRIPLES):
@@ -105,8 +121,26 @@ def bulge_plain(x, wT, scale, bias, wC, *, stats="pooled", running=None,
                 groups=None, eps=1e-5):
     """Unfused convT -> BN -> ReLU -> conv with the statistics of `stats`.
 
-    Returns (y, (mean, var)): y (B, Co, H, W); mean/var (Cm,), or (B, Cm)
-    for "per_image", or (groups, Cm), or `running` as given."""
+    Returns (y, (mean, var)): y (B, Co, H, W) in x's dtype; mean/var (Cm,),
+    or (B, Cm) for "per_image", or (groups, Cm), or `running` as given.
+
+    bf16 x: the kernel's function with its rounding points.  The weights
+    are rounded to bf16, both products run in fp32 (TF32 off) on the
+    upcast operands, where products of bf16 values are exact; statistics,
+    BN, ReLU and the edge padding are fp32; h is rounded to bf16 before the
+    second product, and y after it."""
+    if x.dtype != torch.bfloat16:
+        return _plain_pair(x, wT, scale, bias, wC, stats, running, groups,
+                           eps)
+    as_bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    y, st = _plain_pair(x.float(), as_bf16(wT), scale.float(), bias.float(),
+                        as_bf16(wC), stats, running, groups, eps,
+                        round_hidden=as_bf16)
+    return y.to(torch.bfloat16), st
+
+
+def _plain_pair(x, wT, scale, bias, wC, stats, running, groups, eps,
+                round_hidden=None):
     h = N.conv_transpose2d(x, wT, 2, 1)
     if stats == "running":
         mean, var = running
@@ -114,6 +148,8 @@ def bulge_plain(x, wT, scale, bias, wC, *, stats="pooled", running=None,
         mean, var = N.batch_stats(h, per_image=stats == "per_image",
                                   groups=groups if stats == "pooled" else None)
     hr = N.relu(N.normalize(h, mean, var, scale, bias, eps))
+    if round_hidden is not None:
+        hr = round_hidden(hr)
     return N.conv2d(hr, wC, 2, 1), (mean, var)
 
 
@@ -147,70 +183,85 @@ def _check(x, wT, scale, bias, wC, stats, running, groups):
 def _impl_for(impl, x, wT, wC=None):
     """The implementation a launch runs: `impl` if given (checked), else
     `choose_impl`'s.  The stats launch has no wC: it takes the choice of the
-    pair it belongs to on the paths, Co = 2 Cm."""
+    pair it belongs to on the paths, Co = 2 Cm.  A bf16 x runs "mma" or
+    raises: the FMA kernel is fp32 only."""
     ci, cm = x.shape[1], wT.shape[1]
     co = 2 * cm if wC is None else wC.shape[0]
+    bf16 = x.dtype == torch.bfloat16
     if impl is None:
-        return choose_impl(ci, cm, co, x.shape[2], x.shape[3])
+        impl = "mma" if bf16 else choose_impl(ci, cm, co, x.shape[2],
+                                              x.shape[3])
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "fma" and bf16:
+        raise ValueError("the FMA bulge kernel takes float32 only; bf16 runs "
+                         "impl='mma'")
     if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
-        raise ValueError(f"the tensor-core bulge kernel has no instantiation "
-                         f"for Ci={ci}, Cm={cm}, Co={co} (built: "
-                         f"{M.MMA_TRIPLES})")
+        raise ValueError(f"the tensor-core bulge kernel has no "
+                         f"{'bf16 ' if bf16 else ''}instantiation for "
+                         f"Ci={ci}, Cm={cm}, Co={co} (built: {M.MMA_TRIPLES})")
     return impl
+
+
+def _count(kernel, impl, x):
+    bf16 = x.dtype == torch.bfloat16
+    launches[kernel + ("_bf16" if bf16 else "")] += 1
+    impl_launches[impl + ("_bf16" if bf16 else "")] += 1
 
 
 def launch_stats(x, wT, impl=None):
     """Stats launch: fp32 (sum, sum of squares) of h = convT(x) per (image,
     slot), shape (B, slots, 2, Cm); a slot is a work item of
-    bulge_mma.Schedule ("mma") or a 16x16 tile ("fma").  x, wT: contiguous
-    fp32 CUDA.  impl=None takes `choose_impl`'s."""
+    bulge_mma.Schedule ("mma") or a 16x16 tile ("fma").  x contiguous fp32
+    or bf16 CUDA, wT fp32 (packed in x's dtype).  impl=None takes
+    `choose_impl`'s."""
     lib = _lib or build()
     impl = _impl_for(impl, x, wT)
     bsz, ci, h, w = x.shape
     cm = wT.shape[1]
     if impl == "mma":
         slots = M.slots_per_image(h, w)
-        w1 = M.packed_operand("wT", wT)
+        w1 = M.packed_operand("wT", wT, x.dtype)
     else:
         t = lib.bulge_tile()
         slots = -(-h // t) * -(-w // t)
     partial = torch.empty((bsz, slots, 2, cm), device=x.device,
                           dtype=torch.float32)
     if impl == "mma":
-        err = lib.bulge_stats_f32(x.data_ptr(), w1.data_ptr(),
-                                  partial.data_ptr(), bsz, ci, cm, h, w,
-                                  sm_count(x.device),
-                                  raw_stream(x.get_device()))
+        entry = lib.bulge_stats_bf16 if x.dtype == torch.bfloat16 else \
+            lib.bulge_stats_f32
+        err = entry(x.data_ptr(), w1.data_ptr(), partial.data_ptr(), bsz, ci,
+                    cm, h, w, sm_count(x.device), raw_stream(x.get_device()))
     else:
         err = lib.bulge_stats_fma_f32(x.data_ptr(), wT.data_ptr(),
                                       partial.data_ptr(), bsz, ci, cm, h, w,
                                       raw_stream(x.get_device()))
     if err:
-        raise RuntimeError(f"bulge_stats ({impl}) launch failed: cudaError "
-                           f"{err}")
-    launches["bulge_stats"] += 1
-    impl_launches[impl] += 1
+        raise RuntimeError(f"bulge_stats ({impl}, {x.dtype}) launch failed: "
+                           f"cudaError {err}")
+    _count("bulge_stats", impl, x)
     return partial
 
 
 def launch_main(x, wT, wC, mu, gain, beta, impl=None):
-    """Main launch: y (B, Co, H, W) with h normalized as
-    (h - mu) * gain + beta; mu, gain (B, Cm), beta (Cm,); all contiguous
-    fp32 CUDA.  impl=None takes `choose_impl`'s."""
+    """Main launch: y (B, Co, H, W) in x's dtype with h normalized as
+    (h - mu) * gain + beta; mu, gain (B, Cm), beta (Cm,) contiguous fp32;
+    x contiguous fp32 or bf16 CUDA; wT, wC fp32 (packed in x's dtype).
+    impl=None takes `choose_impl`'s."""
     lib = _lib or build()
     impl = _impl_for(impl, x, wT, wC)
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
-    y = torch.empty((bsz, co, h, w), device=x.device, dtype=torch.float32)
+    y = torch.empty((bsz, co, h, w), device=x.device, dtype=x.dtype)
     if impl == "mma":
-        w1, w2 = M.packed_operand("wT", wT), M.packed_operand("wC", wC)
-        err = lib.bulge_main_f32(x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                                 mu.data_ptr(), gain.data_ptr(),
-                                 beta.data_ptr(), y.data_ptr(), bsz, ci, cm,
-                                 co, h, w, sm_count(x.device),
-                                 raw_stream(x.get_device()))
+        w1 = M.packed_operand("wT", wT, x.dtype)
+        w2 = M.packed_operand("wC", wC, x.dtype)
+        entry = lib.bulge_main_bf16 if x.dtype == torch.bfloat16 else \
+            lib.bulge_main_f32
+        err = entry(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), mu.data_ptr(),
+                    gain.data_ptr(), beta.data_ptr(), y.data_ptr(), bsz, ci,
+                    cm, co, h, w, sm_count(x.device),
+                    raw_stream(x.get_device()))
     else:
         err = lib.bulge_main_fma_f32(x.data_ptr(), wT.data_ptr(),
                                      wC.data_ptr(), mu.data_ptr(),
@@ -218,10 +269,9 @@ def launch_main(x, wT, wC, mu, gain, beta, impl=None):
                                      y.data_ptr(), bsz, ci, cm, co, h, w,
                                      raw_stream(x.get_device()))
     if err:
-        raise RuntimeError(f"bulge_main ({impl}) launch failed: cudaError "
-                           f"{err}")
-    launches["bulge_main"] += 1
-    impl_launches[impl] += 1
+        raise RuntimeError(f"bulge_main ({impl}, {x.dtype}) launch failed: "
+                           f"cudaError {err}")
+    _count("bulge_main", impl, x)
     return y
 
 
@@ -229,9 +279,10 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
           groups=None, eps=1e-5, impl=None):
     """y = conv_k4s2p1(relu(bn(convT_k4s2p1(x)))) and the BN (mean, var).
 
-    x (B, Ci, H, W) fp32; wT (Ci, Cm, 4, 4) IOHW; wC (Co, Cm, 4, 4) OIHW;
-    scale, bias (Cm,).  See the module docstring for `stats`, `groups` and
-    `impl` (CUDA only; None = `choose_impl`)."""
+    x (B, Ci, H, W) fp32 or bf16 (y in x's dtype); wT (Ci, Cm, 4, 4) IOHW;
+    wC (Co, Cm, 4, 4) OIHW; scale, bias (Cm,).  See the module docstring for
+    `stats`, `groups` and `impl` (CUDA only; None = `choose_impl`, or "mma"
+    for bf16)."""
     _check(x, wT, scale, bias, wC, stats, running, groups)
     if stats != "pooled":
         groups = None
@@ -240,8 +291,9 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
                            running=running, groups=groups, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"bulge runs on cpu or cuda, not {x.device.type}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"the bulge kernel takes float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the bulge kernel takes float32 or bfloat16, got "
+                         f"{x.dtype}")
     lib = build()
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
@@ -249,8 +301,12 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
         raise ValueError(f"the bulge kernel has no instantiation for "
                          f"Cm={cm}, Co={co} (built: 4/8, 8/16, 16/32)")
     impl = _impl_for(impl, x, wT, wC)
-    smem = lib.bulge_mma_smem_bytes(cm) if impl == "mma" else \
-        lib.bulge_main_smem_bytes(ci, cm, co)
+    if impl == "fma":
+        smem = lib.bulge_main_smem_bytes(ci, cm, co)
+    elif x.dtype == torch.bfloat16:
+        smem = lib.bulge_mma_bf16_smem_bytes(cm)
+    else:
+        smem = lib.bulge_mma_smem_bytes(cm)
     if smem > 227 * 1024:
         raise ValueError(f"bulge tile needs {smem} B of shared memory "
                          f"(Ci={ci}); the card offers 232448")

@@ -23,6 +23,15 @@ dcgan_sr_tpu/ops/pallas_bulge.py:19-29, regrouped for an SM):
 Cmp = max(Cm, 8): mma tiles are 8 columns wide, so Cm 4 runs padded with
 zero weights.  Both operands go to the card in mma.m16n8k8 B-fragment order
 (`to_fragments`), so the kernel stages them with a straight copy.
+
+bf16 (the kernel's bf16 instantiation): the same W1 and W2, rounded to bf16,
+in mma.m16n8k16 B-fragment order (`to_fragments_bf16`): a lane's two k-
+adjacent values share one 32-bit register, and its four values of an n8
+column are one 8-byte load.  The k order is the fp32 kernel's, unpermuted:
+the kernel pairs A's k-adjacent values (two channels of one position) from
+its NCHW x staging with two 2-byte loads, and from its hidden planes, which
+it stores channel-pair interleaved, with one 4-byte load.  `bulge_packed`
+takes bf16 x with the kernel's rounding points.
 """
 
 from __future__ import annotations
@@ -115,6 +124,17 @@ def to_fragments(mat):
     return blocks.transpose(0, 3, 4, 2, 1).reshape(-1)  # ks, nt, g, t, j
 
 
+def to_fragments_bf16(mat):
+    """A (K, N) B operand in mma.m16n8k16 fragment order, flat: element
+    [(((ks*NT + nt)*32 + lane)*2 + j)*2 + i] = mat[ks*16 + 8j + 2t + i][nt*8 + g]
+    (lane = g*4 + t; register j of the lane holds rows 8j + 2t and
+    8j + 2t + 1 of column g of each 16x8 block, the lower row in the lower
+    half)."""
+    k, n = mat.shape
+    blocks = mat.reshape(k // 16, 2, 4, 2, n // 8, 8)   # ks, j, t, i, nt, g
+    return blocks.transpose(0, 4, 5, 2, 1, 3).reshape(-1)  # ks, nt, g, t, j, i
+
+
 def _gather(w, idx):
     flat = torch.cat([w.reshape(-1), w.new_zeros(1)])
     return flat[idx]
@@ -135,15 +155,16 @@ def pack_wC(wC):
 _index_cache = {}
 
 
-def _fragment_index(kind, shape, device):
-    """Flat gather indices of a weight of `shape` into its operand in
-    fragment order, on `device`; kind "wT" or "wC"."""
-    key = (kind, tuple(shape[:2]), str(device))
+def _fragment_index(kind, shape, device, dtype=torch.float32):
+    """Flat gather indices of a weight of `shape` into its operand in the
+    fragment order of `dtype`'s mma, on `device`; kind "wT" or "wC"."""
+    key = (kind, tuple(shape[:2]), str(device), dtype)
     if key not in _index_cache:
         idx = _w1_index(*shape[:2]) if kind == "wT" else \
             _w2_index(shape[1], shape[0])
+        order = to_fragments_bf16 if dtype == torch.bfloat16 else to_fragments
         _index_cache[key] = torch.from_numpy(
-            np.ascontiguousarray(to_fragments(idx))).to(device)
+            np.ascontiguousarray(order(idx))).to(device)
     return _index_cache[key]
 
 
@@ -154,15 +175,17 @@ _packed = OrderedDict()
 _PACKED_MAX = 16
 
 
-def packed_operand(kind, w):
-    """W1 of wT (kind "wT") or W2 of wC (kind "wC") in fragment order, flat
-    fp32 on w's device."""
-    key = (kind, id(w))
+def packed_operand(kind, w, dtype=torch.float32):
+    """W1 of wT (kind "wT") or W2 of wC (kind "wC") in the fragment order of
+    `dtype`'s mma (fp32: m16n8k8 TF32, bf16: m16n8k16), flat, in `dtype` on
+    w's device."""
+    key = (kind, id(w), dtype)
     hit = _packed.get(key)
     if hit is not None and hit[0] is w and hit[1] == w._version:
         _packed.move_to_end(key)
         return hit[2]
-    op = _gather(w.detach().float(), _fragment_index(kind, w.shape, w.device))
+    op = _gather(w.detach().float(),
+                 _fragment_index(kind, w.shape, w.device, dtype)).to(dtype)
     _packed[key] = (w, w._version, op)
     while len(_packed) > _PACKED_MAX:
         _packed.popitem(last=False)
@@ -275,11 +298,20 @@ def _in_image(r0, c0, h, w, device):
     return torch.stack(out)
 
 
+def _as_kernel_reads(x, w):
+    """x and a weight as the kernel's products read them: fp32 as given,
+    or, for bf16 x, both rounded to bf16 and upcast (exact)."""
+    if x.dtype == torch.bfloat16:
+        return x.float(), w.to(torch.bfloat16).float()
+    return x, w
+
+
 def packed_stats(x, wT):
     """What the stats launch writes: (B, slots, 2, Cm) sums and sums of
     squares of the hidden cells each item owns."""
     bsz, ci, h, w = x.shape
     cm, cmp_ = wT.shape[1], padded_cm(wT.shape[1])
+    x, wT = _as_kernel_reads(x, wT)
     w1 = pack_wT(wT)
     sched = Schedule(bsz, h, w)
     li = torch.arange(BAND_ROWS + 1)[:, None]
@@ -301,10 +333,14 @@ def packed_stats(x, wT):
 
 
 def packed_main(x, wT, wC, mu, gain, beta):
-    """What the main launch writes: y (B, Co, H, W) with h normalised as
-    (h - mu) * gain + beta, mu and gain (B, Cm)."""
+    """What the main launch writes: y (B, Co, H, W) in x's dtype with h
+    normalised as (h - mu) * gain + beta, mu and gain (B, Cm); for bf16 x,
+    h is rounded to bf16 after the edge mask and y after the product."""
     bsz, ci, h, w = x.shape
     cm, cmp_, co = wT.shape[1], padded_cm(wT.shape[1]), wC.shape[0]
+    out_dtype = x.dtype
+    _, wC = _as_kernel_reads(x, wC)
+    x, wT = _as_kernel_reads(x, wT)
     w1, w2 = pack_wT(wT), pack_wC(wC)
     pad = (0, cmp_ - cm)
     mu, gain = (torch.nn.functional.pad(v, pad) for v in (mu, gain))
@@ -317,6 +353,8 @@ def packed_main(x, wT, wC, mu, gain, beta):
             BAND_ROWS + 1, CHUNK_COLS + 1, 4, cmp_)
         hp = torch.relu((hp - mu[b]) * gain[b] + beta)
         hp = hp * _in_image(r0, c0, h, w, x.device).permute(1, 2, 0)[..., None]
+        if out_dtype == torch.bfloat16:
+            hp = hp.to(torch.bfloat16).float()
         taps = [hp[a // 2:a // 2 + BAND_ROWS, c // 2:c // 2 + CHUNK_COLS,
                    ((a + 1) & 1) * 2 + ((c + 1) & 1)]
                 for a in range(4) for c in range(4)]       # each (R, TW, Cmp)
@@ -326,7 +364,7 @@ def packed_main(x, wT, wC, mu, gain, beta):
         rows, cols = min(BAND_ROWS, h - r0), min(CHUNK_COLS, w - c0)
         y[b, :, r0:r0 + rows, c0:c0 + cols] = \
             tile[:rows, :cols].permute(2, 0, 1)
-    return y
+    return y.to(out_dtype)
 
 
 def bulge_packed(x, wT, scale, bias, wC, *, stats="pooled", running=None,
@@ -346,5 +384,5 @@ def bulge_packed(x, wT, scale, bias, wC, *, stats="pooled", running=None,
         v = var.repeat_interleave(bsz // g, dim=0)
         if stats == "pooled" and groups is None:
             mean, var = mean[0], var[0]
-    gain = torch.rsqrt(v + eps) * scale
-    return packed_main(x, wT, wC, mu, gain, bias), (mean, var)
+    gain = torch.rsqrt(v + eps) * scale.float()
+    return packed_main(x, wT, wC, mu, gain, bias.float()), (mean, var)

@@ -15,6 +15,21 @@ convolutions later, wherever the caller asks for gradients.  So `conv2d` and
 call: gradients are full fp32 whether they are taken inside a training step,
 in a test, or anywhere else, with no flag for the caller to remember.
 Matrix products stay at PyTorch's default full-fp32 precision.
+
+bf16 compute (`compute_dtype=torch.bfloat16`, JAX ops/nn.py:33-81, 109-143):
+a convolution casts both operands to bf16, accumulates in fp32 and returns
+bf16.  Its backward follows the JAX package's custom VJP (:160-236): dx in
+bf16 through the sibling op; a k4s2p1 dw (`_dw_conv`) from the bf16
+operands with fp32 sums, kept in fp32 and never rounded; any other dw
+rounded to bf16 (autodiff of the bf16 convolution), then taken to the fp32
+weight.  On the card the bf16 results are cuDNN's bf16 convolutions, and
+the k4s2p1 dw is an fp32 convolution of the upcast bf16 operands on TF32
+tensor cores: a bf16 value is exact in TF32 (8 significant bits of 11), so
+its products are exact and its sums fp32, as with TF32 off.  On the CPU the bf16 operands are upcast (exactly),
+convolved in fp32 and each bf16 result rounded once: the same function,
+whatever oneDNN's own bf16 kernels would round.  BN of a bf16 tensor takes
+fp32 statistics and applies one per-channel affine x * a + b in bf16, each
+step rounded as XLA rounds it.
 """
 
 from __future__ import annotations
@@ -26,50 +41,89 @@ import torch.nn.functional as F
 
 
 @contextlib.contextmanager
-def fp32_convs():
-    """cuDNN convolutions in full fp32 (TF32 off) for the enclosed calls."""
+def fp32_convs(allow_tf32=False):
+    """cuDNN convolutions in full fp32 (TF32 off) for the enclosed calls, or
+    with `allow_tf32` on TF32 tensor cores."""
     prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = allow_tf32
     try:
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def _upcast_on_cpu(*ts):
+    """bf16 tensors on the CPU go to fp32 (exact); anything else as given."""
+    if ts[0].device.type == "cpu" and ts[0].dtype == torch.bfloat16:
+        return [t.float() for t in ts], torch.bfloat16
+    return list(ts), None
+
+
 class _Conv(torch.autograd.Function):
     """conv2d / conv_transpose2d whose forward and backward both run with
-    TF32 off.  The backward is aten's own convolution_backward (the call
-    autograd would make), only inside `fp32_convs()`."""
+    TF32 off (a bf16 k4s2p1 dw on the card excepted: module docstring).
+    x comes in its compute dtype, w as the fp32 master and is cast to x's
+    dtype here, so that the backward can keep a k4s2p1 dw in fp32.  The
+    backward is aten's own convolution_backward (the call autograd would
+    make), only inside `fp32_convs()`."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, transposed):
-        ctx.save_for_backward(x, w)
-        ctx.geom = (stride, padding, transposed)
+        wc = w.to(x.dtype)
+        ctx.save_for_backward(x, wc)
+        ctx.geom = (stride, padding, transposed, w.dtype)
+        (xc, wc), back = _upcast_on_cpu(x, wc)
         with fp32_convs():
             if transposed:
-                return F.conv_transpose2d(x, w, stride=stride, padding=padding)
-            return F.conv2d(x, w, stride=stride, padding=padding)
+                y = F.conv_transpose2d(xc, wc, stride=stride, padding=padding)
+            else:
+                y = F.conv2d(xc, wc, stride=stride, padding=padding)
+        return y if back is None else y.to(back)
 
     @staticmethod
     def backward(ctx, grad):
         x, w = ctx.saved_tensors
-        stride, padding, transposed = ctx.geom
-        with fp32_convs():
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                grad.contiguous(), x, w, None, [stride, stride],
-                [padding, padding], [1, 1], transposed, [0, 0], 1,
-                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return gx, gw, None, None, None
+        stride, padding, transposed, wdtype = ctx.geom
+        need_x, need_w = ctx.needs_input_grad[:2]
+        grad = grad.contiguous()
+        # JAX's _dw_conv: bf16 operands, fp32 sums, an fp32 result
+        dw32 = (need_w and x.dtype != wdtype and stride == 2
+                and padding == 1 and w.shape[-1] == 4)
+
+        def backward_of(g, xx, ww, mask, allow_tf32=False):
+            with fp32_convs(allow_tf32):
+                return torch.ops.aten.convolution_backward(
+                    g, xx, ww, None, [stride, stride], [padding, padding],
+                    [1, 1], transposed, [0, 0], 1, [*mask, False])[:2]
+
+        (gc, xc, wc), back = _upcast_on_cpu(grad, x, w)
+        if back is not None:           # CPU bf16: both from fp32 upcasts
+            gx, gw = backward_of(gc, xc, wc, [need_x, need_w])
+            gx = None if gx is None else gx.to(back)
+            if gw is not None and not dw32:
+                gw = gw.to(back)
+        else:
+            gx, gw = backward_of(gc, xc, wc, [need_x, need_w and not dw32])
+            if dw32:                   # card: bf16 values are exact in TF32
+                gw = backward_of(gc.to(wdtype), xc.to(wdtype), wc.to(wdtype),
+                                 [False, True], allow_tf32=True)[1]
+        return gx, None if gw is None else gw.to(wdtype), None, None, None
 
 
-def conv2d(x, w, stride=1, padding=0):
-    """2D cross-correlation, NCHW x OIHW -> NCHW (SpatialConvolution)."""
+def conv2d(x, w, stride=1, padding=0, *, compute_dtype=None):
+    """2D cross-correlation, NCHW x OIHW -> NCHW (SpatialConvolution).
+    `compute_dtype` (torch.bfloat16) casts both operands: bf16 out."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     return _Conv.apply(x, w, stride, padding, False)
 
 
-def conv_transpose2d(x, w, stride=2, padding=1):
+def conv_transpose2d(x, w, stride=2, padding=1, *, compute_dtype=None):
     """Transposed conv (SpatialFullConvolution), weight (Cin, Cout, kH, kW);
-    k4 s2 p1 is exactly 2x upsampling (train.lua:99)."""
+    k4 s2 p1 is exactly 2x upsampling (train.lua:99).  `compute_dtype` as
+    in conv2d."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     return _Conv.apply(x, w, stride, padding, True)
 
 
@@ -95,9 +149,20 @@ def batch_stats(x, per_image=False, groups=None):
 def normalize(x, mean, var, scale, bias, eps=1e-5):
     """(x - mean) * (rsqrt(var + eps) * scale) + bias, in the exact fp32
     order of the JAX package.  mean/var are (C,), per-image (N, C), or per
-    group (G, C) with N a multiple of G (consecutive images share a row)."""
+    group (G, C) with N a multiple of G (consecutive images share a row).
+    A bf16 x takes the JAX package's bf16 form: a = inv * scale and
+    b = bias - mean * inv * scale from the fp32 statistics, both rounded to
+    bf16, then x * a + b in bf16."""
     inv = torch.rsqrt(var + eps)
     a = inv * scale
+    if x.dtype != torch.float32:
+        b = (bias - mean * inv * scale).to(x.dtype)
+        a = a.to(x.dtype)
+        if mean.dim() == 1:
+            return x * a[None, :, None, None] + b[None, :, None, None]
+        rep = x.shape[0] // mean.shape[0]
+        a, b = (v.repeat_interleave(rep, dim=0) for v in (a, b))
+        return x * a[:, :, None, None] + b[:, :, None, None]
     if mean.dim() == 1:
         return (x - mean[None, :, None, None]) * a[None, :, None, None] \
             + bias[None, :, None, None]
@@ -142,11 +207,16 @@ def relu(x):
 
 
 def leaky_relu(x, slope=0.2):
+    if x.dtype != torch.float32:    # a bf16 tensor meets bf16(0.2), as in XLA
+        slope = torch.tensor(slope, dtype=x.dtype)
     return torch.where(x >= 0, x, x * slope)
 
 
 def sigmoid(x):
-    return torch.sigmoid(x)
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return one / (one + torch.exp(-x))      # jax.nn.sigmoid's bf16 steps
 
 
 def tanh(x):

@@ -27,6 +27,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .cli import patch_grid
 from .core import get_config
 from .data.synthetic import SyntheticImages
 from .train.step import build_train_step, init_train_state
@@ -98,6 +99,8 @@ def main(argv=None):
     batches = []
     for i in range(2):
         hr = src.load_batch(i, cfg.images_consumed_per_step)
+        if cfg.patch_based:
+            hr = patch_grid(hr, cfg.patchSize)
         if cfg.data_range == "pm1":
             hr = hr * 2 - 1
         batches.append(torch.from_numpy(np.ascontiguousarray(hr)).to(device))

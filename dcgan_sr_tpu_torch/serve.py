@@ -16,9 +16,9 @@ convT+BN+ReLU+conv pair (gray-3 and the patch variants' layers 3-4) runs
 through the fused bulge kernel (ops/bulge.py).
 
   python -m dcgan_sr_tpu_torch.serve --config gray-3 \
-      --ckpt fixtures/gray3_textured_net_G.npz --port 8000
-  python -m dcgan_sr_tpu_torch.serve --config gray-patch-batch-overlap \
-      --ckpt fixtures/overlap_textured_net_G.npz --port 8000
+      --ckpt fixtures/gray3_textured_net_G.npz --port 8000 --warmup
+  python -m dcgan_sr_tpu_torch.serve \
+      --ckpt fixtures/overlap_textured_net_G.npz --port 8000 --warmup --bf16
   curl --data-binary @face.png http://localhost:8000/upscale > face_sr.png
 
 Endpoints:
@@ -29,14 +29,26 @@ Endpoints:
   GET  /healthz      JSON: ready, LR buckets, request/batch/error counters,
                      batch latency percentiles, kernel launch counts.
 
+`--config` defaults to gray-patch-batch-overlap, as the JAX server's does.
+
 Each input dimension is edge-padded to a small ladder of pipeline-legal
 bucket extents, and batches to power-of-two sizes, exactly as the JAX server
 does.  Eager PyTorch compiles nothing per shape, but the ladder is kept
 because it is part of the result: under per-image batch-statistics BN
 (--parity-bn) the padding enters each image's statistics, and the overlap
 tiling needs legal extents anyway, so the same ladder gives the same
-answers as the JAX server.  There is no --warmup: there is nothing to
-compile.  Not yet ported, and refused by name: --t7, --bf16.
+answers as the JAX server.  Nothing compiles per shape, but the fused pair's
+kernel library is built from csrc/bulge.cu at its first launch (seconds of
+nvcc after a fresh checkout), and cuDNN picks its algorithms at each shape's
+first call: `--warmup` builds the kernel and runs every square bucket in
+both modes, at batch 1 and at --max-batch, before the server listens, so
+that no request waits for either.
+
+`--bf16` computes in bf16 (the precision bench_infer measures): the
+generator's layers and the fused pair's bf16 kernel.  With --u8-io the
+byte<->range maps stay fp32 around the generator, which casts at entry and
+hands fp32 back, as the JAX server's do.  Not yet ported, and refused by
+name: --t7.
 """
 
 from __future__ import annotations
@@ -69,11 +81,8 @@ class SRService:
     def __init__(self, cfg, net, *, max_size=256, max_batch=8,
                  window_ms=5.0, bn_eval=True, self_ensemble=1,
                  compute_dtype=None, u8_io=False):
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype: reduced-precision (bf16) serving is not yet "
-                "ported")
         self.cfg = cfg
+        self.compute_dtype = compute_dtype
         self.net = net
         self.device = net.device
         self.max_batch = int(max_batch)
@@ -165,13 +174,32 @@ class SRService:
                 fn = make_overlap_sr_fn(
                     self.cfg, self.net, fine=(2 * bh, 2 * bw),
                     lr_input=lr_input, bn_eval=self.bn_eval,
-                    self_ensemble=self.self_ensemble)
+                    self_ensemble=self.self_ensemble,
+                    compute_dtype=self.compute_dtype)
                 self._fns[key] = lambda x, _fn=fn: _fn(x)["seam"]
             else:
                 self._fns[key] = make_full_sr_fn(
                     self.net, lr_input=lr_input, bn_eval=self.bn_eval,
-                    self_ensemble=self.self_ensemble)
+                    self_ensemble=self.self_ensemble,
+                    compute_dtype=self.compute_dtype)
         return self._fns[key]
+
+    def warmup(self):
+        """Build the fused pair's kernel (on a card) and run every SQUARE
+        (bucket, mode) pipeline once at batch 1 and at max_batch, through
+        the dispatcher queue like any request, so that neither the kernel's
+        build nor a shape's first cuDNN call lands on a user's request (JAX
+        tools/serve.py warmup).  main() runs it before it listens."""
+        if self.device.type == "cuda" and self.net.pairs:
+            bulge_ops.build()
+        batch_sizes = sorted({1, self.max_batch})
+        shape = (self.cfg.nc,) if self.cfg.nc != 1 else ()
+        for b in self.buckets:
+            for mode in MODES:
+                side = b if mode == "2x" else 2 * b
+                img = np.zeros(shape + (side, side), np.float32)
+                for n in batch_sizes:
+                    self.submit_many([img] * n, mode)
 
     def _count(self, key, n=1):
         with self._stats_lock:
@@ -320,6 +348,7 @@ class SRService:
             "config": self.cfg.variant,
             "device": str(self.device),
             "bn_eval": self.bn_eval,
+            "dtype": "bf16" if self.compute_dtype == torch.bfloat16 else "fp32",
             "tiled": self.tiled,
             "buckets_lr": self.buckets,
             **counters,
@@ -396,13 +425,19 @@ def make_http_server(service, port=8000, host="127.0.0.1"):
         # connect burst, stalling those clients a full 1 s TCP retransmit
         request_queue_size = 128
 
+    # PIL loads its format plugins at the first encode, which took the
+    # first request of a warmed server to 175 ms against a median of 16 ms
+    # (H100 host): encode and decode one PNG now
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((2, 2), np.uint8)).save(buf, format="PNG")
+    load_image(io.BytesIO(buf.getvalue()), nc=service.cfg.nc)
     return Server((host, port), Handler)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--config", default="gray-3")
+    ap.add_argument("--config", default="gray-patch-batch-overlap")
     ap.add_argument("--ckpt", help="framework checkpoint (…_net_G.npz)")
     ap.add_argument("--ema", action="store_true")
     ap.add_argument("--port", type=int, default=8000)
@@ -417,8 +452,13 @@ def main(argv=None):
                          "instead of the default running-stats quality mode")
     ap.add_argument("--self-ensemble", type=int, default=1,
                     choices=(1, 2, 4, 8))
+    ap.add_argument("--warmup", action="store_true",
+                    help="build the kernel and run every square (bucket, "
+                         "mode) pipeline at batch 1 and --max-batch before "
+                         "serving")
     ap.add_argument("--t7", help="not yet ported (reference Torch checkpoint)")
-    ap.add_argument("--bf16", action="store_true", help="not yet ported")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 compute (the precision bench_infer measures)")
     ap.add_argument("--u8-io", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="uint8 device I/O (default ON): byte<->[0,1] (and "
@@ -431,8 +471,6 @@ def main(argv=None):
     if args.t7:
         raise NotImplementedError("--t7: .t7 checkpoint import is not yet "
                                   "ported")
-    if args.bf16:
-        raise NotImplementedError("--bf16: bf16 compute is not yet ported")
 
     from .core import get_config
     from .train.checkpoint import load_generator
@@ -450,12 +488,20 @@ def main(argv=None):
     service = SRService(cfg, net, max_size=args.max_size,
                         max_batch=args.max_batch, window_ms=args.window_ms,
                         bn_eval=not args.parity_bn,
-                        self_ensemble=args.self_ensemble, u8_io=args.u8_io)
+                        self_ensemble=args.self_ensemble,
+                        compute_dtype=torch.bfloat16 if args.bf16 else None,
+                        u8_io=args.u8_io)
+    if args.warmup:
+        t0 = time.perf_counter()
+        service.warmup()
+        print(f"warmup: {len(service._fns)} pipelines, kernels "
+              f"{dict(bulge_ops.launches)}, in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
     srv = make_http_server(service, args.port, args.host)
     print(f"serving {cfg.variant} on http://{args.host}:{args.port} "
           f"({device}, LR buckets {service.buckets}, max_batch "
           f"{args.max_batch}, {'parity' if args.parity_bn else 'running-stats'}"
-          f" BN)", flush=True)
+          f" BN, {'bf16' if args.bf16 else 'fp32'})", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

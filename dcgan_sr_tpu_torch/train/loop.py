@@ -22,7 +22,7 @@ from .step import build_train_step
 def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
                  log_fn=None, checkpoint_dir=None,
                  logger: MetricsLogger = None, log_every=1, scan_steps=1,
-                 start_epoch=0):
+                 start_epoch=0, feed_dtype=None):
     """Run the training loop; returns (state, last metrics).
 
     batch_fn(epoch, step_index) -> (B, C, H, W) HR batch as a numpy array;
@@ -37,6 +37,8 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
     unchanged (the body is the single step; tested equal).
     start_epoch: resume offset — epochs run start_epoch+1 .. niter and
     checkpoints keep their continued numbering instead of restarting at 1.
+    feed_dtype: cast each batch to this dtype on the host before the copy
+    (torch.bfloat16 halves the bytes; the step upcasts at entry).
     """
     step_fn = build_train_step(cfg)
     multi_step_fn = build_multi_step(cfg) if scan_steps > 1 else None
@@ -67,7 +69,10 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
                                    for j in range(k)])
                 else:
                     hr = np.asarray(batch_fn(epoch, i))
-                hr = torch.from_numpy(hr).to(device)
+                hr = torch.from_numpy(hr)
+                if feed_dtype is not None:
+                    hr = hr.to(feed_dtype)
+                hr = hr.to(device)
                 data_s = data_tm.stop().time()["real"]
 
                 if k > 1:

@@ -24,6 +24,12 @@ place (parameters, running statistics, Adam moments, EMA) and returns the
 same object: all in-place writes happen under no_grad after both pullbacks,
 so no retained graph ever sees a modified tensor.  fp32 convolutions run with
 TF32 off in the forward and in every pullback (ops/nn.py).
+
+cfg.compute_dtype "bfloat16" (the JAX step's compute_dtype, `--bf16`): both
+networks compute in bf16 from their fp32 master parameters and hand fp32
+back to the losses (models/network.py); gradients reach the fp32 masters
+through the casts, and Adam updates the masters in fp32.  The preprocess
+still sees fp32: a bf16 feed is upcast first.
 """
 
 from __future__ import annotations
@@ -164,10 +170,7 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     stage of the step as it is queued (chip_smoke.py records a CUDA event
     in it to see where the time goes).
     """
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not ported yet "
-            "(the port trains in float32)")
+    cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     for name in _NOT_PORTED:
         if getattr(cfg, name):
             raise NotImplementedError(f"{name} is not ported yet")
@@ -198,18 +201,20 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
         g_params, d_params = params_of(state.g), params_of(state.d)
 
         # G forward: one graph, pulled back once, for G's update
-        fake = state.g(lr_img, track_stats=True)
+        fake = state.g(lr_img, track_stats=True, compute_dtype=cdt)
         mark("g_forward")
 
         # D on real (own batch statistics; first running-stat update)
-        out_real = state.d(hr, track_stats=True, logits=fold)
+        out_real = state.d(hr, track_stats=True, logits=fold,
+                           compute_dtype=cdt)
         err_d_real = crit(out_real, torch.full_like(out_real, cfg.real_label))
         gd_real = grad(err_d_real, d_params)
         mark("d_real_forward_backward")
 
         # D on fake: one forward, shared by the D-fake and the G loss
         _, fake_vec, g_vec = make_labels(cfg, hr, fake.detach())
-        out_fake = state.d(fake, track_stats=True, logits=fold)
+        out_fake = state.d(fake, track_stats=True, logits=fold,
+                           compute_dtype=cdt)
         mark("d_fake_forward")
         err_d_fake = crit(out_fake, fake_vec)
         err_g = crit(out_fake, g_vec)

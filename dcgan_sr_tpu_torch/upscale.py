@@ -16,8 +16,9 @@ pipeline call.
       --mode overlap --ckpt fixtures/overlap_textured_net_G.npz \
       --input face.jpg --output sr.png
 
-Not yet ported, and refused by name: --dp (data parallelism), --t7 (.t7
-import), --bf16.
+`--bf16` runs the generator in bf16 (the fused pair through its bf16
+kernel on a card) in every mode.  Not yet ported, and refused by name: --dp
+(data parallelism), --t7 (.t7 import).
 """
 
 from __future__ import annotations
@@ -43,10 +44,13 @@ def _psnr(nc, a, b):
 
 def _not_ported(args):
     for flag, what in (("dp", "--dp: data-parallel inference"),
-                       ("t7", "--t7: .t7 checkpoint import"),
-                       ("bf16", "--bf16: bf16 compute")):
+                       ("t7", "--t7: .t7 checkpoint import")):
         if getattr(args, flag):
             raise NotImplementedError(f"{what} is not yet ported")
+
+
+def _dtype(args):
+    return torch.bfloat16 if args.bf16 else None
 
 
 def batch_upscale(args, cfg, net):
@@ -84,7 +88,8 @@ def batch_upscale(args, cfg, net):
                mode="edge") for im in imgs])
     n = len(batch)
     ens = dict(self_ensemble=args.self_ensemble,
-               ensemble_batched=args.ensemble_batched)
+               ensemble_batched=args.ensemble_batched,
+               compute_dtype=_dtype(args))
     if tiled:
         fine = (2 * Hp, 2 * Wp) if args.true_2x else (Hp, Wp)
         ov_fn = make_overlap_sr_fn(cfg, net, fine=fine, lr_input=args.true_2x,
@@ -165,7 +170,8 @@ def main(argv=None):
     ap.add_argument("--dp", action="store_true",
                     help="not yet ported (data-parallel batch mode)")
     ap.add_argument("--t7", help="not yet ported (reference Torch checkpoint)")
-    ap.add_argument("--bf16", action="store_true", help="not yet ported")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 compute (fp32 parameters, fp32 output)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
@@ -204,7 +210,8 @@ def main(argv=None):
     pm1 = cfg.data_range == "pm1"
 
     ens = dict(self_ensemble=args.self_ensemble,
-               ensemble_batched=args.ensemble_batched)
+               ensemble_batched=args.ensemble_batched,
+               compute_dtype=_dtype(args))
 
     if args.true_2x:
         hw_np = np.asarray(hw)

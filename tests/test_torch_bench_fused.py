@@ -39,17 +39,21 @@ def test_bench_fused_prints_the_jax_tools_keys(kernel):
     assert rec["unfused_ms"] > 0 and rec["fused_ms"] > 0
     assert lines[0].startswith("unfused") and lines[1].startswith("fused")
     counts = json.loads(lines[-2][len("kernel launches: "):])
-    assert set(counts) == {"bulge_stats", "bulge_main", "fused_nhwc_stats",
+    assert set(counts) == {"bulge_stats", "bulge_main", "bulge_stats_bf16",
+                           "bulge_main_bf16", "fused_nhwc_stats",
                            "fused_nhwc_main"}
     assert all(v == 0 for v in counts.values())      # CPU: plain versions
     assert lines[-3].startswith("implementation launches: ")
     by_impl = json.loads(lines[-3][len("implementation launches: "):])
-    assert by_impl == {k: {"mma": 0, "fma": 0} for k in ("bulge", "fused_nhwc")}
+    assert by_impl == {"bulge": {"mma": 0, "fma": 0, "mma_bf16": 0},
+                       "fused_nhwc": {"mma": 0, "fma": 0}}
 
 
 def test_bench_fused_bf16_and_cpu_fallback_refused():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        bench_fused.main(["--cpu", "--dtype", "bf16"])
+    """bf16 runs the bulge kernel (test_bench_fused_bf16_bulge); the NHWC
+    pair has no bf16 kernel and refuses by name."""
+    with pytest.raises(NotImplementedError, match="nhwc --dtype bf16"):
+        bench_fused.main(["--cpu", "--dtype", "bf16", "--kernel", "nhwc"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--cpu"):
             bench_fused.main(["--batch", "1", "--hw", "8"])

@@ -8,7 +8,10 @@ Tolerances as in tests/test_torch_bulge.py (1e-5 for the hidden tensor's
 mean/var, 2e-4 for y): the fused kernel and cuDNN (TF32 off) sum the same
 fp32 products in different orders.  The preprocess kernel keeps its products
 and sums uncontracted (no FMA) and sums in the plain version's order, so it
-is held to bit equality."""
+is held to bit equality.  The bulge kernel's bf16 instantiation is held to
+its plain bf16 version: y within two bf16 steps of max |y| (h is rounded to
+bf16 after an fp32 sum in another order and may round the other way, then
+y rounds once more), at most 1% of y's elements different at all."""
 
 import os
 
@@ -103,7 +106,8 @@ def test_default_implementation_is_the_static_rule(cuda):
     i0 = dict(K.impl_launches)
     K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
     assert K.choose_impl(16, 8, 16, 16, 20) == "mma"
-    assert K.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"]}
+    assert K.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"],
+                               "mma_bf16": i0["mma_bf16"]}
     with pytest.raises(ValueError, match="impl must be one of"):
         K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"], impl="auto")
 
@@ -340,6 +344,121 @@ def test_nhwc_kernel_rejects_what_it_does_not_take(cuda):
     assert F3.launches == n0
 
 
+# ---- K2 in bf16 ---------------------------------------------------------------
+
+def _hold_bf16(y, yp):
+    y, yp = y.float().cpu(), yp.float().cpu()
+    step = 2.0 ** (np.floor(np.log2(yp.abs().max().item())) - 7)
+    d = (y - yp).abs()
+    assert d.max().item() <= 2 * step
+    assert (d > 0).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("stats", K.STATS_MODES)
+@pytest.mark.parametrize("geom", [(2, 16, 8, 16, 37, 45), (1, 8, 4, 8, 16, 20),
+                                  (1, 32, 16, 32, 24, 40), (3, 16, 8, 16, 1, 3),
+                                  (2, 16, 8, 16, 64, 96)])
+def test_bf16_kernel_matches_plain(cuda, geom, stats):
+    t = _inputs(*geom, cuda)
+    x = t["x"].to(torch.bfloat16)
+    run = (t["rmean"], t["rvar"]) if stats == "running" else None
+    n0, i0 = dict(K.launches), dict(K.impl_launches)
+    y, (m, v) = K.bulge(x, t["wT"], t["scale"], t["bias"], t["wC"],
+                        stats=stats, running=run)
+    yp, (mp, vp) = K.bulge_plain(x, t["wT"], t["scale"], t["bias"], t["wC"],
+                                 stats=stats, running=run)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and m.dtype == torch.float32
+    assert K.launches["bulge_main_bf16"] == n0["bulge_main_bf16"] + 1
+    assert K.launches["bulge_stats_bf16"] == \
+        n0["bulge_stats_bf16"] + (stats != "running")
+    assert K.launches["bulge_main"] == n0["bulge_main"]
+    assert K.impl_launches["mma_bf16"] == \
+        i0["mma_bf16"] + 1 + (stats != "running")
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    _hold_bf16(y, yp)
+
+
+@pytest.mark.parametrize("bsz,groups", [(225, None), (450, 2)])
+def test_bf16_kernel_at_ci32_with_grouped_statistics(cuda, bsz, groups):
+    t = _inputs(bsz, 32, 16, 32, 32, 32, cuda, seed=2)
+    x = t["x"].to(torch.bfloat16)
+    y, (m, v) = K.bulge(x, t["wT"], t["scale"], t["bias"], t["wC"],
+                        groups=groups)
+    yp, (mp, vp) = K.bulge_plain(x, t["wT"], t["scale"], t["bias"], t["wC"],
+                                 groups=groups)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    _hold_bf16(y, yp)
+
+
+def test_bf16_stats_slots_match_the_packed_version(cuda):
+    from dcgan_sr_tpu_torch.ops import bulge_mma as M
+    t = _inputs(2, 16, 8, 16, 20, 70, cuda, seed=5)
+    x = t["x"].to(torch.bfloat16)
+    got = K.launch_stats(x, t["wT"].contiguous())
+    want = M.packed_stats(x.cpu(), t["wT"].cpu())
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
+
+
+def test_bf16_refuses_the_fma_kernel_and_unbuilt_triples(cuda):
+    t = _inputs(1, 16, 8, 16, 8, 8, cuda)
+    x = t["x"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 only"):
+        K.bulge(x, t["wT"], t["scale"], t["bias"], t["wC"], impl="fma")
+    t = _inputs(1, 5, 4, 8, 8, 8, cuda)
+    with pytest.raises(ValueError, match="no bf16 instantiation"):
+        K.bulge(t["x"].to(torch.bfloat16), t["wT"], t["scale"], t["bias"],
+                t["wC"])
+
+
+@pytest.mark.parametrize("bn_eval", [False, True])
+def test_bf16_fused_generator_runs_the_bf16_kernel(cuda, bn_eval):
+    """The served gray-3 generator in bf16 takes layers 3-4 through the bf16
+    kernel, and its output stays within 2 levels of 255 of the unfused bf16
+    generator's on all but 5% of its pixels (chip_smoke.py TOL_U8_BF16)."""
+    cfg = get_config("gray-3", env_override=False)
+    fused, _ = load_generator(cfg, FIXTURE, device=cuda)
+    plain = Network(fused.spec, *_lists(fused), device=cuda, fuse=False)
+    x = torch.rand((2, 1, 40, 28), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(0))
+    i0 = dict(K.impl_launches)
+    got, want = (make_full_sr_fn(net, lr_input=True, bn_eval=bn_eval,
+                                 compute_dtype=torch.bfloat16)(x)
+                 for net in (fused, plain))
+    torch.cuda.synchronize()
+    assert K.impl_launches["mma_bf16"] > i0["mma_bf16"]
+    assert K.impl_launches["mma"] == i0["mma"]
+    d = (torch.round(got * 255) - torch.round(want * 255)).abs()
+    assert got.dtype == torch.float32 and (d > 2).float().mean() <= 0.05
+
+
+def test_first_request_after_warmup_is_warm(cuda):
+    """--warmup builds the kernel and runs every square bucket before the
+    first request: the first request then takes at most 3x the median of
+    the ten after it."""
+    import time
+
+    from dcgan_sr_tpu_torch.serve import SRService
+    cfg = get_config("gray-3", env_override=False)
+    net, _ = load_generator(cfg, FIXTURE, device=cuda)
+    svc = SRService(cfg, net, max_size=128, max_batch=4, window_ms=0,
+                    compute_dtype=torch.bfloat16, u8_io=True)
+    try:
+        svc.warmup()
+        img = np.random.RandomState(0).rand(64, 64).astype(np.float32)
+        lat = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            svc.submit(img)
+            lat.append(time.perf_counter() - t0)
+        assert lat[0] <= 3 * sorted(lat[1:])[5], lat
+    finally:
+        svc.close()
+
+
 def _lists(net):
     """(params, state) lists back out of a Network, for a second copy."""
     params, state = [], []
@@ -474,6 +593,41 @@ def test_conv_gradients_are_full_fp32(cuda, transposed):
     for name, g, w in zip(("y", "dx", "dw"), got, want):
         err = ((g.double() - w).abs().max() / w.abs().max()).item()
         assert err < 2e-6, f"{name}: relative error {err:.2e}"
+
+
+@pytest.mark.parametrize("transposed,k,s,p", [(False, 4, 2, 1),
+                                              (True, 4, 2, 1),
+                                              (False, 3, 1, 0)])
+def test_bf16_weight_gradients_keep_the_jax_precision(cuda, transposed, k, s,
+                                                      p):
+    """bf16 convolutions on the card against the same op on the CPU
+    (upcast operands, fp32 sums; tests/test_torch_bf16_nn.py holds that to
+    the JAX package): a k4s2p1 dw stays fp32 (JAX's _dw_conv) and agrees to
+    fp32 summation order; any other dw is bf16-valued, as autodiff of the
+    bf16 conv gives it."""
+    rng = np.random.RandomState(1)
+    x = torch.tensor(rng.randn(4, 16, 16, 16), dtype=torch.float32)
+    w = torch.tensor(rng.randn(*((16, 8) if transposed else (8, 16)), k, k)
+                     * 0.1, dtype=torch.float32)
+    op = N.conv_transpose2d if transposed else N.conv2d
+    n_out = op(x, w, s, p, compute_dtype=torch.bfloat16).shape
+    g = torch.tensor(rng.randn(*n_out), dtype=torch.float32).to(torch.bfloat16)
+
+    def dw(device):
+        wd = w.to(device).requires_grad_(True)
+        y = op(x.to(device), wd, s, p, compute_dtype=torch.bfloat16)
+        (got,) = torch.autograd.grad(y, wd, g.to(device))
+        return got.cpu()
+
+    got, want = dw(cuda), dw("cpu")
+    assert got.dtype == torch.float32
+    rounded = (got == got.to(torch.bfloat16).float()).float().mean().item()
+    if (k, s, p) == (4, 2, 1):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())
+        assert rounded < 0.5, rounded
+    else:
+        assert rounded == 1.0, rounded
 
 
 # ---- one tiny step, kernel against plain ------------------------------------

@@ -12,13 +12,15 @@ package's K3 in interpret mode.  Tolerances as in
 tests/test_torch_fused_nhwc.py: mean, var 1e-5 and y 2e-4 (abs + rel); the
 operands move weights and are held to equality."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 from dcgan_sr_tpu.ops import pallas_fused as JF
-from dcgan_sr_tpu_torch import nhwc_ablation
+from dcgan_sr_tpu_torch import ablation
 from dcgan_sr_tpu_torch.ops import fused_nhwc as TF
 from dcgan_sr_tpu_torch.ops import fused_nhwc_mma as M
 
@@ -224,12 +226,12 @@ def test_cpu_call_runs_the_plain_version_and_launches_nothing(impl):
     assert TF.launches == n0 and TF.impl_launches == i0
 
 
-@pytest.mark.parametrize("name", sorted(nhwc_ablation.VARIANTS))
+@pytest.mark.parametrize("name", sorted(ablation.KERNELS["nhwc"].variants))
 def test_every_ablation_variant_applies_to_the_kernel_source(name):
-    """python -m dcgan_sr_tpu_torch.nhwc_ablation rebuilds csrc/fused_nhwc.cu
-    with text substitutions: each must still find its text."""
-    src = nhwc_ablation.variant_source(name)
-    with open(nhwc_ablation.os.path.join(nhwc_ablation.B.CSRC,
-                                         "fused_nhwc.cu")) as f:
+    """python -m dcgan_sr_tpu_torch.ablation --kernel nhwc rebuilds
+    csrc/fused_nhwc.cu with text substitutions: each must still find its
+    text."""
+    src = ablation.variant_source("nhwc", name)
+    with open(os.path.join(ablation.B.CSRC, "fused_nhwc.cu")) as f:
         base = f.read()
     assert (src == base) == (name == "base")

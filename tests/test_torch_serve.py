@@ -212,12 +212,13 @@ def test_patch_configs_not_yet_ported(net):
         assert svc.tiled and svc.health()["tiled"] is True
     finally:
         svc.close()
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        SRService(cfg, pnet, compute_dtype=torch.bfloat16)
+    bf = SRService(cfg, pnet, max_size=16, compute_dtype=torch.bfloat16)
+    try:        # bf16 serves now (tests/test_torch_bf16_infer.py)
+        assert bf.health()["dtype"] == "bf16"
+    finally:
+        bf.close()
     with pytest.raises(NotImplementedError, match="--t7"):
         serve.main(["--cpu", "--t7", "net_G.t7"])
-    with pytest.raises(NotImplementedError, match="--bf16"):
-        serve.main(["--cpu", "--bf16"])
 
 
 # ---- the tiled service: patch configs through the overlap pipeline ---------
@@ -353,7 +354,8 @@ def test_http_round_trip_and_errors(services):
         health = json.loads(resp.read())
         assert resp.status == 200 and health["ready"] is True
         assert health["device"] == "cpu" and health["buckets_lr"] == [32]
-        assert set(health["kernel_launches"]) == {"bulge_stats", "bulge_main"}
+        assert set(health["kernel_launches"]) == {
+            "bulge_stats", "bulge_main", "bulge_stats_bf16", "bulge_main_bf16"}
 
         errs = svc.stats["errors"]
         conn.request("POST", "/upscale", body=b"not a png at all")

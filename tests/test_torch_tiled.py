@@ -166,8 +166,7 @@ def test_overlap_sr_fn_refusals(pair):
                  lambda **kw: TT.make_full_sr_fn(net, **kw)):
         with pytest.raises(NotImplementedError, match="mesh"):
             make(mesh=object())
-        with pytest.raises(NotImplementedError, match="compute_dtype"):
-            make(compute_dtype=torch.bfloat16)
+        make(compute_dtype=torch.bfloat16)     # ported: test_torch_bf16_infer
 
 
 @pytest.mark.parametrize("both_seams,device_seam", [(False, True), (True, True),

@@ -139,7 +139,7 @@ def test_upscale_true_2x_directory(tmp_path, jax_weights):
 
 def test_upscale_refuses_unported_modes_and_cpu_fallback(tmp_path):
     """Grid and overlap modes are ported; what is not is refused by name."""
-    for flag in (["--dp"], ["--t7", "net_G.t7"], ["--bf16"]):
+    for flag in (["--dp"], ["--t7", "net_G.t7"]):
         with pytest.raises(NotImplementedError, match=flag[0]):
             upscale.main(["--cpu", "--input", "x.png", "--output",
                           str(tmp_path / "o.png")] + flag)
