@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      fp32 FMA one), against its plain PyTorch version on the card
      (cuDNN with TF32 off), at the gray-3 serve shapes x (1,16,256,256),
      (4,16,1024,1024) and (1,16,2048,2048) (the pair's input at LR 32, 128
-     and 256), in all three BN statistics modes, with the fixture's
+     and 256) and the eval batch (100,16,256,256), in all three BN
+     statistics modes, with the fixture's
      layer-3/4 weights; then at the ragged and small geometries of
      tests/test_torch_cuda.py and at 70,000 images.  Times per call for each
      launch of each implementation, taken in turns (old, new, new, old), the
@@ -118,9 +119,33 @@ Phases, each fatal on failure:
      must show the bf16 kernel's launches (and no fp32 launch) move after
      the warmup.  bench_infer in bf16 (both BN modes) and `bench_fused
      --kernel bulge --dtype bf16` as a subprocess.
- 17. a {"kernels": [...]} line (K1, K2 stats, K2 main, K2 stats bf16, K2
-     main bf16, K3 stats, K3 main), then the contract line {"ok": true,
-     "device": {...}}.
+ 17. path: training on image files.  200 CelebA-like 178x218 JPEGs of
+     smooth random textures, written here from a seed, as one class
+     folder; `python -m dcgan_sr_tpu_torch.cli --config gray --data-root
+     <folder> --device-augment --steps 6 --scan 3` and `--config rgb-full
+     ... --device-preprocess`, batch 100, full width: K1 launched once a
+     step in its rgb->gray+pm1 and pm1 modes.  Beside it, one batch's
+     device crop + K1 against the host trainHook + the plain preprocess on
+     equal-seeded rngs (bit for bit), and the gray trainer in this process:
+     images/s, the data stage's ms a step, the device's busy share
+     (torch.profiler) and the step's time with the batch already on the card.
+ 18. path: the indexed trainer and the eval protocol: files 000001-000300
+     and 200001-200200 of the same kind, `--config gray-3 --data-root
+     <dir> --steps 3 --eval --eval-sets 2 --samples-dir <dir>` (with
+     `--native-loader` where the committed native/libdcgansr.so loads; the
+     loader that ran is printed): the Train-set and Test-set lines, K2
+     counted in the launch line, four PNGs.
+ 19. the eval protocol on the card against the CPU: the committed gray-3
+     fixture (evaluate_slice on TexturedImages at batch 100: one file_set
+     on the card and on the CPU, then three on the card, timed) and the
+     overlap fixture (evaluate_overlap_slice, 100 images, running
+     statistics; per-image tiles on the card only), PSNR within 1e-3 dB and
+     SSIM within 1e-4 of the CPU's plain path, seam > naive > bilinear on
+     the card, eval images/s, K2's launches.
+ 20. a {"kernels": [...]} line (K1 and its two raw-RGB modes, K2 stats, K2
+     main (with their eval launches and times at the eval shape), K2 stats
+     bf16, K2 main bf16, K3 stats, K3 main), then the contract line {"ok":
+     true, "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
@@ -141,6 +166,11 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
   seam stitch, device vs host     0 on the same tiles
   preprocess hr, lr               0: the kernel sums in the plain version's
                                   order and contracts nothing into an FMA
+  device crop + K1 vs host hook   0: the crop is a gather of the canvas's
+                                  own values, then as above
+  eval, card vs CPU               slice means: PSNR 1e-3 dB, SSIM 1e-4 (the
+                                  generator agrees to the y tolerance; SSIM's
+                                  convolution runs with TF32 off)
   bf16 bulge y                    2 bf16 steps of max |y| on every element,
                                   at most 1% of elements different at all:
                                   h is rounded to bf16 after an fp32 sum in
@@ -211,7 +241,11 @@ TOL_U8_BF16 = 2
 TOL_U8_BF16_SHARE = 0.05
 # bench_fused --dtype bf16: the same two roundings of h, at y of O(1)
 TOL_BENCH_BF16 = 0.125
-SHAPES = [(1, 16, 256, 256), (4, 16, 1024, 1024), (1, 16, 2048, 2048)]
+# the pair's input when gray-3 serves LR 32, 128 and 256, and when the eval
+# harness scores a batch of 100 (fineSize 64: LR 32, upsampled to 256)
+SHAPES = [(1, 16, 256, 256), (4, 16, 1024, 1024), (100, 16, 256, 256),
+          (1, 16, 2048, 2048)]
+EVAL_SHAPE = (100, 16, 256, 256)
 
 
 class SmokeError(RuntimeError):
@@ -428,7 +462,7 @@ def kernel_phase(params, state):
             note(hold_pair(K, (x, wT, scale, bias, wC), mode, run, None,
                            str(shape)))
         r = pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar,
-                       50 if shape[2] <= 256 else 5)
+                       50 if shape[0] * shape[2] <= 256 else 5)
         print(f"times {shape}: " + _fmt(r), flush=True)
         rows.append((shape, r))
         del x
@@ -1703,7 +1737,7 @@ def _cli_batches(cfg, n, device):
     import torch
 
     from dcgan_sr_tpu_torch import cli
-    batch_fn = cli.build_data(cfg, type("Args", (), {"synthetic": True})())
+    _, batch_fn = cli.build_data(cfg, type("Args", (), {"synthetic": True})())
     return torch.stack([torch.from_numpy(batch_fn(1, i)) for i in range(n)]
                        ).to(device)
 
@@ -1917,6 +1951,390 @@ def bf16_bench_phase(smi):
     for k in counts:
         counts[k] += fused_counts[k]
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phases 17-19: training on image files, and the eval protocol
+# ---------------------------------------------------------------------------
+
+def write_jpegs(directory, names, seed, hw=(218, 178)):
+    """CelebA-like JPEGs (178x218, the aligned crops' size) of smooth random
+    textures: a coarse random field, bilinear-upscaled, plus a little
+    noise, from a seed."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    for name in names:
+        base = Image.fromarray((rng.rand(h // 16, w // 16, 3) * 255).astype(
+            np.uint8)).resize((w, h), Image.BILINEAR)
+        arr = np.asarray(base, np.float32) + rng.randn(h, w, 3) * 6.0
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            os.path.join(directory, name), quality=90)
+
+
+def _launch_line(lines):
+    check(lines[-1].startswith("kernel launches: "), lines[-1])
+    return json.loads(lines[-1][len("kernel launches: "):])
+
+
+FOLDER_RUNS = (("gray", "--device-augment", "rgb_to_gray+to_pm1"),
+               ("rgb-full", "--device-preprocess", "to_pm1"))
+
+
+def folder_crop_check(ds, cfg):
+    """One step's (hr, lr) from the device crop + K1 against the host
+    trainHook + the plain preprocess on equal-seeded rngs: the crops bit
+    for bit (tests/test_torch_device_augment.py), and K1 bit for bit
+    against its plain version (phase 5's tolerance)."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.image.ops import crop_hflip_at
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+
+    canvas, tops, lefts, flips = ds.sample_canvas(cfg.batchSize,
+                                                  np.random.RandomState(21))
+    host = ds.sample(cfg.batchSize, np.random.RandomState(21), normalize=False)
+    n0 = P.launches["preprocess"]
+    crop = crop_hflip_at(torch.from_numpy(canvas).cuda(), tops, lefts, flips,
+                         cfg.fineSize)
+    hr, lr = P.preprocess(crop, rgb_to_gray=cfg.nc == 1, to_pm1=True)
+    hp, lp = P.preprocess_plain(torch.from_numpy(host).cuda(),
+                                rgb_to_gray=cfg.nc == 1, to_pm1=True)
+    torch.cuda.synchronize()
+    check(P.launches["preprocess"] == n0 + 1, "K1 did not launch")
+    check(torch.equal(crop.cpu(), torch.from_numpy(host)),
+          "the device crop differs from the host trainHook's")
+    err = max((hr - hp).abs().max().item(), (lr - lp).abs().max().item())
+    check(err == 0.0, f"device crop + K1 differs from the host hook + plain "
+          f"preprocess by {err}")
+    return {"shape": list(crop.shape), "max_abs_err": err}
+
+
+def _cli(args):
+    """The trainer's entry point, cli.main, in this process as a user's
+    `python -m dcgan_sr_tpu_torch.cli` runs it: the launch counts from 0,
+    no config override from the environment, its output captured."""
+    import contextlib
+
+    from dcgan_sr_tpu_torch import cli
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+
+    for counts in (K.launches, P.launches):
+        for k in counts:
+            counts[k] = 0
+    saved = {k: os.environ.pop(k) for k in CONFIG_ENV if k in os.environ}
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(args)
+    except BaseException:
+        sys.stderr.write(out.getvalue()[-4000:])
+        raise
+    finally:
+        os.environ.update(saved)
+    return out.getvalue().splitlines()
+
+
+def _step_ms(step, state, batch, iters=5):
+    """Mean wall ms of `iters` train steps whose batch is already on the
+    card, synchronised at both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return round((time.perf_counter() - t0) / iters * 1e3, 4)
+
+
+class _Drain:
+    """A consumer thread that keeps taking batches from a loader, so that
+    its workers decode all the time while the main thread times steps."""
+
+    def __init__(self, loader):
+        self.loader, self.stop = loader, threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self.stop.is_set():
+            self.loader.get_batch()
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+
+
+def host_contention(root, state, step, batch):
+    """Does decoding on the host slow the device step, and does decode
+    scale with its threads?  The gray step with its batch already on the
+    card, timed with no loader and beside 1 and 4 workers that decode all
+    the while; and the loader alone (images/s) at 1 and 4 workers: decode
+    held by the interpreter lock would give about the same at both."""
+    from dcgan_sr_tpu_torch import cli
+    from dcgan_sr_tpu_torch.core import get_config
+
+    args = type("Args", (), {"synthetic": False, "data_root": root})()
+    out = {"cpu_cores": len(os.sched_getaffinity(0)),
+           "step_ms_no_loader": _step_ms(step, state, batch)}
+    for n in (1, 4):
+        cfg = get_config("gray", env_override=False, device_augment=True,
+                         device_preprocess=True, manualSeed=1, nThreads=n)
+        loader, _ = cli.build_data(cfg, args)
+        try:
+            loader.get_batch()                      # the first, warm
+            t0 = time.perf_counter()
+            for _ in range(4):
+                loader.get_batch()
+            out[f"loader_images_per_s_{n}_threads"] = round(
+                4 * cfg.batchSize / (time.perf_counter() - t0), 2)
+            with _Drain(loader):
+                out[f"step_ms_{n}_threads_decoding"] = _step_ms(
+                    step, state, batch)
+        finally:
+            loader.close()
+    out["step_ms_no_loader_after"] = _step_ms(step, state, batch)
+    return out
+
+
+def folder_trainer_phase(smi, root):
+    """Phase 17: the folder trainers through their entry point (gray with
+    --device-augment, rgb-full with --device-preprocess, batch 100, full
+    width), K1 once a step in its raw-RGB modes; then the gray one driven
+    here: images/s, the data stage's ms, the device's busy share, and
+    whether decoding threads slow the step (host_contention)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcgan_sr_tpu_torch import cli
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.data.folder import FolderDataset
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+    from dcgan_sr_tpu_torch.profile_step import _device_us
+    from dcgan_sr_tpu_torch.train.loop import train_epochs
+    from dcgan_sr_tpu_torch.train.step import build_train_step, init_train_state
+
+    counts = {}
+    for variant, flag, mode in FOLDER_RUNS:
+        t0 = time.perf_counter()
+        lines = _cli(["--config", variant, "--data-root", root, flag,
+                      "--steps", "6", "--scan", "3", "--epochs", "1",
+                      "--seed", "1"])
+        wall = time.perf_counter() - t0
+        cfg_line = next(l for l in lines if l.startswith("config: "))
+        check("batchSize=100" in cfg_line and "device_preprocess=True"
+              in cfg_line, f"not the folder trainer at batch 100: {cfg_line}")
+        steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
+        check(len(steps) == 2 and all(steps), f"log lines: {lines}")
+        c = _launch_line(lines)
+        check(c["preprocess"] == 6, f"{variant} {flag}: K1 launched "
+              f"{c['preprocess']} times in 6 steps")
+        counts[mode] = c["preprocess"]
+        for l in lines:
+            if not l.startswith("config: "):
+                print(f"folder trainer {variant}| " + l, flush=True)
+        print(f"folder trainer {variant} {flag}: 6 steps in {wall:.1f}s "
+              f"through cli.main", flush=True)
+
+    cfg = get_config("gray", env_override=False, device_augment=True,
+                     device_preprocess=True, manualSeed=1)
+    args = type("Args", (), {"synthetic": False, "data_root": root})()
+    loader, batch_fn = cli.build_data(cfg, args)
+    try:
+        crop = folder_crop_check(FolderDataset(
+            root, cfg.loadSize, cfg.fineSize, cfg.nc), cfg)
+        state = init_train_state(cfg, torch.Generator().manual_seed(1),
+                                 device="cuda")
+        quiet = lambda line: None  # noqa: E731
+        train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=3,
+                     scan_steps=3, log_fn=quiet)          # warm
+        n0 = P.launches["preprocess"]
+        lines = []
+        t0 = time.perf_counter()
+        train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=6,
+                     scan_steps=3, log_fn=lines.append)
+        wall = time.perf_counter() - t0
+        check(P.launches["preprocess"] - n0 == 6, "K1 once a step")
+        data_s = [float(re.search(r"DataTime: ([\d.]+)", l).group(1))
+                  for l in lines if l.startswith("Epoch:")]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=3,
+                         scan_steps=3, log_fn=quiet)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+        device_us = sum(_device_us(r) for r in prof.key_averages()
+                        if r.device_type == DeviceType.CUDA)
+        dev_batch = tuple(torch.from_numpy(a).cuda() for a in batch_fn(1, 0))
+    finally:
+        loader.close()
+    step = build_train_step(cfg)
+    step(state, dev_batch)                                # warm
+    r = {"images_per_s": round(6 * cfg.batchSize / wall, 2),
+         "step_ms": round(wall / 6 * 1e3, 4),
+         "data_stage_ms_per_step": round(sum(data_s) / 6 * 1e3, 4),
+         "device_busy_share": round(device_us * 1e-6 / pwall, 4),
+         "device_ms_per_step": round(device_us / 3 * 1e-3, 4),
+         "n_threads": cfg.nThreads, "crop_check": crop,
+         "host_contention": host_contention(root, state, step, dev_batch)}
+    print(f"folder trainer gray --device-augment, batch 100, 178x218 JPEGs, "
+          f"{cfg.nThreads} loader threads, on {smi}: " + json.dumps(r),
+          flush=True)
+    return counts, r
+
+
+def indexed_eval_phase(smi, route, samples):
+    """Phase 18: the indexed trainer (gray-3, batch 100) on files
+    000001-000300 (three steps) and 200001-200200 (the test slice), then
+    --eval --eval-sets 2 and --samples-dir, with --native-loader where the
+    committed library loads here; through cli.main."""
+    from dcgan_sr_tpu_torch.data import native
+
+    args = ["--config", "gray-3", "--data-root", route, "--steps", "3",
+            "--epochs", "1", "--seed", "1", "--eval", "--eval-sets", "2",
+            "--samples-dir", samples]
+    if native.available():
+        args.append("--native-loader")
+    t0 = time.perf_counter()
+    lines = _cli(args)
+    wall = time.perf_counter() - t0
+    loader = ("native" if "using native C++ indexed loader" in lines else
+              "python")
+    check(not any("not found" in l for l in lines), "the indexed route was "
+          "not found")
+    ref = [l for l in lines if l.startswith("[")]
+    for tag in ("Train-set", "Test-set"):
+        got = [l for l in ref if l.startswith(f"[{tag}]")]
+        check(len(got) == 4 and all("train-Size: 200" in l for l in got),
+              f"{tag} lines: {got}")
+    c = _launch_line(lines)
+    check(c["bulge_stats"] > 0 and c["bulge_main"] > 0,
+          f"K2 was not launched by the eval: {c}")
+    check(c["preprocess"] == 3, f"K1 launched {c['preprocess']} times")
+    pngs = sorted(f for f in os.listdir(samples) if f.endswith(".png"))
+    check(len(pngs) == 4, f"sample PNGs: {pngs}")
+    for l in ref + [l for l in lines if l.startswith(("PSNR", "SSIM"))]:
+        print("indexed trainer| " + l, flush=True)
+    print(f"indexed trainer + eval, gray-3 batch 100, {loader} loader "
+          f"(native library loads here: {native.available()}"
+          f"{'' if native.available() else ', ' + str(native.load_error())}"
+          f"): {wall:.1f}s through cli.main, launches {json.dumps(c)}, "
+          f"PNGs {pngs}", flush=True)
+    return c, loader
+
+
+EVAL_SETS = {"gray-3": [2001, 2002, 2003], "overlap": [10000]}
+
+
+def eval_phase(smi):
+    """Phase 19: the committed gray-3 and overlap fixtures scored on the
+    card (K2 in the fused eval generator) and on the CPU (the plain pair)
+    on the same TexturedImages at batch 100: PSNR within 1e-3 dB, SSIM
+    within 1e-4; seam > naive > bilinear on the card; eval images/s over
+    three batches (gray-3) and one (overlap, both BN modes)."""
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.data.synthetic import TexturedImages
+    from dcgan_sr_tpu_torch.evaluation import (evaluate_overlap_slice,
+                                               evaluate_slice)
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.train.checkpoint import load_generator
+
+    out = {}
+    cfg = get_config("gray-3", env_override=False)
+    src = TexturedImages(cfg.fineSize, nc=1, seed=1234)
+    card, _ = load_generator(cfg, FIXTURE, device="cuda")
+    cpu, _ = load_generator(cfg, FIXTURE, device="cpu")
+    sets = EVAL_SETS["gray-3"]
+    for fs in sets:
+        src.load_batch(fs, 100)               # render outside the clocks
+    # the first set on the card (also the warm-up) and on the CPU
+    r_card = evaluate_slice(cfg, card, src, sets[:1], batch_size=100)
+    t0 = time.perf_counter()
+    r_cpu = evaluate_slice(cfg, cpu, src, sets[:1], batch_size=100)
+    cpu_wall = time.perf_counter() - t0
+    for k in K.launches:
+        K.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_all = evaluate_slice(cfg, card, src, sets, batch_size=100)
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    check(launches["bulge_stats"] == len(sets) and launches["bulge_main"]
+          == len(sets), f"the eval launched K2 {launches}")
+    total = dict(launches)
+    fields = ("psnr_bilinear", "psnr_generator", "ssim_bilinear",
+              "ssim_generator")
+    diff = {f: abs(getattr(r_card, f) - getattr(r_cpu, f)) for f in fields}
+    for f, d in diff.items():
+        check(d <= (1e-3 if f.startswith("psnr") else 1e-4),
+              f"gray-3 eval {f}: card {getattr(r_card, f)} cpu "
+              f"{getattr(r_cpu, f)}")
+    out["gray-3"] = {"card": vars(r_card), "cpu": vars(r_cpu),
+                     "abs_diff": diff, "card_3_sets": vars(r_all),
+                     "images_per_s": round(r_all.n_images / wall, 2),
+                     "cpu_images_per_s": round(r_cpu.n_images / cpu_wall, 2),
+                     "launches": launches}
+    del card
+    torch.cuda.empty_cache()
+
+    ocfg = get_config("gray-patch-batch-overlap", env_override=False)
+    card, _ = load_generator(ocfg, OVERLAP_FIXTURE, need_state=True,
+                             device="cuda")
+    cpu, _ = load_generator(ocfg, OVERLAP_FIXTURE, need_state=True,
+                            device="cpu")
+    sets = EVAL_SETS["overlap"]
+    for fs in sets:
+        src.load_batch(fs, 100)
+    orow = {}
+    for bn_eval in (True, False):       # the CPU holds the claim's mode
+        evaluate_overlap_slice(ocfg, card, src, sets, batch_size=100,
+                               bn_eval=bn_eval)                # warm
+        for k in K.launches:
+            K.launches[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = evaluate_overlap_slice(ocfg, card, src, sets, batch_size=100,
+                                    bn_eval=bn_eval)
+        wall = time.perf_counter() - t0
+        ol = dict(K.launches)
+        check(ol["bulge_main"] > 0 and (ol["bulge_stats"] > 0) != bn_eval,
+              f"the overlap eval launched K2 {ol}")
+        for k in ("bulge_stats", "bulge_main"):
+            total[k] += ol[k]
+        d = None
+        if bn_eval:
+            rp = evaluate_overlap_slice(ocfg, cpu, src, sets, batch_size=100,
+                                        bn_eval=bn_eval)
+            of = ("psnr_bilinear", "psnr_naive", "psnr_seam",
+                  "ssim_bilinear", "ssim_naive", "ssim_seam")
+            d = {f: abs(getattr(rc, f) - getattr(rp, f)) for f in of}
+            for f, v in d.items():
+                check(v <= (1e-3 if f.startswith("psnr") else 1e-4),
+                      f"overlap eval (bn_eval={bn_eval}) {f}: card "
+                      f"{getattr(rc, f)} cpu {getattr(rp, f)}")
+            check(rc.psnr_seam > rc.psnr_naive > rc.psnr_bilinear,
+                  f"the overlap fixture's claim fails on the card: {vars(rc)}")
+        orow["bn_eval" if bn_eval else "per_image_tiles"] = {
+            "card": vars(rc), "abs_diff": d, "launches": ol,
+            "images_per_s": round(rc.n_images / wall, 2)}
+    out["overlap"] = orow
+    out["launches"] = total
+    print(f"eval on the card against the CPU, TexturedImages at batch 100, "
+          f"on {smi}: " + json.dumps(out, default=float), flush=True)
+    return out
 
 
 def main():
@@ -2176,7 +2594,33 @@ def main():
         launches[k] += bf16_launches[k]
 
     stamp()
-    # phase 17
+    # phases 17-19: image files (generated here from a seed), the trainers
+    # on them and the eval protocol; counts from 0 before each trainer run
+    # and before the eval on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "folder")
+        write_jpegs(os.path.join(folder, "faces"),
+                    [f"{i:06d}.jpg" for i in range(1, 201)], seed=17)
+        route = os.path.join(tmp, "indexed")
+        write_jpegs(route, [f"{n:06d}.jpg" for n in
+                            list(range(1, 301)) + list(range(200001, 200201))],
+                    seed=18)
+        folder_counts, folder_row = folder_trainer_phase(smi, folder)
+        stamp()
+        idx_counts, idx_loader = indexed_eval_phase(
+            smi, route, os.path.join(tmp, "samples"))
+    for k in ("bulge_stats", "bulge_main"):
+        launches[k] += idx_counts[k]
+    stamp()
+    evals = eval_phase(smi)
+    for k in ("bulge_stats", "bulge_main"):
+        launches[k] += evals["launches"][k]
+    eval_launches = {k: idx_counts[k] + evals["launches"][k]
+                     for k in ("bulge_stats", "bulge_main")}
+
+    stamp()
+    # phase 20
+    eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
     kernels = []
     for name, line, key, plain_key, lib_key in (
@@ -2193,6 +2637,13 @@ def main():
             "library_ms": r[lib_key], "shape": list(shape),
             "impl": r["impl"], "fma_ms": r[f"{key}_fma_ms"],
             "bound_fp32_fma_ms": r[f"{key}_bound_fp32_fma"][0],
+            "eval_launches": eval_launches[name],
+            "at_eval_shape": {
+                "shape": list(EVAL_SHAPE), "ms": eval_row[f"{key}_ms"],
+                "bound_ms": eval_row[f"{key}_bound"][0],
+                "bound_by": eval_row[f"{key}_bound"][1],
+                "plain_ms": eval_row[plain_key],
+                "library_ms": eval_row[lib_key]},
             "at_overlap_shapes": [
                 {"shape": list(sh), "ms": ro[f"{key}_ms"],
                  "fma_ms": ro[f"{key}_fma_ms"],
@@ -2234,6 +2685,24 @@ def main():
         "host_queue_us": r["host_queue_us"],
         "library_graph_ms": r["library_graph_ms"],
         "library_host_queue_us": r["library_host_queue_us"]})
+    # K1's raw-RGB modes, launched once a step by the folder trainers
+    for r, mode, trainer in ((pre_rows[1], "rgb_to_gray+to_pm1",
+                              "gray --device-augment"),
+                             (pre_rows[2], "to_pm1",
+                              "rgb-full --device-preprocess")):
+        kernels.append({
+            "name": f"preprocess[{mode}]", "route": "cuda",
+            "source": "dcgan_sr_tpu_torch/csrc/preprocess.cu",
+            "replaces": "dcgan_sr_tpu/ops/pallas_kernels.py:64",
+            "launches": folder_counts[mode], "max_abs_err": pre_err,
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "eager_ms": r["eager_ms"], "host_queue_us": r["host_queue_us"],
+            "library_graph_ms": r["library_graph_ms"],
+            "library_host_queue_us": r["library_host_queue_us"],
+            "path": f"folder trainer {trainer}",
+            "crop_then_k1_vs_host_hook": folder_row["crop_check"]})
     for name, line, key in (("fused_nhwc_stats", 98, "stats"),
                             ("fused_nhwc_main", 119, "main")):
         kernels.append({

@@ -16,10 +16,13 @@ module layout mirrors the JAX package so each counterpart is easy to find:
   train/step.py        the GAN train step, TrainState and its numpy form
   train/multi_step.py, loop.py   K steps per call, the epoch loop
   train/checkpoint.py  npz checkpoints, key for key with the JAX files
-  data/synthetic.py    the procedural image source
-  image/, metrics/     box downsample, bilinear control, PNG I/O, PSNR, MSEs
-  infer/tiled.py       full-image SR
-  utils/               device choice, timers, the reference log line
+  data/                the folder and indexed loaders, the prefetcher, the
+                       native decoder's bridge, the procedural sources
+  image/, metrics/     box downsample, bilinear control, crop/flip, PNG I/O,
+                       PSNR, SSIM, MSEs
+  evaluation/          the dataset-slice PSNR/SSIM harness
+  infer/               full-image, grid and overlap SR, seam DP, ensemble
+  utils/               device choice, timers, the reference log line, stats
   upscale.py, serve.py, cli.py   entry points (python -m dcgan_sr_tpu_torch.cli ...)
 """
 

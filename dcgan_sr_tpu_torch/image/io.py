@@ -1,16 +1,20 @@
 """Host-side image decode/encode with torch-`image` conventions (port of
-dcgan_sr_tpu/image/io.py, PIL only).
+dcgan_sr_tpu/image/io.py).
 
 Decode: image.load(path, nc, 'float') -> CHW float32 in [0,1]; nc=1 on an
 RGB source converts via rgb2y (Rec.601 luma .299/.587/.114) — DIFFERENT from
 the training-time rgb2gray (.21/.72/.07) the gray variant applies itself.
-Encode: [0,1] floats to round-to-nearest bytes.
+Encode: [0,1] floats to round-to-nearest bytes.  The reference always saves
+samples through image.toDisplayTensor (save_display), which min-max rescales
+to [0,1] (constant images -> 0, i.e. black).
 """
 
 from __future__ import annotations
 
 import numpy as np
 from PIL import Image
+
+from .ops import to_display
 
 
 def load_image(path, nc=3, dtype="float"):
@@ -35,3 +39,14 @@ def save_image(path, arr):
             a = a[..., 0]
     byte = np.clip(np.round(a * 255.0), 0, 255).astype(np.uint8)
     Image.fromarray(byte).save(path)
+
+
+def save_display(path, arr):
+    """image.save(image.toDisplayTensor(x)) parity: min-max rescale then save."""
+    save_image(path, to_display(np.asarray(arr, np.float32)).numpy())
+
+
+def image_size(path):
+    """(W, H) of an image file, read from its header."""
+    with Image.open(path) as img:
+        return img.size

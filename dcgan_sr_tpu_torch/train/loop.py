@@ -12,11 +12,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..image.ops import check_crop_offsets
 from ..utils.logging import MetricsLogger
 from ..utils.timers import Timer
 from .checkpoint import save_checkpoint
 from .multi_step import build_multi_step
 from .step import build_train_step
+
+
+def _to_device(leaves, k, feed_dtype, device):
+    """One leaf of K batches as a (K, ...) tensor on `device` (K = 1: the
+    batch itself), float leaves cast to `feed_dtype` first."""
+    x = torch.from_numpy(np.ascontiguousarray(
+        np.stack(leaves) if k > 1 else leaves[0]))
+    if feed_dtype is not None and x.is_floating_point():
+        x = x.to(feed_dtype)
+    return x.to(device)
 
 
 def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
@@ -25,9 +36,11 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
                  start_epoch=0, feed_dtype=None):
     """Run the training loop; returns (state, last metrics).
 
-    batch_fn(epoch, step_index) -> (B, C, H, W) HR batch as a numpy array;
-    each batch (or, when scanning, each (K, B, ...) super-batch) is copied
-    to the state's device here
+    batch_fn(epoch, step_index) -> (B, C, H, W) HR batch as a numpy array,
+    or under cfg.device_augment a (canvas, tops, lefts, flips) tuple of
+    them; each batch (or, when scanning, each (K, B, ...) super-batch,
+    stacked leaf by leaf) is copied to the state's device here, leaf by
+    leaf, after the tuple's crop offsets are checked on the host
     logger: optional MetricsLogger (default: stdout-only, reference format)
     log_every: fetch/print metrics every N steps.  1 = per-step logging like
     the reference (train.lua:286-293).  A fetch is the loop's only wait for
@@ -37,8 +50,9 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
     unchanged (the body is the single step; tested equal).
     start_epoch: resume offset — epochs run start_epoch+1 .. niter and
     checkpoints keep their continued numbering instead of restarting at 1.
-    feed_dtype: cast each batch to this dtype on the host before the copy
-    (torch.bfloat16 halves the bytes; the step upcasts at entry).
+    feed_dtype: cast each batch's float leaves to this dtype on the host
+    before the copy (torch.bfloat16 halves the bytes; the step upcasts at
+    entry); integer and bool leaves (crop offsets, flips) pass as they are.
     """
     step_fn = build_train_step(cfg)
     multi_step_fn = build_multi_step(cfg) if scan_steps > 1 else None
@@ -64,15 +78,15 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
                                    steps_per_epoch - i >= scan_steps) else 1
                 tm.reset()
                 data_tm.reset()
-                if k > 1:
-                    hr = np.stack([np.asarray(batch_fn(epoch, i + j))
-                                   for j in range(k)])
+                batches = [batch_fn(epoch, i + j) for j in range(k)]
+                if isinstance(batches[0], tuple):
+                    for b in batches:
+                        check_crop_offsets(b[1], b[2], b[0].shape[-2:],
+                                           cfg.fineSize)
+                    hr = tuple(_to_device(leaves, k, feed_dtype, device)
+                               for leaves in zip(*batches))
                 else:
-                    hr = np.asarray(batch_fn(epoch, i))
-                hr = torch.from_numpy(hr)
-                if feed_dtype is not None:
-                    hr = hr.to(feed_dtype)
-                hr = hr.to(device)
+                    hr = _to_device(batches, k, feed_dtype, device)
                 data_s = data_tm.stop().time()["real"]
 
                 if k > 1:

@@ -17,14 +17,17 @@ from .step import build_train_step
 def build_multi_step(cfg, **step_kw):
     """Returns multi_step(state, hr_batches) -> (state, stacked_metrics).
 
-    hr_batches: (K, B, C, H, W) — K consecutive batches.
+    hr_batches: (K, B, C, H, W) — K consecutive batches; under
+    cfg.device_augment a tuple of such leaves, (K, B, ...) each.
     stacked_metrics: dict of (K,) tensors (per-step losses, reference
     log-line fields preserved)."""
     step = build_train_step(cfg, **step_kw)
 
     def multi_step(state, hr_batches):
         per_step = []
-        for hr in hr_batches:
+        tup = isinstance(hr_batches, tuple)
+        for j in range((hr_batches[0] if tup else hr_batches).shape[0]):
+            hr = tuple(x[j] for x in hr_batches) if tup else hr_batches[j]
             state, metrics = step(state, hr)
             per_step.append(metrics)
         return state, {k: torch.stack([m[k] for m in per_step])

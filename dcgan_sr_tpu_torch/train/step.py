@@ -30,6 +30,14 @@ networks compute in bf16 from their fp32 master parameters and hand fp32
 back to the losses (models/network.py); gradients reach the fp32 masters
 through the casts, and Adam updates the masters in fp32.  The preprocess
 still sees fp32: a bf16 feed is upcast first.
+
+cfg.device_preprocess (`--device-preprocess`): the batch is raw [0,1] RGB
+from the folder loader, and the fused preprocess (K1) also gray-converts
+(nc = 1) and maps to [-1,1] (pm1 variants).  cfg.device_augment
+(`--device-augment`, which turns device_preprocess on): the batch is the
+tuple (canvas, tops, lefts, flips) of data/folder.py sample_canvas, and the
+trainHook's crop + hflip run on the device (image/ops.py crop_hflip_at)
+before the preprocess.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..image.ops import crop_hflip_at
 from ..losses.schemes import bce_with_logits_loss, criterion, make_labels
 from ..models import Network, discriminator_spec, generator_spec, init_network
 from ..ops.adam import adam_init, adam_update_
@@ -149,7 +158,7 @@ def state_from_trees(g_spec, d_spec, tree, device):
 
 # ---- the step ---------------------------------------------------------------
 
-_NOT_PORTED = ("fast_ops", "compact_params", "device_augment")
+_NOT_PORTED = ("fast_ops", "compact_params")
 
 
 def _no_mark(name):
@@ -160,7 +169,9 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     """Returns train_step(state, hr_batch) -> (state, metrics).
 
     hr_batch: (B, C, H, W) in the variant's data range, float32 or (a
-    bfloat16 feed) bfloat16, on the state's device.  metrics: the JAX step's
+    bfloat16 feed) bfloat16, on the state's device; raw [0,1] RGB under
+    cfg.device_preprocess; under cfg.device_augment the tuple (canvas,
+    tops, lefts, flips), every leaf on the device.  metrics: the JAX step's
     six scalars as 0-d device tensors; reading one is the only thing that
     waits for the device.
 
@@ -189,11 +200,19 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     # takes (hr, lr) from the fused preprocess, flags off included
     rgb_to_gray = cfg.device_preprocess and cfg.nc == 1
     to_pm1 = cfg.device_preprocess and cfg.data_range == "pm1"
+    device_augment, fine_size = cfg.device_augment, cfg.fineSize
     grad = torch.autograd.grad
 
     def step(state, hr, mark=_no_mark):
+        if device_augment:
+            hr, tops, lefts, flips = hr
         if hr.dtype == torch.bfloat16:
             hr = hr.float()          # a bf16 feed carries only input rounding
+        if device_augment:
+            # the donkey trainHook's crop + hflip pixel work on the device
+            # (donkey_folder.lua:52-70), at offsets the loader drew on the
+            # host with the reference's single uniform draw
+            hr = crop_hflip_at(hr, tops, lefts, flips, fine_size)
         with torch.no_grad():
             hr, lr_img = preprocess_fn(hr, rgb_to_gray=rgb_to_gray,
                                        to_pm1=to_pm1)

@@ -52,7 +52,7 @@ def test_patch_batches_match_the_jax_cli(variant, monkeypatch):
     args = type("A", (), {"synthetic": True, "textured": False,
                           "data_root": None, "native_loader": False})()
     _, jfn = jcli.build_data(jcfg, args)
-    fn = cli.build_data(cfg, args)
+    _, fn = cli.build_data(cfg, args)
     for step in (0, 3):
         want, got = np.asarray(jfn(1, step)), fn(1, step)
         n = cfg.images_consumed_per_step
@@ -94,24 +94,50 @@ def test_cli_trains_a_patch_variant_in_bf16_and_resumes(tmp_path):
 
 
 def test_cli_routes_data_as_the_jax_cli(tmp_path, capsys):
-    """A route that exists raises by the loader's name (not ported); one
-    that does not prints the JAX CLI's line for the right loader and falls
-    back to the procedural source."""
+    """A route that exists loads through the loader the JAX CLI picks, and
+    gives the JAX CLI's batches; one that does not prints the JAX CLI's line
+    for the right loader and falls back to the procedural source."""
+    from PIL import Image
+
+    from dcgan_sr_tpu.core import get_config as jget
+
     cfg = get_config("gray-3", env_override=False, batchSize=2)
-    (tmp_path / "000001.jpg").write_bytes(b"")
+    rng = np.random.RandomState(0)
+    for n in range(1, 5):                    # CelebA-like %06d.jpg files
+        Image.fromarray((rng.rand(109, 89, 3) * 255).astype(np.uint8)).save(
+            str(tmp_path / f"{n:06d}.jpg"), quality=90)
     A = lambda **kw: type("A", (), {"synthetic": False, **kw})()  # noqa: E731
-    with pytest.raises(NotImplementedError, match="IndexedCelebA.*not ported"):
-        cli.build_data(cfg, A(data_root=str(tmp_path)))
-    assert cli.build_data(cfg, A(data_root=str(tmp_path), synthetic=True))(
+    loader, fn = cli.build_data(cfg, A(data_root=str(tmp_path)))
+    jloader, jfn = jcli.build_data(jget("gray-3", env_override=False,
+                                        batchSize=2),
+                                   A(data_root=str(tmp_path)))
+    try:
+        assert type(loader).__name__ == "IndexedCelebA"
+        np.testing.assert_array_equal(fn(1, 1), np.asarray(jfn(1, 1)))
+    finally:
+        loader.close()
+    assert cli.build_data(cfg, A(data_root=str(tmp_path), synthetic=True))[1](
         1, 0).shape == (2, 1, 64, 64)
     missing = str(tmp_path / "missing")
+    capsys.readouterr()
     cli.build_data(cfg, A(data_root=missing))
     assert capsys.readouterr().out == (f"indexed CelebA not found at {missing};"
                                        " using synthetic data\n")
-    rgb = get_config("rgb-full", env_override=False, batchSize=2)
-    with pytest.raises(NotImplementedError, match="FolderDataset.*not ported"):
-        cli.build_data(rgb, A(data_root=str(tmp_path)))
-    fn = cli.build_data(rgb, A(data_root=missing))
+    rgb = get_config("rgb-full", env_override=False, batchSize=2, nThreads=1,
+                     manualSeed=3)
+    jrgb = jget("rgb-full", env_override=False, batchSize=2, nThreads=1,
+                manualSeed=3)
+    loader, fn = cli.build_data(rgb, A(data_root=str(tmp_path)))
+    jloader, jfn = jcli.build_data(jrgb, A(data_root=str(tmp_path)))
+    try:
+        assert type(loader).__name__ == "PrefetchLoader"
+        for _ in range(2):             # the same seeded worker streams
+            np.testing.assert_array_equal(fn(1, 0), np.asarray(jfn(1, 0)))
+    finally:
+        loader.close()
+        jloader.close()
+    capsys.readouterr()
+    _, fn = cli.build_data(rgb, A(data_root=missing))
     out = capsys.readouterr().out.splitlines()
     assert out[0] == f"DATA_ROOT {missing} not found; falling back to " \
                      "synthetic data"

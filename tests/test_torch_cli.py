@@ -107,36 +107,56 @@ def test_cli_without_a_card_and_without_cpu_raises():
 def test_cli_falls_back_to_synthetic_with_the_reference_message(capsys):
     cfg = get_config("gray-3", **KW)
     args = type("A", (), {"synthetic": False})()
-    batch_fn = cli.build_data(cfg, args)
+    _, batch_fn = cli.build_data(cfg, args)
     assert "indexed CelebA not found at" in capsys.readouterr().out
     assert batch_fn(1, 0).shape == (4, 1, 64, 64)
 
 
 def test_cli_pm1_variants_feed_pm1_batches():
     cfg = get_config("gray", **KW)
-    batch_fn = cli.build_data(cfg, type("A", (), {"synthetic": True})())
+    _, batch_fn = cli.build_data(cfg, type("A", (), {"synthetic": True})())
     hr = batch_fn(1, 0)
     assert hr.dtype == np.float32 and hr.min() == -1.0 and hr.max() == 1.0
 
 
-@pytest.mark.parametrize("flag", ["--stage-ahead", "--dp", "--eval",
-                                  "--samples-dir", "--device-augment",
-                                  "--use-pallas"])
+@pytest.mark.parametrize("flag", ["--stage-ahead", "--dp", "--use-pallas"])
 def test_cli_has_no_flags_of_unported_options(flag):
     with pytest.raises(SystemExit):
         cli.main(["--cpu", flag])
 
 
-def test_cli_patch_variants_say_not_ported(tmp_path):
+def test_cli_patch_variants_say_not_ported(tmp_path, monkeypatch, capsys):
     """The patch variants' batches are ported (test_torch_bf16_step.py holds
-    them to the JAX CLI's); what still raises is a loader that is not."""
+    them to the JAX CLI's), and so is the indexed loader: a route of real
+    image files loads, and a patch variant trains a step on its tiles."""
     cfg = get_config("gray-patch", **KW)
-    batch = cli.build_data(cfg, type("A", (), {"synthetic": True})())(1, 0)
-    assert batch.shape == (64, 1, 8, 8)          # one image's 8x8 grid
-    (tmp_path / "000001.jpg").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.build_data(cfg, type("A", (), {"synthetic": False,
-                                           "data_root": str(tmp_path)})())
+    _, batch_fn = cli.build_data(cfg, type("A", (), {"synthetic": True})())
+    assert batch_fn(1, 0).shape == (64, 1, 8, 8)  # one image's 8x8 grid
+    write_celeba(tmp_path, range(1, 3))
+    loader, batch_fn = cli.build_data(cfg, type(
+        "A", (), {"synthetic": False, "data_root": str(tmp_path)})())
+    try:
+        assert type(loader).__name__ == "IndexedCelebA"
+        assert batch_fn(1, 0).shape == (64, 1, 8, 8)   # file 000002.jpg
+    finally:
+        loader.close()
+    for k, v in {"ngf": "4", "ndf": "8"}.items():
+        monkeypatch.setenv(k, v)
+    st = cli.main(["--cpu", "--config", "gray-patch", "--data-root",
+                   str(tmp_path), "--steps", "1", "--epochs", "1", "--seed",
+                   "1"])
+    assert st.g_opt["t"] == 1
+    assert "not found" not in capsys.readouterr().out
+
+
+def write_celeba(route, nums, hw=(109, 89), seed=0):
+    """CelebA-like %06d.jpg files of smooth random images."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    for n in nums:
+        base = (rng.rand(hw[0] // 8, hw[1] // 8, 3) * 255).astype(np.uint8)
+        Image.fromarray(base).resize((hw[1], hw[0]), Image.BILINEAR).save(
+            os.path.join(str(route), f"{n:06d}.jpg"), quality=90)
 
 
 @pytest.mark.parametrize("steps,scan,log_every,want", [

@@ -656,3 +656,78 @@ def test_step_with_kernel_equals_step_with_plain(cuda, variant, chans, over):
                 if isinstance(va, dict):
                     va, vb = va["mean"], vb["mean"]
                 assert np.abs(va - vb).max() <= 2.1 * cfg.lr
+
+
+# ---- the eval protocol and the device-side crop -----------------------------
+
+@pytest.mark.parametrize("shape", [(3, 16, 16), (100, 64, 64), (2, 31, 47)])
+def test_ssim_on_the_card_equals_the_cpu_path(cuda, shape):
+    """SSIM's sigmas are E[x^2] - mu^2 at the 0-255 scale: the convolution
+    runs with TF32 off, so the card's SSIM is the CPU's to 1e-5, with
+    cudnn.allow_tf32 on around the call."""
+    from dcgan_sr_tpu_torch.metrics import cal_psnr_batch, cal_ssim_batch
+
+    rng = np.random.RandomState(shape[0])
+    a = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+    b = torch.from_numpy(np.clip(a.numpy() + 0.1 * rng.randn(*shape), 0, 1
+                                 ).astype(np.float32))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = cal_ssim_batch(a.to(cuda), b.to(cuda)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    np.testing.assert_allclose(got.numpy(), cal_ssim_batch(a, b).numpy(),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(cal_psnr_batch(a.to(cuda), b.to(cuda)).cpu(),
+                               cal_psnr_batch(a, b), rtol=1e-6)
+
+
+def test_crop_hflip_at_on_the_card_is_bit_equal(cuda):
+    from dcgan_sr_tpu_torch.image.ops import crop_hflip_at
+
+    rng = np.random.RandomState(1)
+    canvas = torch.from_numpy(rng.rand(100, 3, 96, 96).astype(np.float32))
+    tops = rng.randint(0, 33, 100)
+    lefts = rng.randint(0, 33, 100)
+    flips = rng.rand(100) > 0.5
+    want = crop_hflip_at(canvas, tops, lefts, flips, 64)
+    got = crop_hflip_at(canvas.to(cuda), tops, lefts, flips, 64)
+    on_card = crop_hflip_at(canvas.to(cuda), torch.from_numpy(tops).to(cuda),
+                            torch.from_numpy(lefts).to(cuda),
+                            torch.from_numpy(flips).to(cuda), 64)
+    assert torch.equal(got.cpu(), want) and torch.equal(on_card.cpu(), want)
+
+
+def test_device_augment_step_launches_k1_on_the_crop(cuda):
+    cfg = get_config("gray", env_override=False, ngf=4, ndf=8, batchSize=4,
+                     device_augment=True, device_preprocess=True)
+    st = init_train_state(cfg, torch.Generator().manual_seed(0), device=cuda)
+    rng = np.random.RandomState(2)
+    batch = (torch.from_numpy(rng.rand(4, 3, 96, 96).astype(np.float32)),
+             torch.from_numpy(rng.randint(0, 33, 4)),
+             torch.from_numpy(rng.randint(0, 33, 4)),
+             torch.from_numpy(rng.rand(4) > 0.5))
+    n0 = P.launches["preprocess"]
+    _, m = build_train_step(cfg)(st, tuple(a.to(cuda) for a in batch))
+    assert P.launches["preprocess"] == n0 + 1
+    assert np.isfinite(float(m["errG"])) and np.isfinite(float(m["errD"]))
+
+
+def test_eval_on_the_card_equals_the_cpu_and_launches_k2(cuda):
+    from dcgan_sr_tpu_torch.data.synthetic import TexturedImages
+    from dcgan_sr_tpu_torch.evaluation import evaluate_slice
+
+    cfg = get_config("gray-3", env_override=False)
+    src = TexturedImages(64, nc=1, seed=1234)
+    card, _ = load_generator(cfg, FIXTURE, device=cuda)
+    cpu, _ = load_generator(cfg, FIXTURE, device="cpu")
+    n0 = K.launches["bulge_main"]
+    got = evaluate_slice(cfg, card, src, [2001], batch_size=20)
+    assert K.launches["bulge_main"] == n0 + 1
+    want = evaluate_slice(cfg, cpu, src, [2001], batch_size=20)
+    assert got.n_images == want.n_images == 20
+    for f in ("psnr_bilinear", "psnr_generator"):
+        assert abs(getattr(got, f) - getattr(want, f)) <= 1e-3, f
+    for f in ("ssim_bilinear", "ssim_generator"):
+        assert abs(getattr(got, f) - getattr(want, f)) <= 1e-4, f

@@ -38,7 +38,10 @@ def test_port_modules_import_no_jax():
               "image.patches", "infer.seam", "infer.seam_device",
               "infer.ensemble", "infer.tiled", "ops.fused_nhwc",
               "ops.fused_nhwc_mma",
-              "bench_fused", "bench_infer"):
+              "bench_fused", "bench_infer", "metrics.psnr_ssim",
+              "utils.stats", "image.io", "image.ops", "data.folder",
+              "data.indexed", "data.prefetch", "data.native", "data.dispatch",
+              "evaluation.harness"):
         assert "dcgan_sr_tpu_torch." + m in mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

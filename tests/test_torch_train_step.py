@@ -343,7 +343,7 @@ def test_g_gradient_does_not_leak_into_d():
 
 @pytest.mark.parametrize("option", [
     {"compute_dtype": "bfloat16"}, {"fast_ops": True},
-    {"compact_params": True}, {"device_augment": True}, "axis_name"])
+    {"compact_params": True}, "axis_name"])
 def test_unported_options_raise(option):
     if option == {"compute_dtype": "bfloat16"}:
         # ported: builds, and its steps are held to the JAX package's bf16
