@@ -48,9 +48,12 @@ Phases, each fatal on failure:
   7. path: `python -m dcgan_sr_tpu_torch.cli --config gray-3 --synthetic
      --steps 6 --scan 2 --epochs 1 --seed 1 --checkpoint-dir <tmp>` as a
      user starts it, at full width: finite losses on reference-shaped log
-     lines, 6 preprocess launches on its last line, both checkpoints
-     written, the G file loaded through load_generator and used to upscale
-     one image, and `--resume` continuing at epoch 2.
+     lines, 6 preprocess launches run (the CLI's last line counts the
+     launches that ran, train/multi_step.py `launches_run`: the warm-up
+     chunk's 2, and the graph's 2 captured launches x 2 replays; its
+     "graph launches" line: 1 capture, 2 replays), both checkpoints written, the G
+     file loaded through load_generator and used to upscale one image, and
+     `--resume` continuing at epoch 2 with Adam's step count 8.
   8. where a step's time goes: CUDA events after each stage of the step
      (2 warm-up steps, then 10 queued without waiting in between), the whole
      step in ms and images/s, the host's time to queue a step, peak
@@ -110,7 +113,9 @@ Phases, each fatal on failure:
      per step and images/s over two calls after a warm one (60 preprocess
      launches), the stage breakdown, and for gray-3 whether G backward
      still runs cuDNN's fp32 dgrad_engine / wgrad_alg0_engine (profiler),
-     beside phase 8's fp32 step.
+     beside phase 8's fp32 step.  The chunks after the first are CUDA
+     graph replays: 60 launches run = the wrapper's 40 (20 warm-up, 20 at
+     capture) - 20 captured + 40 replayed (`launches_run`).
  16. path: `python -m dcgan_sr_tpu_torch.serve --bf16 --warmup` for gray-3
      and gray-patch-batch-overlap, both BN modes, four servers started
      together: timed requests at LR 64 and 256 first (the first after the
@@ -123,12 +128,15 @@ Phases, each fatal on failure:
      smooth random textures, written here from a seed, as one class
      folder; `python -m dcgan_sr_tpu_torch.cli --config gray --data-root
      <folder> --device-augment --steps 6 --scan 3` and `--config rgb-full
-     ... --device-preprocess`, batch 100, full width: K1 launched once a
-     step in its rgb->gray+pm1 and pm1 modes.  Beside it, one batch's
+     ... --device-preprocess`, batch 100, full width: K1 run once a step in
+     its rgb->gray+pm1 and pm1 modes (counted as in phase 7: the second
+     chunk is a graph replay).  Beside it, one batch's
      device crop + K1 against the host trainHook + the plain preprocess on
      equal-seeded rngs (bit for bit), and the gray trainer in this process:
      images/s, the data stage's ms a step, the device's busy share
-     (torch.profiler) and the step's time with the batch already on the card.
+     (torch.profiler) and the step's time with the batch already on the card;
+     the same 6 steps again with stage_ahead (the data stage beside the
+     plain loop's).
  18. path: the indexed trainer and the eval protocol: files 000001-000300
      and 200001-200200 of the same kind, `--config gray-3 --data-root
      <dir> --steps 3 --eval --eval-sets 2 --samples-dir <dir>` (with
@@ -142,10 +150,37 @@ Phases, each fatal on failure:
      statistics; per-image tiles on the card only), PSNR within 1e-3 dB and
      SSIM within 1e-4 of the CPU's plain path, seam > naive > bilinear on
      the card, eval images/s, K2's launches.
- 20. a {"kernels": [...]} line (K1 and its two raw-RGB modes, K2 stats, K2
-     main (with their eval launches and times at the eval shape), K2 stats
-     bf16, K2 main bf16, K3 stats, K3 main), then the contract line {"ok":
-     true, "device": {...}}.
+ 21. kernel: the channels-last pair's bf16 instantiation (x, the packed
+     weights, the planes fed to the second product and y in bf16) against
+     its plain bf16 version at the three channel triples, ragged shapes and
+     bench_fused's (100,16,8,16,256,256) tm 32: y within two bf16 steps of
+     max |y| with at most 1% of y's elements different at all, moments to
+     1e-5; at bench_fused's shape each launch timed in turns against the
+     fp32 tensor-core kernel on the same values, the whole call in turns,
+     beside the plain version, the cuDNN bf16 composition and the bound at
+     the bf16 rate; `python -m dcgan_sr_tpu_torch.bench_fused --kernel
+     nhwc` (bf16 by default) as a subprocess.
+ 22. the trainer's K-step chunk as one CUDA graph (train/multi_step.py),
+     bf16 at bench.py's geometry, K = 20: for gray-3, rgb-full and
+     gray-patch-batch, the eager loop and the graph in turns (eager, graph,
+     graph, eager): ms a step, images/s, the device's busy share from
+     torch.profiler over 5 eager steps and one replayed chunk.  The graph
+     is held to the eager loop on one replayed chunk: after the warm-up
+     chunk (its own batches), two eager twins start from a copy of the
+     graph's state and run the next chunk (other batches) beside its
+     replay; per-step losses within twice the eager twins' spread
+     (printed).  Adam's step count advances by K a replay.  Adam's update
+     (ops/adam.py: the step count on the card) timed in turns against the
+     form with a host-side step size, over each trainer's G and D: host
+     us to queue, device us.  Then `python -m dcgan_sr_tpu_torch.cli --config gray-3
+     --synthetic --bf16 --feed-bf16 --steps 40 --scan 20` with and without
+     `--stage-ahead` through cli.main: the data stage, images/s and K1's
+     launches run (40).
+ 20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
+     modes, K2 stats, K2 main (with their eval launches and times at the
+     eval shape), K2 stats bf16, K2 main bf16, K3 stats, K3 main, K3 stats
+     bf16, K3 main bf16), then the contract line {"ok": true, "device":
+     {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
@@ -171,7 +206,7 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
   eval, card vs CPU               slice means: PSNR 1e-3 dB, SSIM 1e-4 (the
                                   generator agrees to the y tolerance; SSIM's
                                   convolution runs with TF32 off)
-  bf16 bulge y                    2 bf16 steps of max |y| on every element,
+  bf16 bulge and K3 y             2 bf16 steps of max |y| on every element,
                                   at most 1% of elements different at all:
                                   h is rounded to bf16 after an fp32 sum in
                                   another order, and may round the other
@@ -180,6 +215,13 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
   bf16 served PNG bytes           2 levels of 255 on all but 5% of a
                                   response's pixels, against the UNFUSED
                                   bf16 generator (TOL_U8_BF16 below)
+  captured chunk vs eager loop    per-step losses of one replayed chunk
+                                  within twice the largest spread of two
+                                  eager runs of that chunk from a copy of
+                                  the graph's state (cuDNN's backward may
+                                  sum with atomics), and at its first step
+                                  (a forward) within twice their spread
+                                  there; plus 1e-6 relative
   step, kernel vs plain           hr and lr are bit-equal, but cuDNN's
                                   backward sums atomically, and Adam's first
                                   steps are sign-like: losses rtol 1e-4
@@ -954,6 +996,16 @@ def _trainer(args):
     return r.stdout.splitlines()
 
 
+def k1_run(lines):
+    """K1's launches that ran in a CLI run, from its last line (the
+    launches run: train/multi_step.py `launches_run`), and its "graph
+    launches" line (None without --scan)."""
+    counts = _launch_line(lines)
+    g = [json.loads(l[len("graph launches: "):]) for l in lines
+         if l.startswith("graph launches: ")]
+    return counts["preprocess"], (g[0] if g else None)
+
+
 def trainer_phase(cfg):
     import math
 
@@ -980,9 +1032,12 @@ def trainer_phase(cfg):
         vals = [float(m.group(i)) for m in steps for i in (4, 5)]
         check(len(vals) == 6 and all(math.isfinite(v) for v in vals),
               f"Err_G/Err_D not finite: {vals}")
-        check(lines[-1].startswith("kernel launches: "), lines[-1])
-        counts = json.loads(lines[-1][len("kernel launches: "):])
-        check(counts["preprocess"] == 6, f"trainer launched {counts}")
+        counts = _launch_line(lines)
+        run, graph = k1_run(lines)
+        check(graph is not None and graph["captures"] == 1
+              and graph["replays"] == 2, f"graph line: {graph}")
+        check(run == 6, f"trainer ran K1 {run} times in 6 steps: {counts}, "
+              f"graphs {graph}")
         for net in "GD":
             check(os.path.isfile(checkpoint_path(ck, cfg.name, 1, net)),
                   f"no epoch-1 checkpoint of net {net}")
@@ -1124,8 +1179,9 @@ def nhwc_phase():
         chosen = F3.choose_impl(ci, cm, co, h, w)
         n0 = dict(F3.launches)
         got = {chosen: F3.fused_convT_bn_relu_conv(*args, tm=tm)}
-        check(F3.launches == {k: c + 1 for k, c in n0.items()},
-              "K3 launch counts did not move by one each")
+        check(F3.launches == {k: c + (not k.endswith("_bf16"))
+                              for k, c in n0.items()},
+              "K3's fp32 launch counts did not move by one each")
         for impl in F3.IMPLS:
             if impl not in got and (impl == "fma"
                                     or (ci, cm, co) in F3.M.MMA_TRIPLES):
@@ -1774,7 +1830,8 @@ def bf16_step_phase(smi, fp32_gray3):
 
     from dcgan_sr_tpu_torch.core import get_config
     from dcgan_sr_tpu_torch.ops import preprocess as P
-    from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+    from dcgan_sr_tpu_torch.train.multi_step import (build_multi_step,
+                                                     launches_run)
     from dcgan_sr_tpu_torch.train.step import init_train_state
 
     dev = torch.device("cuda")
@@ -1797,9 +1854,13 @@ def bf16_step_phase(smi, fp32_gray3):
             _, m = multi(state, hr)
         last = {k: v[-1].item() for k, v in m.items()}
         wall = (time.perf_counter() - t0) / (2 * K_STEPS) * 1e3
-        check(P.launches["preprocess"] - n0 == 3 * K_STEPS,
-              f"{variant}: preprocess launched "
-              f"{P.launches['preprocess'] - n0} times in {3 * K_STEPS} steps")
+        # the first call's chunk runs eagerly and is then captured (counted,
+        # not run); the next two are replays
+        run = launches_run({"preprocess": P.launches["preprocess"] - n0},
+                           multi)["preprocess"]
+        check(multi.replays == 2 and run == 3 * K_STEPS,
+              f"{variant}: preprocess ran {run} times in {3 * K_STEPS} "
+              f"steps ({multi.stats()})")
         check(all(math.isfinite(v) for v in last.values()),
               f"{variant} bf16 losses {last}")
         imgs = cfg.images_consumed_per_step
@@ -1814,7 +1875,7 @@ def bf16_step_phase(smi, fp32_gray3):
         print(f"bf16 train step, {variant} {shape} ({imgs} images a step), "
               f"K={K_STEPS} a call, on {smi}: " + json.dumps(r), flush=True)
         out[variant] = r
-        del state, hr
+        del state, hr, multi
         torch.cuda.empty_cache()
     g = out["gray-3"]
     print(f"bf16 gray-3 step {g['step_ms']} ms ({g['images_per_s']} images/s) "
@@ -2122,6 +2183,8 @@ def folder_trainer_phase(smi, root):
     from dcgan_sr_tpu_torch.ops import preprocess as P
     from dcgan_sr_tpu_torch.profile_step import _device_us
     from dcgan_sr_tpu_torch.train.loop import train_epochs
+    from dcgan_sr_tpu_torch.train.multi_step import (build_multi_step,
+                                                     launches_run)
     from dcgan_sr_tpu_torch.train.step import build_train_step, init_train_state
 
     counts = {}
@@ -2136,10 +2199,10 @@ def folder_trainer_phase(smi, root):
               in cfg_line, f"not the folder trainer at batch 100: {cfg_line}")
         steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
         check(len(steps) == 2 and all(steps), f"log lines: {lines}")
-        c = _launch_line(lines)
-        check(c["preprocess"] == 6, f"{variant} {flag}: K1 launched "
-              f"{c['preprocess']} times in 6 steps")
-        counts[mode] = c["preprocess"]
+        run, graph = k1_run(lines)
+        check(run == 6 and graph["replays"] == 1, f"{variant} {flag}: K1 "
+              f"ran {run} times in 6 steps (graphs {graph})")
+        counts[mode] = run
         for l in lines:
             if not l.startswith("config: "):
                 print(f"folder trainer {variant}| " + l, flush=True)
@@ -2156,22 +2219,35 @@ def folder_trainer_phase(smi, root):
         state = init_train_state(cfg, torch.Generator().manual_seed(1),
                                  device="cuda")
         quiet = lambda line: None  # noqa: E731
+        # one runner for every run here: the warm run's chunk runs eagerly
+        # and is captured, every later chunk is a replay
+        multi = build_multi_step(cfg)
         train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=3,
-                     scan_steps=3, log_fn=quiet)          # warm
-        n0 = P.launches["preprocess"]
-        lines = []
-        t0 = time.perf_counter()
-        train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=6,
-                     scan_steps=3, log_fn=lines.append)
-        wall = time.perf_counter() - t0
-        check(P.launches["preprocess"] - n0 == 6, "K1 once a step")
-        data_s = [float(re.search(r"DataTime: ([\d.]+)", l).group(1))
-                  for l in lines if l.startswith("Epoch:")]
+                     scan_steps=3, multi_step_fn=multi, log_fn=quiet)
+        timed = {}
+        for staged in (False, True):
+            n0, since = P.launches["preprocess"], multi.stats()
+            lines = []
+            t0 = time.perf_counter()
+            train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=6,
+                         scan_steps=3, multi_step_fn=multi,
+                         log_fn=lines.append, stage_ahead=staged)
+            wall = time.perf_counter() - t0
+            counted = P.launches["preprocess"] - n0
+            run = launches_run({"preprocess": counted}, multi,
+                               since)["preprocess"]
+            check(counted == 0 and run == 6,
+                  f"K1 once a step, every chunk a replay: counted {counted}, "
+                  f"ran {run}")
+            data_s = [float(re.search(r"DataTime: ([\d.]+)", l).group(1))
+                      for l in lines if l.startswith("Epoch:")]
+            timed[staged] = (wall, data_s)
+        wall, data_s = timed[False]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             train_epochs(cfg, state, batch_fn, niter=1, steps_per_epoch=3,
-                         scan_steps=3, log_fn=quiet)
+                         scan_steps=3, multi_step_fn=multi, log_fn=quiet)
             torch.cuda.synchronize()
             pwall = time.perf_counter() - t1
         device_us = sum(_device_us(r) for r in prof.key_averages()
@@ -2181,9 +2257,14 @@ def folder_trainer_phase(smi, root):
         loader.close()
     step = build_train_step(cfg)
     step(state, dev_batch)                                # warm
+    swall, sdata = timed[True]
     r = {"images_per_s": round(6 * cfg.batchSize / wall, 2),
          "step_ms": round(wall / 6 * 1e3, 4),
          "data_stage_ms_per_step": round(sum(data_s) / 6 * 1e3, 4),
+         "stage_ahead": {
+             "images_per_s": round(6 * cfg.batchSize / swall, 2),
+             "step_ms": round(swall / 6 * 1e3, 4),
+             "data_stage_ms_per_step": round(sum(sdata) / 6 * 1e3, 4)},
          "device_busy_share": round(device_us * 1e-6 / pwall, 4),
          "device_ms_per_step": round(device_us / 3 * 1e-3, 4),
          "n_threads": cfg.nThreads, "crop_check": crop,
@@ -2335,6 +2416,385 @@ def eval_phase(smi):
     print(f"eval on the card against the CPU, TexturedImages at batch 100, "
           f"on {smi}: " + json.dumps(out, default=float), flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the channels-last pair in bf16
+# ---------------------------------------------------------------------------
+
+# ((B, Ci, Cm, Co, H, W), tm): the three built triples, ragged widths, a
+# pass clipped at its band's end, and bench_fused's shape (timed)
+K3_BF16_CASES = [((2, 8, 4, 8, 32, 37), 8), ((2, 16, 8, 16, 64, 100), 32),
+                 ((2, 32, 16, 32, 32, 33), 16), ((3, 16, 8, 16, 6, 3), 6),
+                 ((100, 16, 8, 16, 256, 256), 32)]
+
+
+def hold_k3_bf16(F3, args, tm, label):
+    """K3 on bf16 x against its plain bf16 version on the same inputs: y
+    within TOL_Y_BF16_STEPS bf16 steps of max |y| with at most
+    TOL_Y_BF16_SHARE of its elements different at all, moments within
+    TOL_STATS; only the bf16 launch counts move.  Returns (max |dy|, max
+    |dstats|, share of y that differs, y, mean, var)."""
+    import torch
+    n0 = dict(F3.launches)
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
+    torch.cuda.synchronize()
+    check(y.dtype == torch.bfloat16 and m.dtype == torch.float32,
+          f"K3 bf16 gave y {y.dtype}, moments {m.dtype}")
+    check(F3.launches == {k: c + k.endswith("_bf16") for k, c in n0.items()},
+          f"K3 bf16 launched {F3.launches} (before {n0})")
+    check(bool(torch.isfinite(y).all()), f"non-finite K3 bf16 y at {label}")
+    d = (y.float() - yp.float()).abs()
+    ey, share = d.max().item(), (d > 0).float().mean().item()
+    check(ey <= TOL_Y_BF16_STEPS * bf16_step(yp.float()),
+          f"K3 bf16 differs from its plain version by {ey:.3e} at {label}")
+    check(share <= TOL_Y_BF16_SHARE,
+          f"K3 bf16: {share:.4%} of y differs at {label}")
+    check(_close(m, mp, TOL_STATS) and _close(v, vp, TOL_STATS),
+          f"K3 bf16 moments disagree at {label}")
+    es = max((m - mp).abs().max().item(), (v - vp).abs().max().item())
+    print(f"K3 bf16 {label} tm {tm}: max|dy| {ey:.3e} (a bf16 step of "
+          f"max|y|: {bf16_step(yp.float()):.3e}), {share:.4%} of y differs, "
+          f"max|dstats| {es:.3e}", flush=True)
+    return ey, es, share, y, m, v
+
+
+def k3_bf16_phase(smi):
+    """Phase 21: K3's bf16 instantiation against its plain version, its
+    launches timed in turns against the fp32 tensor-core kernel at
+    bench_fused's shape, and bench_fused --kernel nhwc (bf16 by default) as
+    users start it.  Returns ({kernel: worst |diff|}, the timing row,
+    bench_fused's launch counts)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    dev = torch.device("cuda")
+    err = {"fused_nhwc_stats_bf16": 0.0, "fused_nhwc_main_bf16": 0.0}
+    row = None
+    for (b, ci, cm, co, h, w), tm in K3_BF16_CASES:
+        rng = np.random.RandomState(b + ci)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+        xb = torch.randn((b, ci, h, w), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(b)
+                         ).to(torch.bfloat16)
+        wT, wC = t(0.1 * rng.randn(ci, cm, 4, 4)), t(0.1 * rng.randn(co, cm, 4, 4))
+        scale, bias = t(1 + 0.1 * rng.randn(cm)), t(0.1 * rng.randn(cm))
+        args = (xb, wT, scale, bias, wC)
+        geom = (b, ci, cm, co, h, w)
+        ey, es, share, y, m, v = hold_k3_bf16(F3, args, tm, str(geom))
+        err["fused_nhwc_main_bf16"] = max(err["fused_nhwc_main_bf16"], ey)
+        err["fused_nhwc_stats_bf16"] = max(err["fused_nhwc_stats_bf16"], es)
+        del y
+        if b != 100:
+            continue
+        # times per launch at bench_fused's shape: the bf16 kernel and the
+        # fp32 tensor-core kernel on the same values (x rounded to bf16), in
+        # turns (fp32, bf16, bf16, fp32), and the whole call likewise
+        x32 = xb.float()
+        xn = {"bf16": xb.permute(0, 2, 3, 1).contiguous()}
+        xn["fp32"] = xn["bf16"].float()
+        ops = {"bf16": F3.operands(wT, wC, "mma", torch.bfloat16),
+               "fp32": F3.operands(wT, wC, "mma")}
+        bn = F3._bn_rows(m, v, scale, bias, 1e-5)
+        st, st_best = in_turns(
+            {k: (lambda k=k: F3.launch_stats(xn[k], ops[k][0], cm, tm, "mma"))
+             for k in ("fp32", "bf16")}, 10)
+        mn, mn_best = in_turns(
+            {k: (lambda k=k: F3.launch_main(xn[k], *ops[k], bn, cm, co, tm,
+                                            "mma"))
+             for k in ("fp32", "bf16")}, 10)
+        pair, _ = in_turns(
+            {"fp32": lambda: F3.fused_convT_bn_relu_conv(
+                x32, wT, scale, bias, wC, tm=tm),
+             "bf16": lambda: F3.fused_convT_bn_relu_conv(*args, tm=tm)}, 5)
+        as_bf16 = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+        xl = F3._pad_nhwc(x32).contiguous()
+        wtall, wcall = (as_bf16(F3._pack_wT(wT)), as_bf16(F3._pack_wC(wC)))
+        gain = scale / torch.sqrt(v + 1e-5)
+        wTb, wCb = wT.to(torch.bfloat16), wC.to(torch.bfloat16)
+        with N.fp32_convs():
+            row = {
+                "shape": [b, ci, h, w], "tm": tm, "dtype": "bf16",
+                "stats_ms": st["bf16"], "main_ms": mn["bf16"],
+                "stats_fp32_ms": st["fp32"], "main_fp32_ms": mn["fp32"],
+                "pair_ms": pair["bf16"], "pair_fp32_ms": pair["fp32"],
+                "plain_stats_ms": time_ms(
+                    lambda: F3.plain_stats(xl, wtall, tm), 3),
+                "plain_main_ms": time_ms(lambda: F3.plain_main(
+                    xl, wtall, wcall, m, gain, bias, tm,
+                    round_parts=as_bf16), 3),
+                "lib_stats_ms": time_ms(lambda: torch.var_mean(
+                    F.conv_transpose2d(xb, wTb, stride=2, padding=1).float(),
+                    dim=(0, 2, 3), correction=0), 5),
+                "lib_main_ms": time_ms(lambda: F.conv2d(F.relu(F.batch_norm(
+                    F.conv_transpose2d(xb, wTb, stride=2, padding=1), m, v,
+                    scale, bias, training=False)), wCb, stride=2,
+                    padding=1), 5),
+            }
+        hw = b * h * w
+        slots = F3.M.Schedule(b, h, w, tm).n_items
+        f_stats = 2 * hw * (4 * ci) * (4 * cm) + 3 * 4 * hw * cm
+        f_main = f_stats + 2 * hw * (16 * cm) * co
+        # each input byte read once, each output byte written once
+        b_stats = 2 * (hw * ci + 16 * ci * cm) + 4 * slots * 2 * cm
+        b_main = 2 * (hw * ci + hw * co + 16 * ci * cm + 16 * cm * co) \
+            + 4 * 12 * cm
+        row["stats_bound"] = bound(f_stats, b_stats, PEAK_BF16)
+        row["main_bound"] = bound(f_main, b_main, PEAK_BF16)
+        for k in ("stats", "main"):
+            row[f"{k}_share_of_bound"] = row[f"{k}_bound"][0] / row[f"{k}_ms"]
+        row["bf16_over_fp32"] = {"stats": st["fp32"] / st["bf16"],
+                                 "main": mn["fp32"] / mn["bf16"]}
+        print(f"K3 bf16 times on {smi}: " + _fmt(row), flush=True)
+        del x32, xn, xl, xb
+        torch.cuda.empty_cache()
+
+    # bench_fused --kernel nhwc as users start it: bf16 by default
+    lines = _module(["dcgan_sr_tpu_torch.bench_fused", "--kernel", "nhwc",
+                     "--iters", "10"])
+    rec = json.loads(lines[-1])
+    counts = json.loads(lines[-2][len("kernel launches: "):])
+    by_impl = json.loads(lines[-3][len("implementation launches: "):])
+    check((rec["batch"], rec["hw"], rec["kernel"], rec["dtype"])
+          == (100, 256, "nhwc", "bf16"), f"bench_fused ran {rec}")
+    check(0 <= rec["max_abs_diff"] <= TOL_BENCH_BF16,
+          f"bench_fused --kernel nhwc: max_abs_diff {rec['max_abs_diff']}")
+    names = ("fused_nhwc_stats_bf16", "fused_nhwc_main_bf16")
+    check(all(counts[n] > 0 for n in names)
+          and counts["fused_nhwc_stats"] == counts["fused_nhwc_main"] == 0
+          and by_impl["fused_nhwc"]["mma_bf16"] == sum(counts[n]
+                                                        for n in names),
+          f"bench_fused --kernel nhwc launched {counts}, {by_impl}")
+    print(f"bench_fused --kernel nhwc (bf16 default) on {smi}: "
+          + json.dumps(rec) + " launches " + json.dumps(counts), flush=True)
+    return err, row, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the trainer's K-step chunk as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _busy(fn, steps):
+    """(device busy share of the wall time, device ms a step) of one call of
+    fn, `steps` train steps, under torch.profiler; (None, None) where the
+    profiler reports no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcgan_sr_tpu_torch.profile_step import _device_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    us = sum(_device_us(r) for r in prof.key_averages()
+             if r.device_type == DeviceType.CUDA)
+    if us <= 0:
+        return None, None
+    return round(us * 1e-6 / wall, 4), round(us * 1e-3 / steps, 4)
+
+
+def _adam_host_step_size_(params, grads, state, *, lr=2e-4, beta1=0.5,
+                          beta2=0.999, eps=1e-8):
+    """ops/adam.py's update with the step count a Python int and the step
+    size a Python float (one addcdiv pass, nothing computed on the card for
+    the step size; a CUDA graph would freeze it): the yardstick of Adam's
+    cost on the eager path."""
+    import math
+
+    import torch
+
+    state["t"] += 1
+    t = state["t"]
+    step_size = lr * math.sqrt(1.0 - beta2 ** t) / (1.0 - beta1 ** t)
+    m, v = state["m"], state["v"]
+    torch._foreach_mul_(m, beta1)
+    torch._foreach_add_(m, grads, alpha=1.0 - beta1)
+    torch._foreach_mul_(v, beta2)
+    torch._foreach_addcmul_(v, grads, grads, value=1.0 - beta2)
+    denom = torch._foreach_sqrt(v)
+    torch._foreach_add_(denom, eps)
+    torch._foreach_addcdiv_(params, m, denom, value=-step_size)
+
+
+def adam_forms(state, n=50):
+    """Adam's update of G and D as one step runs it (D, then G), `n` steps,
+    in turns (card, host, host, card): ops/adam.py (the step count a device
+    tensor) against `_adam_host_step_size_`, on copies of the state's
+    parameters with fixed gradients.  Per step: the host's us to queue it
+    and the device's us (CUDA events)."""
+    import torch
+
+    from dcgan_sr_tpu_torch.ops.adam import adam_init, adam_update_
+    from dcgan_sr_tpu_torch.train.step import params_of
+
+    nets = [[p.detach().clone() for p in params_of(net)]
+            for net in (state.d, state.g)]
+    grads = [[torch.randn_like(p) * 1e-2 for p in ps] for ps in nets]
+    forms = {"card_t": (adam_update_, [adam_init(ps) for ps in nets]),
+             "host_t": (_adam_host_step_size_,
+                        [{**adam_init(ps), "t": 0} for ps in nets])}
+    out = {k: {"host_us": [], "device_us": []} for k in forms}
+    for name in ("card_t", "host_t", "host_t", "card_t"):
+        fn, opts = forms[name]
+        for ps, gs, st in zip(nets, grads, opts):    # warm
+            with torch.no_grad():
+                fn(ps, gs, st)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        e0.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            for ps, gs, st in zip(nets, grads, opts):
+                with torch.no_grad():
+                    fn(ps, gs, st)
+        host = time.perf_counter() - t0
+        e1.record()
+        torch.cuda.synchronize()
+        out[name]["host_us"].append(round(host / n * 1e6, 2))
+        out[name]["device_us"].append(round(e0.elapsed_time(e1) / n * 1e3,
+                                            2))
+    return out
+
+
+def graph_step_phase(smi):
+    """Phase 22: the eager loop and the CUDA graph of a K = 20 chunk in
+    turns for bench.py's three bf16 trainers; one replayed chunk against
+    two eager runs of it from a copy of the graph's state; Adam's two
+    forms in turns; then the CLI with and without --stage-ahead.  Returns
+    {variant: row}."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+    from dcgan_sr_tpu_torch.train.step import (init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    dev = torch.device("cuda")
+    out = {}
+    for variant, shape in BF16_TRAIN:
+        t_variant = time.perf_counter()
+        cfg = get_config(variant, env_override=False,
+                         compute_dtype="bfloat16")
+        # two chunks of their own batches: the warm-up (eager, then the
+        # capture) and the compared replay; the timed turns reuse them
+        hr = _cli_batches(cfg, 2 * K_STEPS, dev)
+        chunks = (hr[:K_STEPS], hr[K_STEPS:])
+        sg = init_train_state(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        mg, me = build_multi_step(cfg), build_multi_step(cfg)
+        mg(sg, chunks[0])
+        # the eager twins start where the warm-up left the graph's state
+        snap = state_to_numpy(sg)
+        se, se2 = (state_from_numpy(cfg, snap, device=dev) for _ in range(2))
+        lg, le1, le2 = (
+            torch.stack([m[k] for k in sorted(m)]).float().cpu().numpy()
+            for m in (mg(sg, chunks[1])[1], me.eager(se, chunks[1])[1],
+                      me.eager(se2, chunks[1])[1]))
+        # step 0 is a forward from one state on one batch: the replay must
+        # agree with the twins as they agree among themselves (a replay
+        # that trained on stale input would not); later steps within twice
+        # the twins' largest spread over the chunk
+        spread = np.abs(le1 - le2)
+        diff = np.abs(lg - le1)
+        floor = 1e-6 * (1 + np.abs(le1).max())
+        check(bool(np.isfinite(lg).all())
+              and (diff[:, 0] <= 2 * spread[:, 0] + floor).all()
+              and diff.max() <= 2 * spread.max() + floor,
+              f"{variant}: the replayed chunk differs from eager by "
+              f"{diff.max():.3e} ({diff[:, 0].max():.3e} at its first "
+              f"step), the eager twins by {spread.max():.3e} "
+              f"({spread[:, 0].max():.3e})")
+        del se2
+
+        def timed(name, chunk):
+            fn, st = (me.eager, se) if name == "eager" else (mg, sg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = fn(st, chunk)
+            m["errG"][-1].item()
+            return (time.perf_counter() - t0) / K_STEPS * 1e3
+
+        turns = {"eager": [], "graph": []}
+        for name, c in (("eager", 0), ("graph", 0), ("graph", 1),
+                        ("eager", 1)):
+            turns[name].append(timed(name, chunks[c]))
+        check(mg.captures == 1 and mg.replays == 3
+              and int(sg.g_opt["t"]) == int(sg.d_opt["t"]) == 4 * K_STEPS,
+              f"{variant}: {mg.stats()}, t {int(sg.g_opt['t'])}: Adam's "
+              f"step count advances by K a replay")
+        # the profiler's own host cost grows with the launches it records:
+        # the eager loop is profiled over 5 steps, the graph over a replay
+        busy = {"eager": _busy(lambda: me.eager(se, hr[:5]), 5),
+                "graph": _busy(lambda: mg(sg, chunks[0]), K_STEPS)}
+        imgs = cfg.images_consumed_per_step
+        r = {"images_a_step": imgs, "K": K_STEPS,
+             "max_abs_diff_graph_vs_eager": float(diff.max()),
+             "eager_run_to_run_spread": float(spread.max()),
+             "diff_first_step": float(diff[:, 0].max()),
+             "eager_spread_first_step": float(spread[:, 0].max())}
+        for name, ts in turns.items():
+            ms = sum(ts) / 2
+            share, dms = busy[name]
+            r[name] = {"step_ms": round(ms, 4), "turns_ms": [round(v, 4)
+                                                               for v in ts],
+                       "images_per_s": round(imgs / (ms / 1e3), 2),
+                       "device_busy_share": share,
+                       "device_ms_per_step": dms}
+        r["graph_over_eager"] = round(r["eager"]["step_ms"]
+                                      / r["graph"]["step_ms"], 4)
+        check(all(math.isfinite(v) for v in (r["eager"]["step_ms"],
+                                             r["graph"]["step_ms"])),
+              f"{variant} step times")
+        r["adam_per_step"] = adam_forms(sg)
+        r["phase_s"] = round(time.perf_counter() - t_variant, 1)
+        print(f"graph vs eager, bf16 {variant} {shape}, K={K_STEPS}, on "
+              f"{smi}: " + json.dumps(r), flush=True)
+        out[variant] = r
+        del sg, se, mg, me, hr, chunks
+        torch.cuda.empty_cache()
+
+    # the trainer as users start it, with and without --stage-ahead
+    for staged in (False, True):
+        args = ["--config", "gray-3", "--synthetic", "--bf16", "--feed-bf16",
+                "--steps", "40", "--scan", str(K_STEPS), "--epochs", "1",
+                "--seed", "1"] + (["--stage-ahead"] if staged else [])
+        t0 = time.perf_counter()
+        lines = _cli(args)
+        wall = time.perf_counter() - t0
+        steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
+        check(len(steps) == 2 and all(steps), f"log lines: {lines}")
+        run, graph = k1_run(lines)
+        check(run == 40 and graph["captures"] == 1 and graph["replays"] == 1,
+              f"cli --scan {K_STEPS}: K1 ran {run} times, graphs {graph}")
+        data = [float(re.search(r"DataTime: ([\d.]+)", l).group(1))
+                for l in lines if l.startswith("Epoch:")]
+        times = [float(re.search(r"Time: ([\d.]+)", l).group(1))
+                 for l in lines if l.startswith("Epoch:")]
+        r = {"wall_s": round(wall, 3), "chunk_time_s": times,
+             "chunk_data_time_s": data,
+             "replayed_chunk_images_per_s": round(
+                 K_STEPS * 100 / times[1], 2), "k1_run": run}
+        print(f"cli gray-3 --bf16 --feed-bf16 --scan {K_STEPS} "
+              f"{'--stage-ahead ' if staged else ''}on {smi}: "
+              + json.dumps(r), flush=True)
+        out[f"cli_stage_ahead_{staged}"] = r
+    return out
+
 
 
 def main():
@@ -2619,6 +3079,15 @@ def main():
                      for k in ("bulge_stats", "bulge_main")}
 
     stamp()
+    # phase 21: K3 in bf16 against its plain version, its times, and
+    # bench_fused --kernel nhwc (bf16 by default) in a process of its own
+    k3b_err, k3b_row, k3b_launches = k3_bf16_phase(smi)
+
+    stamp()
+    # phase 22: the trainer's K-step chunk as one CUDA graph
+    graph_step_phase(smi)
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -2720,6 +3189,22 @@ def main():
             "bound_fp32_fma_ms": nhwc_row[f"{key}_bound_fp32_fma"][0],
             "pair_ms": nhwc_row["pair_ms"],
             "pair_fma_ms": nhwc_row["pair_fma_ms"]})
+    for name, line, key in (("fused_nhwc_stats_bf16", 98, "stats"),
+                            ("fused_nhwc_main_bf16", 119, "main")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
+            "replaces": f"dcgan_sr_tpu/ops/pallas_fused.py:{line}",
+            "launches": k3b_launches[name], "max_abs_err": k3b_err[name],
+            "ms": k3b_row[f"{key}_ms"],
+            "plain_ms": k3b_row[f"plain_{key}_ms"],
+            "bound_ms": k3b_row[f"{key}_bound"][0],
+            "bound_by": k3b_row[f"{key}_bound"][1],
+            "library_ms": k3b_row[f"lib_{key}_ms"],
+            "shape": k3b_row["shape"], "dtype": "bf16",
+            "fp32_mma_ms": k3b_row[f"{key}_fp32_ms"],
+            "pair_ms": k3b_row["pair_ms"],
+            "pair_fp32_ms": k3b_row["pair_fp32_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,7 +3,7 @@ composition at the gray-3 bulge geometry (B=100, 16ch 256 -> 8ch 512 -> 16ch
 256).  Port of tools/bench_fused.py.
 
   python -m dcgan_sr_tpu_torch.bench_fused [--batch 100] [--hw 256]
-         [--dtype fp32] [--kernel bulge|nhwc] [--tm 32] [--iters 20]
+         [--dtype bf16|fp32] [--kernel bulge|nhwc] [--tm 32] [--iters 20]
          [--reps 3] [--cpu]
 
 --kernel bulge times ops/bulge.py (csrc/bulge.cu), --kernel nhwc
@@ -14,12 +14,11 @@ back-to-back calls ending in a synchronize, best of --reps; with --cpu the
 host clock (the CPU run checks the plumbing: its times are not the card's).
 Prints a line with each kernel's launches by implementation ("mma" tensor
 cores, "fma" the FMA kernel, chosen by the shapes), one with the kernels'
-launch counts, then one JSON line with the JAX tool's keys.  `--dtype bf16`
-feeds x in bf16 (the weights stay fp32, as in the JAX tool) to the bulge
-kernel's bf16 instantiation and to the unfused composition in bf16 (the
-port's bf16 convolutions and BN); `--kernel nhwc --dtype bf16` raises,
-because the NHWC pair has no bf16 kernel yet.  The default stays fp32 until
-it has.
+launch counts, then one JSON line with the JAX tool's keys.  `--dtype bf16`,
+the default as in the JAX tool (tools/bench_fused.py:31), feeds x in bf16
+(the weights stay fp32, as in the JAX tool) to the kernel's bf16
+instantiation (either kernel) and to the unfused composition in bf16 (the
+port's bf16 convolutions and BN); `--dtype fp32` runs both in fp32.
 """
 
 from __future__ import annotations
@@ -44,8 +43,8 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, default=100)
     ap.add_argument("--hw", type=int, default=256)
-    ap.add_argument("--dtype", default="fp32", choices=["bf16", "fp32"],
-                    help="x's dtype; bf16 runs --kernel bulge only")
+    ap.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                    help="x's dtype (the weights stay fp32)")
     ap.add_argument("--kernel", default="bulge", choices=["bulge", "nhwc"])
     ap.add_argument("--tm", type=int, default=32,
                     help="band height of the nhwc kernel")
@@ -55,9 +54,6 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
-    if args.dtype == "bf16" and args.kernel == "nhwc":
-        raise NotImplementedError(
-            "--kernel nhwc --dtype bf16: the NHWC pair has no bf16 kernel yet")
 
     import numpy as np
     import torch

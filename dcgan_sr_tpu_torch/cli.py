@@ -24,10 +24,18 @@ and their steps per epoch count images.
 batches' float leaves to the device as bf16, which the step upcasts.  `--eval`
 scores `--eval-sets` file_sets of the train and test slices in fp32 through
 an inference copy of G (the fused pair, K2 on a card); `--samples-dir` dumps
-one sample's PNGs with the reference's stats lines.  The last line counts
-the kernels' launches (training, eval and dumps).  Options of the JAX CLI
-that the port does not have yet (data parallel, stage-ahead, the opt-in
-rewrites, profiling) are absent.
+one sample's PNGs with the reference's stats lines.
+
+`--scan K` runs K steps a call; on a card each full chunk after the first
+is ONE CUDA graph replay (train/multi_step.py), and `--stage-ahead` builds
+and copies chunk c+1 while the card runs chunk c (train/loop.py).
+`--profile-dir` writes a torch.profiler trace of the training run
+(utils/profiling.py).  The last line counts the kernels' launches that
+ran (training, eval and dumps; train/multi_step.py `launches_run`: a
+launch captured into a graph runs at each replay, not at its capture);
+with `--scan` the line before "Total time" says what the graphs captured
+and replayed.  Options of the JAX CLI that the port does not have
+yet (data parallel, the opt-in rewrites) are absent.
 """
 
 from __future__ import annotations
@@ -55,9 +63,11 @@ from .metrics import cal_psnr, cal_ssim
 from .ops import bulge, preprocess
 from .train.checkpoint import latest_epoch, load_checkpoint
 from .train.loop import train_epochs
+from .train.multi_step import build_multi_step, launches_run
 from .train.step import init_train_state
 from .utils.device import pick_device
 from .utils.logging import MetricsLogger
+from .utils.profiling import profile_trace
 from .utils.stats import print_tensor_stats
 
 # the reference's folder route (DATA_ROOT, dcgan_sr_tpu/cli.py:56-57); the
@@ -308,8 +318,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=None,
                     help="steps per epoch (default: ntrain/batchSize)")
     ap.add_argument("--scan", type=int, default=1,
-                    help="queue K steps per call over one (K, B, ...) "
-                         "super-batch (epoch math unchanged)")
+                    help="K steps per call over one (K, B, ...) super-batch; "
+                         "on a card one CUDA graph replay per chunk (epoch "
+                         "math unchanged)")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--data-root", default=None,
                     help="the dataset's route: an image folder (rgb-full, "
@@ -344,6 +355,12 @@ def main(argv=None):
                     help="add W * MSE(fake, real) to G's objective")
     ap.add_argument("--g-ema", type=float, default=None, metavar="D",
                     help="keep an EMA copy of G (decay D, e.g. 0.999)")
+    ap.add_argument("--stage-ahead", action="store_true",
+                    help="double-buffer the feed: build + copy chunk c+1 "
+                         "while the device computes chunk c (pinned memory, "
+                         "a copy stream). Hides host batch work and the "
+                         "host-to-device copy behind compute; same batches "
+                         "in the same order, so training math is unchanged")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 compute (fp32 master parameters)")
     ap.add_argument("--feed-bf16", action="store_true",
@@ -366,6 +383,8 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=1,
                     help="metric fetch/log cadence; >1 lets the host queue "
                          "steps ahead (a fetch waits for the device)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of the run")
     args = ap.parse_args(argv)
     device = pick_device(args.cpu)
 
@@ -413,14 +432,18 @@ def main(argv=None):
         steps = max(int(ntrain) // imgs, 1)
 
     logger = MetricsLogger(jsonl_path=args.metrics_jsonl)
+    multi_step_fn = build_multi_step(cfg) if args.scan > 1 else None
     t0 = time.perf_counter()
     try:
-        state, _ = train_epochs(
-            cfg, state, batch_fn, niter=epochs, steps_per_epoch=steps,
-            checkpoint_dir=args.checkpoint_dir, logger=logger,
-            log_every=args.log_every, scan_steps=args.scan,
-            start_epoch=start_epoch,
-            feed_dtype=torch.bfloat16 if args.feed_bf16 else None)
+        with profile_trace(args.profile_dir,
+                           enabled=args.profile_dir is not None):
+            state, _ = train_epochs(
+                cfg, state, batch_fn, niter=epochs, steps_per_epoch=steps,
+                checkpoint_dir=args.checkpoint_dir, logger=logger,
+                log_every=args.log_every, scan_steps=args.scan,
+                multi_step_fn=multi_step_fn, start_epoch=start_epoch,
+                feed_dtype=torch.bfloat16 if args.feed_bf16 else None,
+                stage_ahead=args.stage_ahead)
         if args.do_eval:
             run_eval(cfg, state, loader, args)
         if args.samples_dir:
@@ -434,9 +457,11 @@ def main(argv=None):
             loader.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    if multi_step_fn is not None:
+        print("graph launches: " + json.dumps(multi_step_fn.stats()))
     print("Total time: %.3f" % (time.perf_counter() - t0))
-    print("kernel launches: " + json.dumps(
-        {**bulge.launches, **preprocess.launches}))
+    print("kernel launches: " + json.dumps(launches_run(
+        {**bulge.launches, **preprocess.launches}, multi_step_fn)))
     return state
 
 

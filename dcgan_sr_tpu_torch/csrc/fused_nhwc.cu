@@ -21,7 +21,8 @@
 // zeroed after the ReLU.  H must be a multiple of tm, as in the TPU kernel;
 // any W, any batch.
 //
-// Two kernels live here.
+// Three kernels live here: (1) and its bf16 instantiation (3) serve the
+// built channel triples, (2) every triple in fp32.
 //
 // (1) The tensor-core kernel (namespace tc; entries fused_nhwc_stats_f32,
 //     fused_nhwc_main_f32), for the channel triples (Ci, Cm, Co) = (8, 4, 8),
@@ -93,9 +94,47 @@
 //     to 64).  A batch over 65,535 images, or more bands than that, goes in
 //     several launches.
 //
+// (3) The tensor-core kernel in bf16 (namespace tcb; entries
+//     fused_nhwc_stats_bf16, fused_nhwc_main_bf16): the function of
+//     fused_convT_bn_relu_conv with bf16 x (pallas_fused.py:193-194, 153,
+//     168, 239).  x, the packed weights, the planes fed to stage 2 and y are
+//     bf16; each product is ONE mma.sync.m16n8k16 bf16 pass with fp32
+//     accumulators (no split); statistics, BN, ReLU and the edge mask run in
+//     fp32 on the accumulators, and a plane is rounded to bf16 only when it
+//     is stored.  Same items, schedule, persistent grid, cp.async staging and
+//     next-x overlap as (1).
+//
+//     A register of an m16n8k16 fragment holds two k-adjacent bf16 values:
+//     register j of lane (g, t) holds mma k 8j + 2t and 8j + 2t + 1.  The k
+//     index is permuted within every group of 16 so that mma k 8j + 2t + i
+//     is channel 4t + 2j + i: a lane's two registers of a row are channels
+//     4t .. 4t + 3 of one NHWC pixel, ONE 8-byte load (a group of 16 is four
+//     runs of 4 channels; channel counts are multiples of 8, so no run
+//     straddles two taps or two windows).  The host packs W1 and W2 in the
+//     same order (ops/fused_nhwc_mma.py to_fragments_bf16): a lane's four
+//     values of an n8 tile are one 8-byte load too.  Pixel strides are odd
+//     multiples of 32 bytes (xs: 16, 16, 48 bf16 at Ci 8, 16, 32; hp:
+//     4 Cmp + 16 = 48, 80), so the four pixels of a half warp's 8-byte loads
+//     fall on distinct 8-bank groups, as in (1).  The epilogue stores a
+//     lane's two columns as one bf16 pair (4 bytes), y leaves as bf16 pairs.
+//
+//     Shared memory, bytes: at Ci 16 / Cm 8 / Co 16, W1 4,096 + W2 4,096 +
+//     xs 10*37*16*2 = 11,840 + hp 297*48*2 = 28,512 + BN 96 = 48,640 (half
+//     of (1)'s 99,520; launch bound 2 caps the registers at 128, and the
+//     occupancy query takes whatever more the registers allow).  At Ci 32 /
+//     Cm 16 / Co 32: 16,384 + 16,384 + 35,520 + 47,520 + 192 = 116,000: one
+//     block.
+//
+//     Bounds on an H100 (bf16 dense 989 TFLOP/s; HBM 3.35 TB/s): at x
+//     (100, 16, 256, 256) bf16, Cm 8, Co 16, the stats launch reads x (210
+//     MB; 223 MB with the tm + 2 row halo of tm 32) and the main launch also
+//     writes y (210 MB): 0.063 / 0.125 ms for the bytes, against 27.5 / 54.3
+//     GFLOP, 0.028 / 0.055 ms: both bound by bytes.
+//
 // Plain C interface, loaded with ctypes (dcgan_sr_tpu_torch/ops/fused_nhwc.py).
 // Each launch entry returns the cudaError_t of its launch (0 = launched).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -676,6 +715,440 @@ int launch_stats(const float* x, const float* w1, float* partial, int B,
 
 }  // namespace tc
 
+// The bf16 instantiation of the tensor-core kernel; see (3) in the header.
+namespace tcb {
+
+using tc::Grid;
+using tc::Item;
+using tc::M1PAIRS;
+using tc::M1T;
+using tc::NG;
+using tc::NPOS;
+using tc::NT;
+using tc::NWARP;
+using tc::PC;
+using tc::R;
+using tc::TW;
+using tc::XC;
+using tc::XR;
+
+typedef __nv_bfloat16 bf16;
+
+// pixel strides of xs and hp in bf16: odd multiples of 16 (32 bytes)
+__host__ __device__ constexpr int xs_stride_b(int ci) {
+  return ci <= 16 ? 16 : ci + 16;
+}
+__host__ __device__ constexpr int hp_stride_b(int cmp) { return 4 * cmp + 16; }
+
+static_assert(xs_stride_b(8) % 64 == 16 && xs_stride_b(16) % 64 == 16 &&
+                  xs_stride_b(32) % 64 == 48,
+              "bf16 xs pixel stride");
+static_assert(hp_stride_b(8) % 64 == 48 && hp_stride_b(16) % 64 == 16,
+              "bf16 hp pixel stride");
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two fp32 values rounded to bf16 (to nearest even), `lo` in the lower half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One lane's A fragment of a k16 step from two 8-byte loads: channels
+// 4t .. 4t+3 of rows g (p0) and g + 8 (p1).  The first pair of a row is
+// register 0 (row g) or 1 (row g + 8), the second register 2 or 3.
+__device__ __forceinline__ void load_a(const bf16* p0, const bf16* p1,
+                                       uint32_t (&a)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p0);
+  const uint2 v = *reinterpret_cast<const uint2*>(p1);
+  a[0] = u.x;
+  a[1] = v.x;
+  a[2] = u.y;
+  a[3] = v.y;
+}
+
+// xs[r][q][c] = x[b, r0-1+r, c0-1+q, c], zero outside the image; a pixel is
+// CI/8 16-byte copies.
+template <int CI>
+__device__ __forceinline__ void stage_x(bf16* xs, const bf16* __restrict__ xb,
+                                        int r0, int c0, int H, int W, int tid) {
+  constexpr int PS = xs_stride_b(CI), V = CI / 8;
+  constexpr int PER_ROW = (TW + 2) * V;
+  for (int k = tid; k < XR * PER_ROW; k += NT) {
+    const int r = k / PER_ROW, rem = k - r * PER_ROW;
+    const int q = rem / V, v = rem - q * V;
+    const int gi = r0 - 1 + r, gj = c0 - 1 + q;
+    const bool in = (unsigned)gi < (unsigned)H && (unsigned)gj < (unsigned)W;
+    const bf16* src = in ? xb + ((size_t)gi * W + gj) * CI + 8 * v : xb;
+    tc::cp_async16(reinterpret_cast<float*>(xs + (r * XC + q) * PS + 8 * v),
+                   reinterpret_cast<const float*>(src), in ? 16 : 0);
+  }
+  tc::cp_async_commit();
+}
+
+// One unit of stage 1 in bf16: acc (MT m16 tiles from tile m0 x NG n8 tiles
+// of group nh) = A1 @ W1, handed to epi(m0, nh*NG*8, acc).  Lane t of k16
+// step ks reads logical k ks*16 + 4t .. +3: channels c .. c+3 of tap
+// (ks*16 + 4t) / CI.  w1: a lane's four values of an n8 tile at
+// ((ks*N1T + nt)*32 + lane)*4.
+template <int CI, int CMP, int MT, class Epi>
+__device__ __forceinline__ void stage1_unit(const bf16* xs, const bf16* w1,
+                                            int m0, int nh, int lane,
+                                            Epi& epi) {
+  constexpr int PS = xs_stride_b(CI);
+  constexpr int KS = 4 * CI / 16;      // k16 steps
+  constexpr int N1T = 4 * CMP / 8;     // n8 tiles: 4 or 8
+  const int g = lane >> 2, t = lane & 3;
+  int aoff[2 * MT];   // rows g, g+8 of each tile
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    int q = m0 * 16 + r * 8 + g;
+    q = q < NPOS ? q : NPOS - 1;       // phantom rows read a valid cell
+    aoff[r] = ((q / PC) * XC + q % PC) * PS;
+  }
+  float acc[MT][NG][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][ng][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int kl = ks * 16 + 4 * t;
+    const int tap = kl / CI, c = kl - tap * CI;
+    const int koff = ((tap >> 1) * XC + (tap & 1)) * PS + c;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      load_a(xs + aoff[2 * mt] + koff, xs + aoff[2 * mt + 1] + koff, a[mt]);
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng) {
+      const uint2 bv = *reinterpret_cast<const uint2*>(
+          w1 + ((ks * N1T + nh * NG + ng) * 32 + lane) * 4);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][ng], a[mt], bv.x, bv.y);
+    }
+  }
+  epi(m0, nh * NG * 8, acc);
+}
+
+// Stage 1 for one warp, the units shared out as in tc::stage1.
+template <int CI, int CMP, class Epi>
+__device__ __forceinline__ void stage1(const bf16* xs, const bf16* w1,
+                                       int warp, int lane, Epi& epi) {
+  constexpr int NH = 4 * CMP / 8 / NG;
+  static_assert(NWARP % NH == 0, "a warp keeps its group of n tiles");
+  for (int u = warp; u < M1PAIRS * NH; u += NWARP)
+    stage1_unit<CI, CMP, 2>(xs, w1, 2 * (u / NH), u % NH, lane, epi);
+  for (int u = warp; u < (M1T - 2 * M1PAIRS) * NH; u += NWARP)
+    stage1_unit<CI, CMP, 1>(xs, w1, 2 * M1PAIRS + u / NH, u % NH, lane, epi);
+}
+
+// Main epilogue in bf16: normalise, rectify and zero the consumer's padding
+// in fp32, then round a lane's two columns to a bf16 pair and store it.
+template <int CMP>
+struct MainEpi {
+  bf16* hp;
+  const float* bn;    // mu[CMP], gain[CMP], beta[CMP]
+  int r0, c0, H, W, lane;
+  template <int MT>
+  __device__ __forceinline__ void operator()(int m0, int n0,
+                                             const float (&acc)[MT][NG][4]) {
+    constexpr int HS = hp_stride_b(CMP);
+    const int g = lane >> 2, t = lane & 3;
+    float mu[NG][2], gain[NG][2], beta[NG][2];
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int col = 0; col < 2; ++col) {
+        const int cm = (ng * 8) % CMP + 2 * t + col;
+        mu[ng][col] = bn[cm];
+        gain[ng][col] = bn[CMP + cm];
+        beta[ng][col] = bn[2 * CMP + cm];
+      }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = (m0 + mt) * 16 + half * 8 + g;
+        if (q >= NPOS) continue;
+        const int pi = q / PC, pj = q - pi * PC;
+        bool row_in[2], col_in[2];
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          row_in[d] = (unsigned)(r0 + pi - d) < (unsigned)H;
+          col_in[d] = (unsigned)(c0 + pj - d) < (unsigned)W;
+        }
+#pragma unroll
+        for (int ng = 0; ng < NG; ++ng) {
+          const int par = n0 / CMP + (ng * 8) / CMP;
+          const bool in = row_in[par >> 1] && col_in[par & 1];
+          float v[2];
+#pragma unroll
+          for (int col = 0; col < 2; ++col) {
+            const float h = (acc[mt][ng][half * 2 + col] - mu[ng][col]) *
+                                gain[ng][col] + beta[ng][col];
+            v[col] = in ? fmaxf(h, 0.f) : 0.f;
+          }
+          *reinterpret_cast<uint32_t*>(hp + q * HS + n0 + ng * 8 + 2 * t) =
+              pack_bf16(v[0], v[1]);
+        }
+      }
+  }
+};
+
+// Stage 2 in bf16: warp `warp` computes y row r0 + warp of the item, all TW
+// columns and all CO channels.  Lane t of k16 step ks reads logical k
+// ks*16 + 4t .. +3: channels c .. c+3 of window w = (ks*16 + 4t) / CMP,
+// w = parity*4 + sa*2 + sb (W2's row order).
+template <int CMP, int CO>
+__device__ __forceinline__ void stage2(const bf16* hp, const bf16* w2,
+                                       int warp, int lane,
+                                       bf16* __restrict__ yb, const Item& it,
+                                       int W) {
+  constexpr int HS = hp_stride_b(CMP);
+  constexpr int KS = CMP;              // 16 * CMP / 16 k16 steps
+  constexpr int N2T = CO / 8;
+  static_assert(N2T <= NG, "stage 2 holds all of Co at once");
+  const int g = lane >> 2, t = lane & 3;
+  const int ml = warp;
+  int aoff[4];     // pixels g, g+8, g+16, g+24 of the row
+#pragma unroll
+  for (int r = 0; r < 4; ++r) aoff[r] = (ml * PC + r * 8 + g) * HS;
+  float acc[2][N2T][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < N2T; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int kl = ks * 16 + 4 * t;
+    const int win = kl / CMP, c = kl - win * CMP;
+    const int s = win & 3;
+    const int koff = ((s >> 1) * PC + (s & 1)) * HS + (win >> 2) * CMP + c;
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      load_a(hp + aoff[2 * mt] + koff, hp + aoff[2 * mt + 1] + koff, a[mt]);
+#pragma unroll
+    for (int nt = 0; nt < N2T; ++nt) {
+      const uint2 bv = *reinterpret_cast<const uint2*>(
+          w2 + ((ks * N2T + nt) * 32 + lane) * 4);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][nt], a[mt], bv.x, bv.y);
+    }
+  }
+  const int m = it.r0 + ml;
+  if (m >= it.rend) return;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = it.c0 + mt * 16 + half * 8 + g;
+      if (n >= W) continue;
+      bf16* yp = yb + ((size_t)m * W + n) * CO + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < N2T; ++nt)
+        *reinterpret_cast<uint32_t*>(yp + nt * 8) =
+            pack_bf16(acc[mt][nt][half * 2], acc[mt][nt][half * 2 + 1]);
+    }
+}
+
+template <int CI, int CMP, int CO>
+struct MainSmem {
+  static constexpr int W1N = 4 * CI * 4 * CMP;             // bf16
+  static constexpr int W2N = 16 * CMP * CO;                // bf16
+  static constexpr int XN = XR * XC * xs_stride_b(CI);     // bf16
+  static constexpr int HN = NPOS * hp_stride_b(CMP);       // bf16
+  static constexpr int BNN = 3 * CMP;                      // fp32
+  static constexpr size_t bytes =
+      2 * (size_t)(W1N + W2N + XN + HN) + 4 * (size_t)BNN;
+  static_assert((2 * (W1N + W2N)) % 16 == 0 && (2 * XN) % 16 == 0 &&
+                    (2 * HN) % 16 == 0,
+                "xs and hp 16-byte aligned");
+};
+
+// bn: (3, 4 cm) fp32 rows mean, gain, bias, each tiled over the four
+// parities; x, w1, w2, y bf16.
+template <int CI, int CMP, int CO>
+__global__ void __launch_bounds__(NT, (CI <= 16 ? 2 : 1))
+fused_nhwc_main_bf16_kernel(const bf16* __restrict__ x,
+                            const bf16* __restrict__ w1,
+                            const bf16* __restrict__ w2,
+                            const float* __restrict__ bn,
+                            bf16* __restrict__ y, int cm_n, int H, int W,
+                            Grid gd) {
+  using S = MainSmem<CI, CMP, CO>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_w1 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* s_w2 = s_w1 + S::W1N;
+  bf16* xs = s_w2 + S::W2N;
+  bf16* hp = xs + S::XN;
+  float* s_bn = reinterpret_cast<float*>(hp + S::HN);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t x_img = (size_t)H * W * CI, y_img = (size_t)H * W * CO;
+  long long idx = blockIdx.x;
+  if (idx >= gd.n_items) return;
+  tc::stage_weights(reinterpret_cast<float*>(s_w1),
+                    reinterpret_cast<const float*>(w1), S::W1N / 2, tid);
+  tc::stage_weights(reinterpret_cast<float*>(s_w2),
+                    reinterpret_cast<const float*>(w2), S::W2N / 2, tid);
+  if (tid < 3 * CMP) {
+    const int r = tid / CMP, c = tid - r * CMP;
+    s_bn[tid] = c < cm_n ? bn[r * 4 * cm_n + c] : 0.f;
+  }
+  {
+    const Item it = tc::decode(idx, gd);
+    stage_x<CI>(xs, x + it.b * x_img, it.r0, it.c0, H, W, tid);
+  }
+  for (; idx < gd.n_items; idx += gridDim.x) {
+    const Item it = tc::decode(idx, gd);
+    tc::cp_async_wait_all();
+    __syncthreads();   // xs (and the weights) arrived; hp is free
+    MainEpi<CMP> epi{hp, s_bn, it.r0, it.c0, H, W, lane};
+    stage1<CI, CMP>(xs, s_w1, warp, lane, epi);
+    __syncthreads();   // hp complete; xs is free
+    const long long next = idx + gridDim.x;
+    if (next < gd.n_items) {
+      const Item nx = tc::decode(next, gd);
+      stage_x<CI>(xs, x + nx.b * x_img, nx.r0, nx.c0, H, W, tid);
+    }
+    stage2<CMP, CO>(hp, s_w2, warp, lane, y + it.b * y_img, it, W);
+  }
+}
+
+template <int CI, int CMP>
+struct StatsSmem {
+  static constexpr int W1N = 4 * CI * 4 * CMP;             // bf16
+  static constexpr int XN = XR * XC * xs_stride_b(CI);     // bf16
+  static constexpr int REDN = NWARP * NG * 8 * 2;          // fp32
+  static constexpr size_t bytes =
+      2 * (size_t)(W1N + XN) + sizeof(float) * (size_t)REDN;
+};
+
+// partial[idx][0][cm] = sum, partial[idx][1][cm] = sum of squares of the
+// hidden cells item idx owns, in fp32 from the fp32 accumulators.
+template <int CI, int CMP>
+__global__ void __launch_bounds__(NT, (CI <= 16 ? 2 : 1))
+fused_nhwc_stats_bf16_kernel(const bf16* __restrict__ x,
+                             const bf16* __restrict__ w1,
+                             float* __restrict__ partial, int cm_n, int H,
+                             int W, Grid gd) {
+  using S = StatsSmem<CI, CMP>;
+  constexpr int NH = 4 * CMP / 8 / NG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* s_w1 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* xs = s_w1 + S::W1N;
+  float* red = reinterpret_cast<float*>(xs + S::XN);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t x_img = (size_t)H * W * CI;
+  long long idx = blockIdx.x;
+  if (idx >= gd.n_items) return;
+  tc::stage_weights(reinterpret_cast<float*>(s_w1),
+                    reinterpret_cast<const float*>(w1), S::W1N / 2, tid);
+  {
+    const Item it = tc::decode(idx, gd);
+    stage_x<CI>(xs, x + it.b * x_img, it.r0, it.c0, H, W, tid);
+  }
+  for (; idx < gd.n_items; idx += gridDim.x) {
+    const Item it = tc::decode(idx, gd);
+    tc::cp_async_wait_all();
+    __syncthreads();   // xs arrived; red of the previous item was read
+    tc::StatsEpi<CMP> epi;
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int col = 0; col < 2; ++col)
+        epi.s[ng][col][0] = epi.s[ng][col][1] = 0.f;
+    epi.r0 = it.r0; epi.rend = it.rend; epi.c0 = it.c0;
+    epi.cend = it.c0 + TW < W ? it.c0 + TW : W;
+    epi.lane = lane;
+    stage1<CI, CMP>(xs, s_w1, warp, lane, epi);
+#pragma unroll
+    for (int ng = 0; ng < NG; ++ng)
+#pragma unroll
+      for (int col = 0; col < 2; ++col)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float v = epi.s[ng][col][k];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (g == 0) red[(warp * 32 + ng * 8 + 2 * t + col) * 2 + k] = v;
+        }
+    __syncthreads();   // red complete; xs is free
+    const long long next = idx + gridDim.x;
+    if (next < gd.n_items) {
+      const Item nx = tc::decode(next, gd);
+      stage_x<CI>(xs, x + nx.b * x_img, nx.r0, nx.c0, H, W, tid);
+    }
+    if (tid < 2 * CMP) {
+      const int k = tid / CMP, cm = tid - k * CMP;
+      float v = 0.f;
+      for (int w = 0; w < NWARP; ++w)
+#pragma unroll
+        for (int par = 0; par < 4; ++par) {
+          const int n = par * CMP + cm;
+          if (n / 32 == w % NH) v += red[(w * 32 + n % 32) * 2 + k];
+        }
+      if (cm < cm_n) partial[((size_t)idx * 2 + k) * cm_n + cm] = v;
+    }
+  }
+}
+
+template <int CI, int CMP, int CO>
+int launch_main(const bf16* x, const bf16* w1, const bf16* w2,
+                const float* bn, bf16* y, int B, int H, int W, int cm, int tm,
+                int n_sm, cudaStream_t stream) {
+  Grid gd;
+  if (!tc::make_grid(B, H, W, tm, &gd) || !tc::aligned16(x) ||
+      !tc::aligned16(w1) || !tc::aligned16(w2) || !tc::aligned16(y))
+    return (int)cudaErrorInvalidValue;
+  if (gd.n_items == 0) return (int)cudaSuccess;
+  const size_t smem = MainSmem<CI, CMP, CO>::bytes;
+  int grid = 0;
+  cudaError_t e = tc::persistent_grid(fused_nhwc_main_bf16_kernel<CI, CMP, CO>,
+                                      smem, n_sm, gd.n_items, &grid);
+  if (e != cudaSuccess) return (int)e;
+  fused_nhwc_main_bf16_kernel<CI, CMP, CO><<<grid, NT, smem, stream>>>(
+      x, w1, w2, bn, y, cm, H, W, gd);
+  return (int)cudaGetLastError();
+}
+
+template <int CI, int CMP>
+int launch_stats(const bf16* x, const bf16* w1, float* partial, int B, int H,
+                 int W, int cm, int tm, int n_sm, cudaStream_t stream) {
+  Grid gd;
+  if (!tc::make_grid(B, H, W, tm, &gd) || !tc::aligned16(x) ||
+      !tc::aligned16(w1))
+    return (int)cudaErrorInvalidValue;
+  if (gd.n_items == 0) return (int)cudaSuccess;
+  const size_t smem = StatsSmem<CI, CMP>::bytes;
+  int grid = 0;
+  cudaError_t e = tc::persistent_grid(fused_nhwc_stats_bf16_kernel<CI, CMP>,
+                                      smem, n_sm, gd.n_items, &grid);
+  if (e != cudaSuccess) return (int)e;
+  fused_nhwc_stats_bf16_kernel<CI, CMP><<<grid, NT, smem, stream>>>(
+      x, w1, partial, cm, H, W, gd);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tcb
+
 // The fp32 FMA kernel; see (2) in the header.
 namespace fp32fma {
 
@@ -954,6 +1427,43 @@ int fused_nhwc_main_f32(const float* x, const float* w1, const float* w2,
     case 4: return tc::launch_main<8, 8, 8>(x, w1, w2, bn, y, B, H, W, cm, tm, n_sm, s);
     case 8: return tc::launch_main<16, 8, 16>(x, w1, w2, bn, y, B, H, W, cm, tm, n_sm, s);
     case 16: return tc::launch_main<32, 16, 32>(x, w1, w2, bn, y, B, H, W, cm, tm, n_sm, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---- the tensor-core kernel in bf16 ----------------------------------------
+
+// As fused_nhwc_stats_f32 with x (bf16 NHWC) and w1 (bf16, m16n8k16
+// fragment order, k permuted by 16s); partial fp32.
+int fused_nhwc_stats_bf16(const void* x, const void* w1, float* partial,
+                          int B, int H, int W, int ci, int cm, int tm,
+                          int n_sm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const tcb::bf16* xb = (const tcb::bf16*)x;
+  const tcb::bf16* a = (const tcb::bf16*)w1;
+  if (ci == 8 && cm == 4)
+    return tcb::launch_stats<8, 8>(xb, a, partial, B, H, W, cm, tm, n_sm, s);
+  if (ci == 16 && cm == 8)
+    return tcb::launch_stats<16, 8>(xb, a, partial, B, H, W, cm, tm, n_sm, s);
+  if (ci == 32 && cm == 16)
+    return tcb::launch_stats<32, 16>(xb, a, partial, B, H, W, cm, tm, n_sm, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As fused_nhwc_main_f32 with x, w1, w2 and y bf16; bn (3, 4 cm) fp32.
+int fused_nhwc_main_bf16(const void* x, const void* w1, const void* w2,
+                         const float* bn, void* y, int B, int H, int W, int ci,
+                         int cm, int co, int tm, int n_sm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const tcb::bf16* xb = (const tcb::bf16*)x;
+  const tcb::bf16* a = (const tcb::bf16*)w1;
+  const tcb::bf16* b = (const tcb::bf16*)w2;
+  tcb::bf16* yb = (tcb::bf16*)y;
+  if (!fused_nhwc_mma_supported(ci, cm, co)) return (int)cudaErrorInvalidValue;
+  switch (cm) {
+    case 4: return tcb::launch_main<8, 8, 8>(xb, a, b, bn, yb, B, H, W, cm, tm, n_sm, s);
+    case 8: return tcb::launch_main<16, 8, 16>(xb, a, b, bn, yb, B, H, W, cm, tm, n_sm, s);
+    case 16: return tcb::launch_main<32, 16, 32>(xb, a, b, bn, yb, B, H, W, cm, tm, n_sm, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -31,6 +31,15 @@ it is built for, and "fma", the first fp32 FMA kernel, for every triple.
 measurements and tests.  Neither is ever a fallback for the other.
 `fused_nhwc_packed()` is the "mma" launches' arithmetic in PyTorch, item by
 item from the same operands.
+
+bf16 (x in bfloat16, the JAX function with bf16 x): the tensor-core
+kernel's bf16 instantiation (namespace tcb), one bf16 mma (m16n8k16, fp32
+accumulators) a product.  The packed weights are rounded to bf16
+(pallas_fused.py:193-194); the statistics, BN, ReLU and the edge mask are
+fp32 (:108-116, :131-152); the planes are rounded to bf16 before the
+consumer product (:153) and y is bf16 (:168, :239); the moments stay fp32.
+Only "mma" has a bf16 instantiation: "fma" and an unbuilt channel triple
+refuse bf16 by name.
 """
 
 from __future__ import annotations
@@ -47,10 +56,11 @@ IMPLS = ("mma", "fma")
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
-launches = {"fused_nhwc_stats": 0, "fused_nhwc_main": 0}
+launches = {"fused_nhwc_stats": 0, "fused_nhwc_main": 0,
+            "fused_nhwc_stats_bf16": 0, "fused_nhwc_main_bf16": 0}
 # The same launches by the implementation that ran (both kernels of a pair
-# counted).
-impl_launches = {"mma": 0, "fma": 0}
+# counted); bf16 launches of the tensor-core kernel under "mma_bf16".
+impl_launches = {"mma": 0, "fma": 0, "mma_bf16": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -77,6 +87,10 @@ def build():
         lib.fused_nhwc_stats_f32.restype = i
         lib.fused_nhwc_main_f32.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.fused_nhwc_main_f32.restype = i
+        lib.fused_nhwc_stats_bf16.argtypes = [p, p, p] + [i] * 7 + [p]
+        lib.fused_nhwc_stats_bf16.restype = i
+        lib.fused_nhwc_main_bf16.argtypes = [p] * 5 + [i] * 8 + [p]
+        lib.fused_nhwc_main_bf16.restype = i
         lib.fused_nhwc_stats_fma_f32.argtypes = [p, p, p] + [i] * 6 + [p]
         lib.fused_nhwc_stats_fma_f32.restype = i
         lib.fused_nhwc_main_fma_f32.argtypes = [p] * 5 + [i] * 7 + [p]
@@ -98,15 +112,20 @@ def choose_impl(ci, cm, co, h, w):
     return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
 
 
-def _impl_for(impl, ci, cm, co, h, w):
-    """`impl` if given (checked), else `choose_impl`'s."""
+def _impl_for(impl, ci, cm, co, h, w, bf16=False):
+    """`impl` if given (checked), else `choose_impl`'s.  A bf16 x runs
+    "mma" or raises: the FMA kernel is fp32 only."""
     if impl is None:
-        return choose_impl(ci, cm, co, h, w)
+        impl = "mma" if bf16 else choose_impl(ci, cm, co, h, w)
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "fma" and bf16:
+        raise ValueError("the FMA NHWC kernel takes float32 only; bf16 runs "
+                         "impl='mma'")
     if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
-        raise ValueError(f"the tensor-core NHWC kernel has no instantiation "
-                         f"for Ci={ci}, Cm={cm}, Co={co} (built: "
+        raise ValueError(f"the tensor-core NHWC kernel has no "
+                         f"{'bf16 ' if bf16 else ''}instantiation for "
+                         f"Ci={ci}, Cm={cm}, Co={co} (built: "
                          f"{M.MMA_TRIPLES})")
     return impl
 
@@ -187,9 +206,10 @@ def plain_stats(xl, wtall, tm):
     return mean, sq / n - mean * mean                    # biased (torch BN)
 
 
-def plain_main(xl, wtall, wcall, mean, gain, bias, tm):
+def plain_main(xl, wtall, wcall, mean, gain, bias, tm, round_parts=None):
     """Phase 2 in PyTorch: recompute the planes, normalize, mask the
-    consumer's padding, consume.  Returns y (B, H, W, Co) NHWC."""
+    consumer's padding, (`round_parts`: round them,) consume.  Returns y
+    (B, H, W, Co) NHWC."""
     h, w = xl.shape[1] - 2, xl.shape[2] - 2
     cm = wtall.shape[1] // 4
     n_tiles = h // tm
@@ -214,53 +234,75 @@ def plain_main(xl, wtall, wcall, mean, gain, bias, tm):
         yp = torch.cat([parts[k][:, sa:sa + tm, sb:sb + w]
                         for k in range(4) for sa in (0, 1) for sb in (0, 1)],
                        dim=-1)                           # (B, tm, W, 16Cm)
+        if round_parts is not None:
+            yp = round_parts(yp)
         bands.append(yp @ wcall)
     return torch.cat(bands, dim=1)
 
 
 def fused_nhwc_plain(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
     """fused_convT_bn_relu_conv in plain PyTorch, band by band as the kernel
-    goes: returns (y (B, Co, H, W), (mean, biased_var))."""
+    goes: returns (y (B, Co, H, W) in x's dtype, (mean, biased_var)).
+
+    bf16 x: the JAX kernel's rounding points.  The packed weights are
+    rounded to bf16; both products run in fp32 (TF32 off) on the upcast
+    operands, where products of bf16 values are exact; the statistics, BN,
+    ReLU and the edge mask are fp32; the planes are rounded to bf16 before
+    the consumer product, and y after it."""
+    if x.dtype != torch.bfloat16:
+        return _plain_pair(x, wT, scale, bias, wC, eps, tm)
+    as_bf16 = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    y, st = _plain_pair(x.float(), as_bf16(wT), scale.float(), bias.float(),
+                        as_bf16(wC), eps, tm, round_parts=as_bf16)
+    return y.to(torch.bfloat16), st
+
+
+def _plain_pair(x, wT, scale, bias, wC, eps, tm, round_parts=None):
     xl = _pad_nhwc(x)
     wtall, wcall = _pack_wT(wT), _pack_wC(wC)
     mean, var = plain_stats(xl, wtall, tm)
     gain = scale / torch.sqrt(var + eps)
-    y = plain_main(xl, wtall, wcall, mean, gain, bias, tm)
+    y = plain_main(xl, wtall, wcall, mean, gain, bias, tm, round_parts)
     return y.permute(0, 3, 1, 2).contiguous(), (mean, var)
 
 
 _index_cache = {}
 
 
-def _operand_index(kind, ci, cm, co, device):
+def _operand_index(kind, ci, cm, co, device, bf16=False):
     """Flat gather indices of wT (kind "wT", into wT's elements) or wC
-    ("wC") into the tensor-core kernel's operand; the padding points one past
-    the weight's end, where `operands` keeps a zero.  The JAX packers run on
-    an index tensor, so the operand is theirs element for element."""
-    key = (kind, ci, cm, co, str(device))
+    ("wC") into the tensor-core kernel's operand (bf16: its bf16
+    instantiation's); the padding points one past the weight's end, where
+    `operands` keeps a zero.  The JAX packers run on an index tensor, so the
+    operand is theirs element for element."""
+    key = (kind, ci, cm, co, str(device), bf16)
     if key not in _index_cache:
         if kind == "wT":
             n = ci * cm * 16
             idx = M.w1_operand_index(
-                _pack_wT(torch.arange(n).reshape(ci, cm, 4, 4)), ci, cm, n)
+                _pack_wT(torch.arange(n).reshape(ci, cm, 4, 4)), ci, cm, n,
+                bf16)
         else:
             n = co * cm * 16
             idx = M.w2_operand_index(
-                _pack_wC(torch.arange(n).reshape(co, cm, 4, 4)), cm, co, n)
+                _pack_wC(torch.arange(n).reshape(co, cm, 4, 4)), cm, co, n,
+                bf16)
         _index_cache[key] = idx.to(device)
     return _index_cache[key]
 
 
-def operands(wT, wC, impl):
-    """The kernel's two weight operands, contiguous fp32 on the weights'
-    device: wtall (4Ci, 4Cm) and wcall (16Cm, Co) for "fma"; W1 and W2 in
-    fragment order (ops/fused_nhwc_mma.py) for "mma"."""
+def operands(wT, wC, impl, dtype=torch.float32):
+    """The kernel's two weight operands, contiguous on the weights' device:
+    wtall (4Ci, 4Cm) and wcall (16Cm, Co) for "fma"; W1 and W2 in fragment
+    order (ops/fused_nhwc_mma.py) for "mma", in `dtype` (fp32, or bf16 for
+    the bf16 instantiation: the fp32 weights rounded once)."""
     wT, wC = wT.detach().float(), wC.detach().float()
     if impl == "fma":
         return _pack_wT(wT).contiguous(), _pack_wC(wC).contiguous()
     ci, cm, co = wT.shape[0], wT.shape[1], wC.shape[0]
+    bf16 = dtype == torch.bfloat16
     return tuple(torch.cat([w.reshape(-1), w.new_zeros(1)])[
-        _operand_index(kind, ci, cm, co, w.device)]
+        _operand_index(kind, ci, cm, co, w.device, bf16)].to(dtype)
         for kind, w in (("wT", wT), ("wC", wC)))
 
 
@@ -282,13 +324,14 @@ def _bn_rows(mean, var, scale, bias, eps):
 def fused_nhwc_packed(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
     """The tensor-core implementation's arithmetic in PyTorch: the wrapper's
     steps, with ops/fused_nhwc_mma.py's packed_stats and packed_main in place
-    of the two launches, item by item from the fragment-order operands.
-    Returns (y (B, Co, H, W), (mean, biased_var)); any channel counts (the
-    operands pad Ci, Cm and Co to multiples of 8)."""
+    of the two launches, item by item from the fragment-order operands (a
+    bf16 x: the bf16 instantiation's).  Returns (y (B, Co, H, W) in x's
+    dtype, (mean, biased_var)); any channel counts (the operands pad Ci, Cm
+    and Co to multiples of 8)."""
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
     xn = x.permute(0, 2, 3, 1).contiguous()
-    w1, w2 = operands(wT, wC, "mma")
+    w1, w2 = operands(wT, wC, "mma", x.dtype)
     mean, var = _moments(M.packed_stats(xn, w1, ci, cm, tm), 4.0 * h * w * bsz)
     y = M.packed_main(xn, w1, w2, _bn_rows(mean, var, scale, bias, eps), ci,
                       cm, co, tm)
@@ -317,12 +360,19 @@ def _check(x, wT, scale, bias, wC, tm):
             raise ValueError("all inputs must be on one device")
 
 
+def _count(kernel, impl, xn):
+    bf16 = xn.dtype == torch.bfloat16
+    launches[kernel + ("_bf16" if bf16 else "")] += 1
+    impl_launches[impl + ("_bf16" if bf16 else "")] += 1
+
+
 def launch_stats(xn, w1, cm, tm, impl):
     """Stats launch: fp32 (sum, sum of squares) of h per (image, slot), shape
     (B, slots, 2, Cm); a slot is a work item of fused_nhwc_mma.Schedule
     ("mma": H/tm bands x ceil(tm/8) passes x ceil(W/32) chunks) or a block of
     the FMA kernel ("fma": H/tm bands x ceil(W/32) chunks).  xn (B, H, W, Ci)
-    NHWC and w1 (`operands`' first for `impl`): contiguous fp32 CUDA."""
+    NHWC and w1 (`operands`' first for `impl`): contiguous CUDA, fp32, or
+    both bf16 for the bf16 instantiation of "mma"."""
     lib = _lib or build()
     bsz, h, w, ci = xn.shape
     if impl == "mma":
@@ -333,9 +383,10 @@ def launch_stats(xn, w1, cm, tm, impl):
                           dtype=torch.float32)
     stream = raw_stream(xn.get_device())
     if impl == "mma":
-        err = lib.fused_nhwc_stats_f32(xn.data_ptr(), w1.data_ptr(),
-                                       partial.data_ptr(), bsz, h, w, ci, cm,
-                                       tm, sm_count(xn.device), stream)
+        entry = lib.fused_nhwc_stats_bf16 if xn.dtype == torch.bfloat16 \
+            else lib.fused_nhwc_stats_f32
+        err = entry(xn.data_ptr(), w1.data_ptr(), partial.data_ptr(), bsz, h,
+                    w, ci, cm, tm, sm_count(xn.device), stream)
     else:
         err = lib.fused_nhwc_stats_fma_f32(xn.data_ptr(), w1.data_ptr(),
                                            partial.data_ptr(), bsz, h, w, ci,
@@ -343,24 +394,24 @@ def launch_stats(xn, w1, cm, tm, impl):
     if err:
         raise RuntimeError(f"fused_nhwc_stats ({impl}) launch failed: "
                            f"cudaError {err}")
-    launches["fused_nhwc_stats"] += 1
-    impl_launches[impl] += 1
+    _count("fused_nhwc_stats", impl, xn)
     return partial
 
 
 def launch_main(xn, w1, w2, bn, cm, co, tm, impl):
-    """Main launch: y (B, H, W, Co) NHWC.  bn (3, 4Cm): mean, gain and bias,
-    each tiled over the four parities; w1, w2 `operands`' for `impl`; all
-    contiguous fp32 CUDA."""
+    """Main launch: y (B, H, W, Co) NHWC in xn's dtype.  bn (3, 4Cm) fp32:
+    mean, gain and bias, each tiled over the four parities; w1, w2
+    `operands`' for `impl` (bf16 for a bf16 xn); all contiguous CUDA."""
     lib = _lib or build()
     bsz, h, w, ci = xn.shape
-    y = torch.empty((bsz, h, w, co), device=xn.device, dtype=torch.float32)
+    y = torch.empty((bsz, h, w, co), device=xn.device, dtype=xn.dtype)
     stream = raw_stream(xn.get_device())
     if impl == "mma":
-        err = lib.fused_nhwc_main_f32(xn.data_ptr(), w1.data_ptr(),
-                                      w2.data_ptr(), bn.data_ptr(),
-                                      y.data_ptr(), bsz, h, w, ci, cm, co, tm,
-                                      sm_count(xn.device), stream)
+        entry = lib.fused_nhwc_main_bf16 if xn.dtype == torch.bfloat16 \
+            else lib.fused_nhwc_main_f32
+        err = entry(xn.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                    bn.data_ptr(), y.data_ptr(), bsz, h, w, ci, cm, co, tm,
+                    sm_count(xn.device), stream)
     else:
         err = lib.fused_nhwc_main_fma_f32(xn.data_ptr(), w1.data_ptr(),
                                           w2.data_ptr(), bn.data_ptr(),
@@ -369,8 +420,7 @@ def launch_main(xn, w1, w2, bn, cm, co, tm, impl):
     if err:
         raise RuntimeError(f"fused_nhwc_main ({impl}) launch failed: "
                            f"cudaError {err}")
-    launches["fused_nhwc_main"] += 1
-    impl_launches[impl] += 1
+    _count("fused_nhwc_main", impl, xn)
     return y
 
 
@@ -379,20 +429,23 @@ def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
     """y = conv_s2p1k4(relu(bn(convT_s2p1k4(x)))) without storing the
     2x-resolution hidden tensor.
 
-    x: (B, Ci, H, W) fp32, H a multiple of tm; wT: (Ci, Cm, 4, 4) IOHW;
-    wC: (Co, Cm, 4, 4) OIHW; scale/bias: (Cm,).  Returns (y: (B, Co, H, W),
-    (mean, biased_var)) with train-mode batch statistics of the hidden
-    tensor.  impl (CUDA only): "mma" or "fma", None = `choose_impl`'s."""
+    x: (B, Ci, H, W) fp32 or bf16 (y in x's dtype), H a multiple of tm; wT:
+    (Ci, Cm, 4, 4) IOHW; wC: (Co, Cm, 4, 4) OIHW (fp32; packed in x's
+    dtype); scale/bias: (Cm,).  Returns (y: (B, Co, H, W), (mean,
+    biased_var)) with train-mode batch statistics of the hidden tensor, in
+    fp32.  impl (CUDA only): "mma" or "fma", None = `choose_impl`'s ("mma"
+    for bf16)."""
     _check(x, wT, scale, bias, wC, tm)
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
-    impl = _impl_for(impl, ci, cm, co, h, w)
+    impl = _impl_for(impl, ci, cm, co, h, w, x.dtype == torch.bfloat16)
     if x.device.type == "cpu":
         return fused_nhwc_plain(x, wT, scale, bias, wC, eps=eps, tm=tm)
     if x.device.type != "cuda":
         raise ValueError(f"runs on cpu or cuda, not {x.device.type}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"the kernel takes float32, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the kernel takes float32 or bfloat16, got "
+                         f"{x.dtype}")
     lib = build()
     if impl == "fma":
         if 4 * cm > 256:
@@ -406,7 +459,7 @@ def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
         xn = x.permute(0, 2, 3, 1).contiguous()
         if xn.data_ptr() % 16:          # the kernels copy x 16 bytes at a time
             xn = xn.clone()
-        w1, w2 = operands(wT, wC, impl)
+        w1, w2 = operands(wT, wC, impl, x.dtype)
         mean, var = _moments(launch_stats(xn, w1, cm, tm, impl),
                              4.0 * h * w * bsz)
         y = launch_main(xn, w1, w2, _bn_rows(mean, var, scale, bias, eps), cm,

@@ -18,6 +18,18 @@ lane's two A elements of a row are adjacent channels of one NHWC pixel and
 arrive in one 8-byte load.  This order is K3's own; the NCHW kernel of
 ops/bulge_mma.py keeps the plain fragment order and its own W2 row order
 (a*4 + c, cm), and nothing is shared between the two modules.
+
+bf16 (namespace tcb of the same source): the same W1 and W2, rounded to
+bf16, in mma.m16n8k16 B-fragment order (`to_fragments_bf16`).  There a
+lane's register j holds the k-adjacent pair 8j + 2t, 8j + 2t + 1, so the
+natural order would already give one 4-byte load a register.  The k index
+is permuted all the same, within every group of 16 (`KPERM16`): mma k
+8j + 2t + i reads channel 4t + 2j + i, so a lane's two registers of a row
+are channels 4t .. 4t + 3 of one NHWC pixel and arrive in ONE 8-byte load.
+The fp32 kernel's KPERM does not carry over: it serves m16n8k8 TF32, whose
+registers hold one value each, and pairs k = t with k = t + 4.  A group
+of 16 is four runs of 4 channels, and the channel counts are multiples of
+8, so a run never straddles two taps (stage 1) or two windows (stage 2).
 """
 
 from __future__ import annotations
@@ -35,6 +47,10 @@ MMA_TRIPLES = ((8, 4, 8), (16, 8, 16), (32, 16, 32))
 
 # the channel that mma k index kk of a k step reads, within its group of 8
 KPERM = (0, 2, 4, 6, 1, 3, 5, 7)
+# bf16 (m16n8k16): the channel that mma k index kk reads, within its group
+# of 16: kk = 8j + 2t + i reads 4t + 2j + i
+KPERM16 = tuple(4 * ((kk % 8) // 2) + 2 * (kk // 8) + kk % 2
+                for kk in range(16))
 
 
 def padded(c):
@@ -51,6 +67,13 @@ def permute_k(mat):
     group of 8 is row KPERM[kk] of the group."""
     k = mat.shape[0]
     return mat.reshape(k // 8, 8, -1)[:, list(KPERM)].reshape(k, -1)
+
+
+def permute_k16(mat):
+    """Rows of a (K, N) operand in the bf16 kernel's k order: row kk of
+    every group of 16 is row KPERM16[kk] of the group."""
+    k = mat.shape[0]
+    return mat.reshape(k // 16, 16, -1)[:, list(KPERM16)].reshape(k, -1)
 
 
 def unpermute_k(mat):
@@ -76,20 +99,47 @@ def from_fragments(flat, k, n):
         .reshape(k, n)
 
 
-def w1_operand_index(wtall_index, ci, cm, fill):
-    """Flat gather indices of W1 in fragment order, from the (4 Ci, 4 Cm)
-    index matrix of wtall; padding entries get `fill` (a zero)."""
+def to_fragments_bf16(mat):
+    """A (K, N) B operand in the bf16 kernel's m16n8k16 fragment order,
+    flat: element [(((ks*NT + nt)*32 + lane)*2 + j)*2 + i] =
+    mat[ks*16 + KPERM16[8j + 2t + i], nt*8 + g] (lane = g*4 + t), i.e. lane
+    g*4 + t holds channels 4t .. 4t + 3 of column g of each 16x8 block, one
+    8-byte load."""
+    k, n = mat.shape
+    blocks = permute_k16(mat).reshape(k // 16, 2, 4, 2, n // 8, 8)
+    return blocks.permute(0, 4, 5, 2, 1, 3).reshape(-1)  # ks, nt, g, t, j, i
+
+
+def from_fragments_bf16(flat, k, n):
+    """The (K, N) operand back from `to_fragments_bf16`, rows in the bf16
+    kernel's permuted k order."""
+    return flat.reshape(k // 16, n // 8, 8, 4, 2, 2) \
+        .permute(0, 4, 3, 5, 1, 2).reshape(k, n)
+
+
+def _order(bf16):
+    """(k permutation, operand unpacker) of the kernel of that dtype."""
+    return (permute_k16, from_fragments_bf16) if bf16 else \
+        (permute_k, from_fragments)
+
+
+def w1_operand_index(wtall_index, ci, cm, fill, bf16=False):
+    """Flat gather indices of W1 in fragment order (bf16: the m16n8k16
+    one), from the (4 Ci, 4 Cm) index matrix of wtall; padding entries get
+    `fill` (a zero)."""
     out = torch.full((4, padded(ci), 4, padded(cm)), fill, dtype=torch.int64)
     out[:, :ci, :, :cm] = wtall_index.reshape(4, ci, 4, cm)
-    return to_fragments(out.reshape(4 * padded(ci), 4 * padded(cm)))
+    order = to_fragments_bf16 if bf16 else to_fragments
+    return order(out.reshape(4 * padded(ci), 4 * padded(cm)))
 
 
-def w2_operand_index(wcall_index, cm, co, fill):
-    """Flat gather indices of W2 in fragment order, from the (16 Cm, Co)
-    index matrix of wcall."""
+def w2_operand_index(wcall_index, cm, co, fill, bf16=False):
+    """Flat gather indices of W2 in fragment order (bf16: the m16n8k16
+    one), from the (16 Cm, Co) index matrix of wcall."""
     out = torch.full((16, padded(cm), padded(co)), fill, dtype=torch.int64)
     out[:, :cm, :co] = wcall_index.reshape(16, cm, co)
-    return to_fragments(out.reshape(16 * padded(cm), padded(co)))
+    order = to_fragments_bf16 if bf16 else to_fragments
+    return order(out.reshape(16 * padded(cm), padded(co)))
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +212,7 @@ class Schedule:
 # the packed plain version of the two launches
 # ---------------------------------------------------------------------------
 
-def _stage1_item(x_img, w1, r0, c0):
+def _stage1_item(x_img, w1, r0, c0, permute=permute_k):
     """P (PR, PC, 4 Cmp) of one item: A1 @ W1 over the staged x window, with
     A1's columns in the kernel's permuted k order like W1's rows.  x_img
     (H, W, Ci) NHWC; w1 (4 Cip, 4 Cmp) in permuted row order."""
@@ -176,17 +226,20 @@ def _stage1_item(x_img, w1, r0, c0):
         x_img[i0:i1, j0:j1]
     taps = [xs[ti:ti + pr, tj:tj + pc] for ti in range(2) for tj in range(2)]
     a1 = torch.cat(taps, dim=-1).reshape(pr * pc, 4 * cip)   # k = tap*Cip + ci
-    a1 = permute_k(a1.T).T
+    a1 = permute(a1.T).T
     return torch.matmul(a1, w1).reshape(pr, pc, -1)
 
 
 def packed_stats(xn, w1_op, ci, cm, tm):
-    """What the stats launch writes: (B, slots, 2, Cm) sums and sums of
+    """What the stats launch writes: (B, slots, 2, Cm) fp32 sums and sums of
     squares of the hidden cells each item owns.  xn (B, H, W, Ci) NHWC,
-    w1_op W1 in fragment order."""
+    w1_op W1 in fragment order; bf16 xn and w1_op (the bf16 kernel's): the
+    products in fp32 on the upcast values, which are exact."""
     bsz, h, w, _ = xn.shape
     cmp_ = padded(cm)
-    w1 = from_fragments(w1_op, 4 * padded(ci), 4 * cmp_)
+    permute, unpack = _order(xn.dtype == torch.bfloat16)
+    xn = xn.float()
+    w1 = unpack(w1_op, 4 * padded(ci), 4 * cmp_).float()
     sched = Schedule(bsz, h, w, tm)
     pi = torch.arange(PASS_ROWS + 1)[:, None]
     pj = torch.arange(CHUNK_COLS + 1)[None, :]
@@ -194,7 +247,7 @@ def packed_stats(xn, w1_op, ci, cm, tm):
     for idx in range(sched.n_items):
         b, r0, rend, c0 = sched.item(idx)
         cend = min(c0 + CHUNK_COLS, w)
-        p = _stage1_item(xn[b], w1, r0, c0).reshape(
+        p = _stage1_item(xn[b], w1, r0, c0, permute).reshape(
             PASS_ROWS + 1, CHUNK_COLS + 1, 4, cmp_)
         for par in range(4):
             di, dj = par >> 1, par & 1
@@ -220,27 +273,35 @@ def _in_image(r0, c0, h, w, device):
 
 
 def packed_main(xn, w1_op, w2_op, bn, ci, cm, co, tm):
-    """What the main launch writes: y (B, H, W, Co) NHWC.  bn (3, 4 Cm):
-    mean, gain and bias, each tiled over the four parities."""
+    """What the main launch writes: y (B, H, W, Co) NHWC in xn's dtype.  bn
+    (3, 4 Cm): mean, gain and bias, each tiled over the four parities.  bf16
+    (the bf16 kernel's operands): both products in fp32 on the upcast
+    values; the planes rounded to bf16 after BN, ReLU and the edge mask, y
+    after the second product."""
     bsz, h, w, _ = xn.shape
     cmp_, cop = padded(cm), padded(co)
-    w1 = from_fragments(w1_op, 4 * padded(ci), 4 * cmp_)
-    w2 = from_fragments(w2_op, 16 * cmp_, cop)
+    bf16 = xn.dtype == torch.bfloat16
+    permute, unpack = _order(bf16)
+    w1 = unpack(w1_op, 4 * padded(ci), 4 * cmp_).float()
+    w2 = unpack(w2_op, 16 * cmp_, cop).float()
     mu, gain, beta = (torch.nn.functional.pad(v[:cm], (0, cmp_ - cm))
                       for v in bn)
     sched = Schedule(bsz, h, w, tm)
     y = xn.new_zeros((bsz, h, w, co))
+    xn = xn.float()
     for idx in range(sched.n_items):
         b, r0, rend, c0 = sched.item(idx)
-        p = _stage1_item(xn[b], w1, r0, c0).reshape(
+        p = _stage1_item(xn[b], w1, r0, c0, permute).reshape(
             PASS_ROWS + 1, CHUNK_COLS + 1, 4, cmp_)
         p = torch.relu((p - mu) * gain + beta)
         p = p * _in_image(r0, c0, h, w, xn.device)[..., None]
+        if bf16:
+            p = p.to(torch.bfloat16).float()
         taps = [p[sa:sa + PASS_ROWS, sb:sb + CHUNK_COLS, k]
                 for k in range(4) for sa in range(2) for sb in range(2)]
         a2 = torch.stack(taps, dim=2).reshape(PASS_ROWS * CHUNK_COLS,
                                               16 * cmp_)  # (k, sa, sb, cm)
-        a2 = permute_k(a2.T).T
+        a2 = permute(a2.T).T
         tile = torch.matmul(a2, w2).reshape(PASS_ROWS, CHUNK_COLS, cop)
         rows, cols = rend - r0, min(CHUNK_COLS, w - c0)
         y[b, r0:rend, c0:c0 + cols] = tile[:rows, :cols, :co]

@@ -59,8 +59,10 @@ from ..ops.preprocess import preprocess
 class TrainState:
     """Both networks (parameters and BN running statistics live in the
     modules), both Adam states ({"m", "v"}: lists in `params_of` order,
-    "t": int) and, with cfg.g_ema > 0, the EMA copy of G's parameters in the
-    same order (else None)."""
+    "t": a 0-d int32 tensor on the device) and, with cfg.g_ema > 0, the EMA
+    copy of G's parameters in the same order (else None).  A step writes
+    every one of these tensors in place and rebinds none, so a CUDA graph
+    of steps (train/multi_step.py) keeps addressing the live state."""
     g: Network
     d: Network
     g_opt: Any
@@ -122,7 +124,7 @@ def state_to_numpy(state):
         out[f"{tag}_params"], out[f"{tag}_state"] = _np(params), _np(bn)
         out[f"{tag}_opt"] = {"m": _np(_tree_like(net, opt["m"])),
                              "v": _np(_tree_like(net, opt["v"])),
-                             "t": np.asarray(opt["t"], np.int32)}
+                             "t": np.asarray(int(opt["t"]), np.int32)}
     out["g_ema_params"] = (None if state.g_ema is None
                            else _np(_tree_like(state.g, state.g_ema)))
     return out
@@ -150,7 +152,8 @@ def state_from_trees(g_spec, d_spec, tree, device):
         setattr(state, f"{tag}_opt", {
             "m": [as_t(a) for a in _flat_like(net, opt["m"])],
             "v": [as_t(a) for a in _flat_like(net, opt["v"])],
-            "t": int(opt["t"])})
+            "t": torch.tensor(int(opt["t"]), dtype=torch.int32,
+                              device=device)})
     if tree.get("g_ema_params") is not None:
         state.g_ema = [as_t(a) for a in _flat_like(g, tree["g_ema_params"])]
     return state

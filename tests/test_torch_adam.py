@@ -1,7 +1,8 @@
 """The port's Torch7 Adam (ops/adam.py) against the JAX package's
-adam_update: three updates on the same numpy parameters and gradients,
-rtol 1e-6 (the same fp32 formula; the port computes the step size in
-float64 on the host and groups (1-b2)*g*g as (1-b2)*(g*g))."""
+adam_update: updates on the same numpy parameters and gradients, rtol 1e-6
+(the same fp32 formula: the step count is an int32 tensor and the step size
+is computed from it in fp32, as in JAX; the port groups (1-b2)*g*g as
+(1-b2)*(g*g))."""
 
 import numpy as np
 import pytest
@@ -29,10 +30,11 @@ def _run(n, **kw):
     return jp, js, tp, ts
 
 
-@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 2, 3, 20])
 def test_updates_match(n):
     jp, js, tp, ts = _run(n)
-    assert ts["t"] == int(js["t"]) == n
+    assert ts["t"].dtype == torch.int32 and ts["t"].dim() == 0
+    assert int(ts["t"]) == int(js["t"]) == n
     for key, got, want in (("p", tp, jp), ("m", ts["m"], js["m"]),
                            ("v", ts["v"], js["v"])):
         for g, w in zip(got, want):
@@ -63,6 +65,40 @@ def test_update_is_in_place_and_needs_no_grad_graph():
     st = adam_init(p)
     assert not st["m"][0].requires_grad
     ptr = p[0].data_ptr()
+    t = st["t"]
     adam_update_(p, [torch.ones(3)], st)
     assert p[0].data_ptr() == ptr and p[0].requires_grad
-    assert st["t"] == 1 and isinstance(st["t"], int)
+    # the step count is a 0-d int32 tensor, advanced in place: a captured
+    # graph of the update advances it on every replay
+    assert st["t"] is t and t.dtype == torch.int32 and int(t) == 1
+
+
+def test_step_count_crosses_npz_checkpoints_both_ways(tmp_path):
+    """The tensor `t` is written as the JAX package's int32 scalar and read
+    back as a 0-d int32 tensor on the state's device: a port checkpoint
+    loads in the JAX package with its count, and the JAX package's file of
+    that state loads in the port with the same count."""
+    import jax
+    from dcgan_sr_tpu.core import get_config as j_get_config
+    from dcgan_sr_tpu.train import checkpoint as JC
+    from dcgan_sr_tpu.train.step import init_train_state as j_init
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.train import checkpoint as TC
+    from dcgan_sr_tpu_torch.train.step import init_train_state
+
+    kw = dict(env_override=False, ngf=4, ndf=8, batchSize=4)
+    cfg = get_config("gray-3", **kw)
+    st = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    st.g_opt["t"].fill_(7)
+    st.d_opt["t"].fill_(5)
+    TC.save_checkpoint(str(tmp_path / "port"), cfg.name, 1, st)
+    jst = JC.load_checkpoint(str(tmp_path / "port"), cfg.name, 1,
+                             j_init(j_get_config("gray-3", **kw),
+                                    jax.random.PRNGKey(0)))
+    assert jst.g_opt["t"].dtype == jnp.int32
+    assert (int(jst.g_opt["t"]), int(jst.d_opt["t"])) == (7, 5)
+    JC.save_checkpoint(str(tmp_path / "jax"), cfg.name, 1, jst)
+    back = TC.load_checkpoint(str(tmp_path / "jax"), cfg.name, 1, st)
+    for opt, want in ((back.g_opt, 7), (back.d_opt, 5)):
+        assert opt["t"].dtype == torch.int32 and opt["t"].dim() == 0
+        assert opt["t"].device == back.g.device and int(opt["t"]) == want

@@ -29,6 +29,7 @@ def _run(main, argv):
 def test_bench_fused_prints_the_jax_tools_keys(kernel):
     lines = _run(bench_fused.main, ["--cpu", "--batch", "2", "--hw", "16",
                                     "--kernel", kernel, "--tm", "8",
+                                    "--dtype", "fp32",
                                     "--iters", "2", "--reps", "1"])
     rec = json.loads(lines[-1])
     assert JAX_TOOL_KEYS <= set(rec)
@@ -41,19 +42,23 @@ def test_bench_fused_prints_the_jax_tools_keys(kernel):
     counts = json.loads(lines[-2][len("kernel launches: "):])
     assert set(counts) == {"bulge_stats", "bulge_main", "bulge_stats_bf16",
                            "bulge_main_bf16", "fused_nhwc_stats",
-                           "fused_nhwc_main"}
+                           "fused_nhwc_main", "fused_nhwc_stats_bf16",
+                           "fused_nhwc_main_bf16"}
     assert all(v == 0 for v in counts.values())      # CPU: plain versions
     assert lines[-3].startswith("implementation launches: ")
     by_impl = json.loads(lines[-3][len("implementation launches: "):])
     assert by_impl == {"bulge": {"mma": 0, "fma": 0, "mma_bf16": 0},
-                       "fused_nhwc": {"mma": 0, "fma": 0}}
+                       "fused_nhwc": {"mma": 0, "fma": 0, "mma_bf16": 0}}
 
 
 def test_bench_fused_bf16_and_cpu_fallback_refused():
-    """bf16 runs the bulge kernel (test_bench_fused_bf16_bulge); the NHWC
-    pair has no bf16 kernel and refuses by name."""
-    with pytest.raises(NotImplementedError, match="nhwc --dtype bf16"):
-        bench_fused.main(["--cpu", "--dtype", "bf16", "--kernel", "nhwc"])
+    """bf16 runs either kernel, and is the default dtype, as in the JAX
+    tool; without --cpu and without a card the tools refuse to fall back."""
+    lines = _run(bench_fused.main, ["--cpu", "--batch", "1", "--hw", "8",
+                                    "--kernel", "nhwc", "--tm", "8",
+                                    "--iters", "1", "--reps", "1"])
+    rec = json.loads(lines[-1])
+    assert (rec["dtype"], rec["kernel"]) == ("bf16", "nhwc")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--cpu"):
             bench_fused.main(["--batch", "1", "--hw", "8"])

@@ -119,7 +119,7 @@ def test_cli_pm1_variants_feed_pm1_batches():
     assert hr.dtype == np.float32 and hr.min() == -1.0 and hr.max() == 1.0
 
 
-@pytest.mark.parametrize("flag", ["--stage-ahead", "--dp", "--use-pallas"])
+@pytest.mark.parametrize("flag", ["--fast-ops", "--dp", "--use-pallas"])
 def test_cli_has_no_flags_of_unported_options(flag):
     with pytest.raises(SystemExit):
         cli.main(["--cpu", flag])

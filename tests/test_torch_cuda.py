@@ -8,12 +8,24 @@ Tolerances as in tests/test_torch_bulge.py (1e-5 for the hidden tensor's
 mean/var, 2e-4 for y): the fused kernel and cuDNN (TF32 off) sum the same
 fp32 products in different orders.  The preprocess kernel keeps its products
 and sums uncontracted (no FMA) and sums in the plain version's order, so it
-is held to bit equality.  The bulge kernel's bf16 instantiation is held to
-its plain bf16 version: y within two bf16 steps of max |y| (h is rounded to
-bf16 after an fp32 sum in another order and may round the other way, then
-y rounds once more), at most 1% of y's elements different at all."""
+is held to bit equality.  The bf16 instantiations of the bulge kernel and
+of the channels-last pair are held to their plain bf16 versions: y within
+two bf16 steps of max |y| (h is rounded to bf16 after an fp32 sum in
+another order and may round the other way, then y rounds once more), at
+most 1% of y's elements different at all.
+
+The trainer's K-step chunk as a CUDA graph (train/multi_step.py) is held to
+the eager loop, and the staged feed (train/loop.py) to the plain loop, with
+cuDNN's deterministic algorithms (its default backward may sum with
+atomics): per-step losses (and, for the feed, the final state) within twice
+the run-to-run spread of two runs of the yardstick, 0 when they repeat, and
+a float32 floor of 1e-6 relative.  At full width, with cuDNN's own choice,
+chip_smoke.py phase 22 holds the graph to the eager loop."""
 
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -26,7 +38,10 @@ from dcgan_sr_tpu_torch.ops import bulge as K
 from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
 from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.ops import preprocess as P
+from dcgan_sr_tpu_torch.train import loop
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
+from dcgan_sr_tpu_torch.train.loop import train_epochs
+from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
 from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            state_from_numpy, state_to_numpy)
 
@@ -255,12 +270,13 @@ def test_nhwc_kernel_matches_plain(cuda, geom, tm):
     t = _inputs(*geom, cuda, seed=4)
     args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
     n0 = dict(F3.launches)
+    fp32_moved = {k: c + (not k.endswith("_bf16")) for k, c in n0.items()}
     y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
-    assert F3.launches == {k: c + 1 for k, c in n0.items()}
+    assert F3.launches == fp32_moved
     yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
     yu, _ = K.bulge_plain(*args)
     torch.cuda.synchronize()
-    assert F3.launches == {k: c + 1 for k, c in n0.items()}
+    assert F3.launches == fp32_moved
     assert y.shape == yp.shape and y.is_contiguous()
     np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
@@ -301,7 +317,8 @@ def test_nhwc_default_implementation_is_the_static_rule(cuda):
     i0 = dict(F3.impl_launches)
     F3.fused_convT_bn_relu_conv(*args, tm=8)
     assert F3.choose_impl(16, 8, 16, 16, 20) == "mma"
-    assert F3.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"]}
+    assert F3.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"],
+                                "mma_bf16": i0["mma_bf16"]}
 
 
 def test_nhwc_stats_slots_match_the_packed_version(cuda):
@@ -731,3 +748,258 @@ def test_eval_on_the_card_equals_the_cpu_and_launches_k2(cuda):
         assert abs(getattr(got, f) - getattr(want, f)) <= 1e-3, f
     for f in ("ssim_bilinear", "ssim_generator"):
         assert abs(getattr(got, f) - getattr(want, f)) <= 1e-4, f
+
+
+# ---- the channels-last pair in bf16 ------------------------------------------
+
+@pytest.mark.parametrize("geom,tm", [
+    ((2, 16, 8, 16, 64, 100), 32), ((1, 8, 4, 8, 12, 37), 6),
+    ((2, 32, 16, 32, 32, 33), 16), ((3, 16, 8, 16, 6, 3), 6),
+    ((1, 16, 8, 16, 32, 40), 16)])
+def test_nhwc_bf16_kernel_matches_plain(cuda, geom, tm):
+    t = _inputs(*geom, cuda, seed=7)
+    args = (t["x"].to(torch.bfloat16), t["wT"], t["scale"], t["bias"],
+            t["wC"])
+    n0, i0 = dict(F3.launches), dict(F3.impl_launches)
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and m.dtype == torch.float32
+    assert y.shape == yp.shape and y.is_contiguous()
+    assert F3.launches == {k: c + k.endswith("_bf16") for k, c in n0.items()}
+    assert F3.impl_launches == {**i0, "mma_bf16": i0["mma_bf16"] + 2}
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    _hold_bf16(y, yp)
+
+
+def test_nhwc_bf16_launches_match_the_packed_version(cuda):
+    """The bf16 stats launch writes, slot by slot, and the main launch,
+    pixel by pixel, what the packed plain version computes from the same
+    bf16 operands for the same work items."""
+    t = _inputs(2, 16, 8, 16, 24, 70, cuda, seed=5)
+    xn = t["x"].permute(0, 2, 3, 1).contiguous().to(torch.bfloat16)
+    w1, w2 = F3.operands(t["wT"], t["wC"], "mma", torch.bfloat16)
+    got = F3.launch_stats(xn, w1, 8, 12, "mma")
+    want = F3.M.packed_stats(xn.cpu(), w1.cpu(), 16, 8, 12)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
+    mean, var = F3._moments(got, 4.0 * 24 * 70 * 2)
+    bn = F3._bn_rows(mean, var, t["scale"], t["bias"], 1e-5)
+    y = F3.launch_main(xn, w1, w2, bn, 8, 16, 12, "mma")
+    yw = F3.M.packed_main(xn.cpu(), w1.cpu(), w2.cpu(), bn.cpu(), 16, 8, 16,
+                          12)
+    assert y.dtype == torch.bfloat16 and y.shape == yw.shape
+    _hold_bf16(y, yw)
+
+
+def test_nhwc_bf16_refuses_the_fma_kernel_and_unbuilt_triples(cuda):
+    t = _inputs(1, 16, 8, 16, 8, 8, cuda)
+    x = t["x"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32 only"):
+        F3.fused_convT_bn_relu_conv(x, t["wT"], t["scale"], t["bias"],
+                                    t["wC"], tm=8, impl="fma")
+    t = _inputs(1, 5, 4, 6, 8, 8, cuda)
+    with pytest.raises(ValueError, match="no bf16 instantiation"):
+        F3.fused_convT_bn_relu_conv(t["x"].to(torch.bfloat16), t["wT"],
+                                    t["scale"], t["bias"], t["wC"], tm=8)
+
+
+# ---- the trainer's K-step chunk as one CUDA graph -----------------------------
+
+GRAPH_KW = dict(env_override=False, ngf=4, ndf=8, batchSize=8)
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """cuDNN's deterministic algorithms for the test: its default backward
+    may sum with atomics, and a GAN's steps amplify a last-bit difference
+    into one that the spread of two runs would have to cover; a run that
+    repeats exactly holds the graph and the staged feed to the yardstick
+    bit for bit."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+
+
+def _chunks(cfg, cuda, n=3, k=3):
+    """n chunks of k batches on the card: (K, B, C, 64, 64), or under
+    device_augment (canvas, tops, lefts, flips) leaves."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    rng = np.random.RandomState(2)
+    out = []
+    for _ in range(n):
+        if cfg.device_augment:
+            out.append((
+                torch.rand((k, 8, 3, 80, 80), device=cuda, generator=gen),
+                torch.from_numpy(rng.randint(0, 17, (k, 8))).to(cuda),
+                torch.from_numpy(rng.randint(0, 17, (k, 8))).to(cuda),
+                torch.from_numpy(rng.rand(k, 8) > 0.5).to(cuda)))
+        else:
+            out.append(torch.rand((k, 8, cfg.nc, 64, 64), device=cuda,
+                                  generator=gen))
+    return out
+
+
+@pytest.mark.parametrize("variant,over", [
+    ("gray-3", {}), ("gray-3", {"compute_dtype": "bfloat16"}),
+    ("rgb-full", {}), ("gray", {"device_augment": True,
+                                "device_preprocess": True})])
+def test_captured_chunks_equal_eager_chunks(cuda, deterministic, variant,
+                                           over):
+    """Three chunks of three steps: the runner's warm-up chunk and two
+    replays against the eager loop on twin states."""
+    cfg = get_config(variant, **GRAPH_KW, **over)
+    base = state_to_numpy(init_train_state(
+        cfg, torch.Generator().manual_seed(0), device=cuda))
+    chunks = _chunks(cfg, cuda)
+    runs = []
+    for graph in (True, False, False):
+        st = state_from_numpy(cfg, base, device=cuda)
+        run = build_multi_step(cfg)
+        fn = run if graph else run.eager
+        runs.append((st, run, [fn(st, c)[1] for c in chunks]))
+    (sg, rg, mg), (_, _, me1), (_, _, me2) = runs
+    assert (rg.captures, rg.replays) == (1, 2)
+    assert rg.captured["preprocess"] == 3 and rg.replayed["preprocess"] == 6
+    assert int(sg.g_opt["t"]) == int(sg.d_opt["t"]) == 9
+    for key in mg[0]:
+        g, e1, e2 = (torch.cat([m[key] for m in ms]).cpu()
+                     for ms in (mg, me1, me2))
+        spread = (e1 - e2).abs().max().item()
+        diff = (g - e1).abs().max().item()
+        floor = 1e-6 * (1 + e1.abs().max().item())
+        assert torch.isfinite(g).all()
+        assert diff <= 2 * spread + floor, (key, diff, spread)
+
+
+def test_each_replay_advances_the_step_count_on_the_card(cuda):
+    cfg = get_config("gray-3", **GRAPH_KW)
+    st = init_train_state(cfg, torch.Generator().manual_seed(0), device=cuda)
+    run = build_multi_step(cfg)
+    (hr,) = _chunks(cfg, cuda, n=1, k=4)
+    run(st, hr)                          # the warm-up chunk, then the capture
+    assert int(st.g_opt["t"]) == 4 and (run.captures, run.replays) == (1, 0)
+    assert st.g_opt["t"].device.type == "cuda"
+    for r in (1, 2):
+        _, m = run(st, hr)
+        assert int(st.g_opt["t"]) == int(st.d_opt["t"]) == 4 * (r + 1)
+        assert tuple(m["errG"].shape) == (4,)
+    other = init_train_state(cfg, torch.Generator().manual_seed(1),
+                             device=cuda)
+    with pytest.raises(ValueError, match="another TrainState"):
+        run(other, hr)
+
+
+def test_a_capture_that_fails_raises(cuda):
+    """A step that reads a value back to the host trains eagerly (the warm-up
+    chunk) and cannot be captured: the runner raises instead of falling back
+    to the eager loop.  In a process of its own, since a failed capture may
+    leave the CUDA context unusable for captures."""
+    code = textwrap.dedent("""
+        import torch
+        from dcgan_sr_tpu_torch.core import get_config
+        from dcgan_sr_tpu_torch.ops import preprocess as P
+        from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+        from dcgan_sr_tpu_torch.train.step import init_train_state
+
+        def reads_back(x, **kw):
+            float(x.sum())
+            return P.preprocess(x, **kw)
+
+        cfg = get_config("gray-3", env_override=False, ngf=4, ndf=8,
+                         batchSize=4)
+        st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+        run = build_multi_step(cfg, preprocess_fn=reads_back)
+        try:
+            run(st, torch.rand((2, 4, 1, 64, 64), device="cuda"))
+        except RuntimeError as e:
+            print("RAISED" if "does not fall back" in str(e) else repr(e))
+        else:
+            print("NO ERROR")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       cwd=os.path.dirname(os.path.dirname(FIXTURE)))
+    assert "RAISED" in r.stdout.splitlines(), r.stdout + r.stderr[-3000:]
+
+
+def _leaves(tree, path=""):
+    """(path, array) of every leaf of a state_to_numpy tree."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    elif tree is not None:
+        yield path, np.asarray(tree)
+
+
+SLEEP_CYCLES = 20_000_000       # about 10 ms of a stream's time on an H100
+
+
+@pytest.mark.parametrize("slow", [None, "copy", "compute"])
+def test_stage_ahead_on_the_card_trains_the_same_batches(cuda, deterministic,
+                                                         monkeypatch, slow):
+    """The staged feed (pinned memory, a copy stream, two device buffers a
+    chunk shape) with the graph runner, against the plain loop: four
+    3-step chunks and a 1-step remainder of distinct batches, the host
+    queuing ahead (one fetch, at the epoch's end).  The same builds in the
+    same order; every chunk's per-step losses and every leaf of the final
+    state within twice the spread of two plain runs and 1e-6 relative.
+    `slow` holds back, by about 10 ms a chunk, either the staged copies (a
+    chunk that did not wait for its buffer's copy would read the buffer's
+    older contents) or the compute stream before each chunk (a copy that
+    did not wait for the chunk that last read its buffer would overwrite
+    what that chunk is about to read)."""
+    cfg = get_config("gray-3", **GRAPH_KW)
+    rng = np.random.RandomState(3)
+    batches = rng.rand(13, 8, 1, 64, 64).astype(np.float32)
+    base = state_to_numpy(init_train_state(
+        cfg, torch.Generator().manual_seed(0), device=cuda))
+    if slow == "copy":
+        put = loop._StagedFeed.put
+
+        def slow_put(self, leaves):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(SLEEP_CYCLES)
+            return put(self, leaves)
+
+        monkeypatch.setattr(loop._StagedFeed, "put", slow_put)
+    runs = []
+    for stage_ahead in (False, False, True):
+        calls, chunks = [], []
+        run = build_multi_step(cfg)
+
+        def multi(st, hr, run=run, chunks=chunks):
+            if slow == "compute":
+                torch.cuda._sleep(SLEEP_CYCLES)
+            st, m = run(st, hr)
+            chunks.append(m)
+            return st, m
+
+        def batch_fn(e, i, calls=calls):
+            calls.append((e, i))
+            return batches[i]
+
+        st = state_from_numpy(cfg, base, device=cuda)
+        st, m = train_epochs(cfg, st, batch_fn, niter=1, steps_per_epoch=13,
+                             log_fn=lambda line: None, log_every=100,
+                             scan_steps=3, multi_step_fn=multi,
+                             stage_ahead=stage_ahead)
+        assert calls == [(1, i) for i in range(13)]
+        assert (run.captures, run.replays) == (1, 3)
+        assert int(st.g_opt["t"]) == int(st.d_opt["t"]) == 13
+        losses = torch.stack([torch.cat([c[k] for c in chunks])
+                              for k in sorted(chunks[0])]).cpu().numpy()
+        runs.append([("losses", losses), *_leaves(state_to_numpy(st))])
+    for (path, p1), (_, p2), (_, staged) in zip(*runs):
+        assert np.isfinite(staged).all(), path
+        if staged.dtype.kind != "f":
+            np.testing.assert_array_equal(staged, p1, err_msg=path)
+            continue
+        spread = np.abs(p1 - p2).max()
+        floor = 1e-6 * (1 + np.abs(p1).max())
+        assert np.abs(staged - p1).max() <= 2 * spread + floor, (path, spread)
+

@@ -94,4 +94,6 @@ def test_rejects_what_it_does_not_take():
         TF.fused_convT_bn_relu_conv(x, wT[:2], s, b, wC, tm=8)
     with pytest.raises(ValueError, match="BN vectors"):
         TF.fused_convT_bn_relu_conv(x, wT, s[:1], b, wC, tm=8)
-    assert TF.launches == {"fused_nhwc_stats": 0, "fused_nhwc_main": 0}
+    assert TF.launches == {"fused_nhwc_stats": 0, "fused_nhwc_main": 0,
+                           "fused_nhwc_stats_bf16": 0,
+                           "fused_nhwc_main_bf16": 0}

@@ -213,7 +213,7 @@ def test_impl_argument_is_checked():
     assert TF._impl_for(None, 5, 4, 6, 8, 8) == "fma"
     assert TF._impl_for("fma", 5, 4, 6, 8, 8) == "fma"
     assert TF._impl_for("mma", 16, 8, 16, 8, 8) == "mma"
-    assert set(TF.impl_launches) == set(TF.IMPLS)
+    assert set(TF.impl_launches) == set(TF.IMPLS) | {"mma_bf16"}
 
 
 @pytest.mark.parametrize("impl", [None, "mma", "fma"])
