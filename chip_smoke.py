@@ -176,6 +176,28 @@ Phases, each fatal on failure:
      --synthetic --bf16 --feed-bf16 --steps 40 --scan 20` with and without
      `--stage-ahead` through cli.main: the data stage, images/s and K1's
      launches run (40).
+ 23. path: Torch7 `.t7` checkpoints (compat/).  The gray-3 and overlap
+     fixtures exported to `.t7`; in this process, under cuDNN's
+     deterministic algorithms, the --t7 and --ckpt gray-3 services give
+     equal bytes for twelve requests (ten at LR 256) in fp32 and bf16;
+     `python -m dcgan_sr_tpu_torch.serve --t7 ... --warmup`, fp32 and
+     --bf16, started together with the --ckpt servers: p50 at LR 256, each
+     response against the --ckpt server's and the in-process one (phase 4's
+     level; the pixels that differ printed beside --ckpt's own run-to-run
+     count); `upscale --config gray-patch-batch-overlap` on a directory of
+     8 images from --t7 and --ckpt, fp32 and bf16, byte-equal files.  K2's
+     launches counted on each --t7 path.
+ 24. the trainer's opt-in rewrites.  The gray-3 fp32 step at batch 100,
+     standard against --fast-ops: the first step's losses from one state
+     (rtol 1e-4, deterministic cuDNN), then the stage breakdown in turns
+     (standard, fast, fast, standard): ms a step, G forward, G backward, D,
+     Adam.  The bf16 K = 20 chunk's replay, standard against fast, in
+     turns, for gray-3 and gray-patch-batch.  --compact-params against
+     standard over one replayed fp32 chunk: losses and every state leaf
+     bit for bit after unpack_state, the masters' storage unchanged.
+     `python -m dcgan_sr_tpu_torch.cli --config gray-3 --synthetic --steps
+     6 --scan 3 --fast-ops --compact-params` (through cli.main), then
+     `--resume`: K1 run 6 times each, compact checkpoints.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (with their eval launches and times at the
      eval shape), K2 stats bf16, K2 main bf16, K3 stats, K3 main, K3 stats
@@ -215,6 +237,16 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
   bf16 served PNG bytes           2 levels of 255 on all but 5% of a
                                   response's pixels, against the UNFUSED
                                   bf16 generator (TOL_U8_BF16 below)
+  --t7 vs --ckpt                  0 in one process under deterministic
+                                  cuDNN (same weights, same program); a
+                                  --t7 server against the --ckpt server
+                                  and the in-process output as served
+                                  bytes above (cuDNN's default convT may
+                                  sum with atomics)
+  --fast-ops first step vs        losses rtol 1e-4 (deterministic cuDNN):
+  standard                        the same function, fp32 sums in another
+                                  order
+  --compact-params vs standard    0 (deterministic cuDNN)
   captured chunk vs eager loop    per-step losses of one replayed chunk
                                   within twice the largest spread of two
                                   eager runs of that chunk from a copy of
@@ -611,13 +643,15 @@ def _healthz(port):
     return json.loads(body)
 
 
-def start_server(cfg, parity, log, fixture=FIXTURE, extra=()):
+def start_server(cfg, parity, log, fixture=FIXTURE, extra=(), t7=None):
     """Start the port's server as a user does; returns (process, port).  The
     caller starts both BN modes' servers together (a process takes seconds
-    to reach the card) and drives them one after the other."""
+    to reach the card) and drives them one after the other.  `t7` serves
+    that Torch checkpoint in place of the fixture."""
     port = _free_port()
+    weights = ["--t7", t7] if t7 else ["--ckpt", fixture]
     cmd = [sys.executable, "-m", "dcgan_sr_tpu_torch.serve", "--config",
-           cfg.variant, "--ckpt", fixture, "--port", str(port),
+           cfg.variant, *weights, "--port", str(port),
            "--max-batch", "8", *extra]
     if parity:
         cmd.append("--parity-bn")
@@ -2797,6 +2831,447 @@ def graph_step_phase(smi):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 23: Torch7 .t7 checkpoints on the served paths
+# ---------------------------------------------------------------------------
+
+def _in_process(main, args):
+    """An entry point's main(args) in this process as a user's `python -m`
+    runs it: no config override from the environment, its output
+    captured."""
+    import contextlib
+
+    saved = {k: os.environ.pop(k) for k in CONFIG_ENV if k in os.environ}
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            main(args)
+    except BaseException:
+        sys.stderr.write(out.getvalue()[-4000:])
+        raise
+    finally:
+        os.environ.update(saved)
+    return out.getvalue().splitlines()
+
+
+def _deterministic(on=True):
+    """cuDNN's deterministic algorithms on or off (its default backward may
+    sum with atomics); returns the previous setting."""
+    import torch
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    return prev
+
+
+def _u8(arr):
+    import numpy as np
+    return np.clip(np.round(np.asarray(arr) * 255.0), 0, 255).astype(np.int16)
+
+
+def t7_phase(smi):
+    """Phase 23: the gray-3 and overlap fixtures exported as Torch7 `.t7`
+    files (compat/torch_export.py), then served and upscaled from them
+    beside the same weights from `--ckpt`.  Same weights, same program:
+    under cuDNN's deterministic algorithms, in this process, the --t7 and
+    --ckpt gray-3 services answer twelve requests (ten at LR 256) with
+    equal bytes in fp32 and bf16, and `upscale --config
+    gray-patch-batch-overlap` on a directory writes equal files.  As users
+    start it, `serve --t7 --warmup` (fp32 and --bf16, started together with
+    the --ckpt servers) answers the same requests; cuDNN's default convT
+    (a backward-data algorithm) may sum with atomics, so a --t7 server is
+    held to the --ckpt server as phase 4 holds a server to its reference
+    (fp32: 1 level of 255; bf16: 2 levels on all but 5%), and the count of
+    differing pixels is printed beside the --ckpt servers' own run-to-run
+    count in this process.  K2's launches counted on each path (from 0 at
+    each server's first /healthz after its warmup, and before each upscale
+    run).  Returns {kernel: launches} over the --t7 runs."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dcgan_sr_tpu_torch import upscale
+    from dcgan_sr_tpu_torch.compat import export_torch_generator
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.image.io import load_image
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.serve import SRService
+    from dcgan_sr_tpu_torch.train.checkpoint import load_generator
+
+    launches = dict.fromkeys(K.launches, 0)
+    with tempfile.TemporaryDirectory() as d:
+        t7 = {}
+        for variant, fixture in (("gray-3", FIXTURE),
+                                 ("gray-patch-batch-overlap",
+                                  OVERLAP_FIXTURE)):
+            net, _ = load_generator(get_config(variant, env_override=False),
+                                    fixture, device="cpu")
+            t7[variant] = export_torch_generator(
+                os.path.join(d, f"{variant}_net_G.t7"), net.spec,
+                *net.trees())
+            print(f"exported {os.path.basename(fixture)} -> "
+                  f"{os.path.getsize(t7[variant])} bytes of .t7", flush=True)
+
+        cfg = get_config("gray-3", env_override=False)
+        rng = np.random.RandomState(23)
+        imgs8 = ([(rng.rand(256, 256) * 255).astype(np.uint8)
+                  for _ in range(10)]
+                 + [(rng.rand(*hw) * 255).astype(np.uint8)
+                    for hw in ((32, 32), (100, 72))])
+        bodies = [_png(a) for a in imgs8]
+        imgs = [load_image(io.BytesIO(b), nc=1)[0] for b in bodies]
+
+        # in this process: --t7 against --ckpt, deterministic algorithms
+        nets = {"t7": load_generator(cfg, t7=t7["gray-3"], device="cuda")[0],
+                "ckpt": load_generator(cfg, FIXTURE, device="cuda")[0]}
+        ref = {}
+        for bf16 in (False, True):
+            svcs = {src: SRService(cfg, net, max_batch=8, window_ms=0,
+                                   u8_io=True, compute_dtype=(
+                                       torch.bfloat16 if bf16 else None))
+                    for src, net in nets.items()}
+            try:
+                prev = _deterministic()
+                try:
+                    out = {src: [_u8(svc.submit(im)) for im in imgs]
+                           for src, svc in svcs.items()}
+                finally:
+                    _deterministic(prev)
+                same = [np.array_equal(a, b)
+                        for a, b in zip(out["t7"], out["ckpt"])]
+                check(all(same), f"--t7 {'bf16' if bf16 else 'fp32'} in "
+                      f"process: {same.count(False)} of {len(same)} outputs "
+                      f"differ from --ckpt's under deterministic algorithms")
+                # the program's own run-to-run, default algorithms
+                again = [[_u8(svcs["ckpt"].submit(im)) for im in imgs[:3]]
+                         for _ in range(2)]
+                rr = sum(int((a != b).sum()) for a, b in zip(*again))
+            finally:
+                for svc in svcs.values():
+                    svc.close()
+            ref[bf16] = (out["ckpt"], rr)
+            print(f"--t7 vs --ckpt in process, gray-3 "
+                  f"{'bf16' if bf16 else 'fp32'}, deterministic cuDNN: "
+                  f"{len(same)} outputs equal byte for byte; --ckpt run to "
+                  f"run with cuDNN's default algorithms, 3 LR 256 requests: "
+                  f"{rr} pixels differ, on {smi}", flush=True)
+        del nets
+        torch.cuda.empty_cache()
+
+        # as users start them: --t7 and --ckpt servers, fp32 and --bf16
+        runs = [(src, bf16) for bf16 in (False, True) for src in ("t7", "ckpt")]
+        got = {}
+        with tempfile.TemporaryFile() as log:
+            servers = [start_server(
+                cfg, False, log, extra=("--warmup",) + (
+                    ("--bf16",) if bf16 else ()),
+                t7=t7["gray-3"] if src == "t7" else None)
+                for src, bf16 in runs]
+            try:
+                for srv, (src, bf16) in zip(servers, runs):
+                    name = f"--{src}{' --bf16' if bf16 else ''}"
+                    h0 = wait_up(srv, name)
+                    out, lat = [], []
+                    for body in bodies:
+                        t1 = time.perf_counter()
+                        status, resp = _request(srv[1], "POST", "/upscale",
+                                                body)
+                        lat.append((time.perf_counter() - t1) * 1e3)
+                        check(status == 200, f"{name}: POST answered {status}")
+                        out.append(np.asarray(Image.open(io.BytesIO(resp)),
+                                              np.int16))
+                    hz = _healthz(srv[1])
+                    counts = {k: v - h0["kernel_launches"][k]
+                              for k, v in hz["kernel_launches"].items()}
+                    main_k = "bulge_main_bf16" if bf16 else "bulge_main"
+                    check(counts[main_k] > 0 and hz["errors"] == 0,
+                          f"serve {name} launched {counts}")
+                    if src == "t7":
+                        for k, v in counts.items():
+                            launches[k] += v
+                    got[src, bf16] = out
+                    print(f"serve gray-3 {name}: LR 256x256 p50 "
+                          f"{sorted(lat[:10])[5]:.2f} ms (client ms "
+                          f"{[round(v, 2) for v in lat[:10]]}), launches "
+                          f"after the warmup {counts}, on {smi}", flush=True)
+            except Exception:
+                log.seek(0)
+                sys.stderr.write(log.read().decode(errors="replace")[-8000:])
+                raise
+            finally:
+                for proc, _ in servers:
+                    stop_server(proc)
+            log.seek(0)
+            text = log.read().decode(errors="replace")
+            check(text.count(f"loaded Torch checkpoint {t7['gray-3']}") == 2,
+                  "the --t7 servers did not say what they loaded")
+        for bf16 in (False, True):
+            levels, share = ((TOL_U8_BF16, TOL_U8_BF16_SHARE) if bf16
+                             else (TOL_U8, 0.0))
+            diffs = [np.abs(a - b) for a, b in zip(got["t7", bf16],
+                                                   got["ckpt", bf16])]
+            for ds, other in (("--ckpt server", diffs),
+                              ("in-process --ckpt", [
+                                  np.abs(a - b) for a, b in zip(
+                                      got["t7", bf16], ref[bf16][0])])):
+                off = [int((x > levels).sum()) for x in other]
+                check(all(o <= share * x.size for o, x in zip(off, other)),
+                      f"serve --t7 {'bf16' if bf16 else 'fp32'} against the "
+                      f"{ds}: {off} pixels beyond {levels} levels")
+            print(f"serve --t7 vs --ckpt server, {'bf16' if bf16 else 'fp32'}"
+                  f": {sum(int((x == 0).all()) for x in diffs)} of "
+                  f"{len(diffs)} responses equal byte for byte, "
+                  f"{sum(int((x > 0).sum()) for x in diffs)} pixels differ "
+                  f"(max {max(int(x.max()) for x in diffs)} levels), on {smi}",
+                  flush=True)
+
+        # bulk overlap SR from a directory, in this process
+        src_dir = os.path.join(d, "in")
+        os.makedirs(src_dir)
+        for i, hw in enumerate(((64, 64),) * 6 + ((70, 90), (48, 100))):
+            Image.fromarray((rng.rand(*hw) * 255).astype(np.uint8)).save(
+                os.path.join(src_dir, f"{i}.png"))
+        files = {}
+        for bf16 in (False, True):
+            for src in ("t7", "ckpt"):
+                weights = (["--t7", t7["gray-patch-batch-overlap"]]
+                           if src == "t7" else ["--ckpt", OVERLAP_FIXTURE])
+                dst = os.path.join(d, f"out_{src}_{bf16}")
+                for k in K.launches:
+                    K.launches[k] = 0
+                prev = _deterministic()
+                t0 = time.perf_counter()
+                try:
+                    lines = _in_process(upscale.main, [
+                        "--config", "gray-patch-batch-overlap", "--bn-eval",
+                        "--input", src_dir, "--output", dst, *weights]
+                        + (["--bf16"] if bf16 else []))
+                finally:
+                    _deterministic(prev)
+                wall = time.perf_counter() - t0
+                counts = dict(K.launches)
+                main_k = "bulge_main_bf16" if bf16 else "bulge_main"
+                check(counts[main_k] > 0, f"upscale --{src} launched {counts}")
+                if src == "t7":
+                    check(f"loaded Torch checkpoint "
+                          f"{t7['gray-patch-batch-overlap']}" in lines,
+                          f"upscale --t7 said {lines[:2]}")
+                    for k, v in counts.items():
+                        launches[k] += v
+                files[src, bf16] = {n: open(os.path.join(dst, n), "rb").read()
+                                    for n in sorted(os.listdir(dst))}
+                print(f"upscale gray-patch-batch-overlap --{src}"
+                      f"{' --bf16' if bf16 else ''}, 8 images, deterministic "
+                      f"cuDNN: {len(files[src, bf16])} files in {wall:.2f} s, "
+                      f"launches {counts}, on {smi}", flush=True)
+            check(len(files["t7", bf16]) == 8
+                  and files["t7", bf16] == files["ckpt", bf16],
+                  f"upscale --t7 {'bf16' if bf16 else 'fp32'} wrote other "
+                  f"bytes than --ckpt")
+    print(f"t7 paths: K2 launches {launches}, on {smi}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the trainer's opt-in rewrites --fast-ops and --compact-params
+# ---------------------------------------------------------------------------
+
+def opt_in_phase(smi):
+    """Phase 24: the gray-3 fp32 step at batch 100, standard against
+    --fast-ops (first-step losses from one state; stage times in turns);
+    the bf16 K = 20 graph chunk, standard against fast, in turns, for
+    gray-3 and gray-patch-batch; --compact-params against standard over one
+    replayed fp32 chunk (bit for bit); the CLI with both flags, then
+    --resume.  Returns {kernel: launches run} of the CLI runs."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.models import discriminator_spec, generator_spec
+    from dcgan_sr_tpu_torch.ops.compact import pack_state, unpack_state
+    from dcgan_sr_tpu_torch.train.checkpoint import checkpoint_path
+    from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+    from dcgan_sr_tpu_torch.train.step import (build_train_step,
+                                               init_train_state, params_of,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    dev = torch.device("cuda")
+    cfgs = {name: get_config("gray-3", env_override=False, **over)
+            for name, over in (("standard", {}), ("fast", {"fast_ops": True}))}
+    snap = state_to_numpy(init_train_state(
+        cfgs["standard"], torch.Generator().manual_seed(0), device=dev))
+    batches = _batches(cfgs["standard"], 4, dev)
+
+    # the first step's losses from one state, deterministic algorithms
+    prev = _deterministic()
+    try:
+        first = {}
+        for name, cfg in cfgs.items():
+            st = state_from_numpy(cfg, snap, device=dev)
+            _, m = build_train_step(cfg)(st, batches[0])
+            first[name] = {k: float(v) for k, v in m.items()}
+    finally:
+        _deterministic(prev)
+    for k, v in first["standard"].items():
+        check(math.isfinite(first["fast"][k])
+              and abs(first["fast"][k] - v) <= 1e-4 * abs(v) + 1e-7,
+              f"fast fp32 first step {k}: {first['fast'][k]} vs {v}")
+    print(f"fp32 gray-3 first step, standard vs --fast-ops, deterministic "
+          f"cuDNN, on {smi}: " + json.dumps(first), flush=True)
+
+    # the fp32 step's stages in turns (standard, fast, fast, standard)
+    states = {name: state_from_numpy(cfg, snap, device=dev)
+              for name, cfg in cfgs.items()}
+    turns = {"standard": [], "fast": []}
+    for name in ("standard", "fast", "fast", "standard"):
+        turns[name].append(step_breakdown(
+            cfgs[name], states[name], smi, batches=batches,
+            benchmarks=(False,))[False])
+    fp32 = {}
+    for name, rs in turns.items():
+        mean = lambda f: round(sum(f(r) for r in rs) / len(rs), 4)  # noqa: E731
+        fp32[name] = {
+            "step_ms": mean(lambda r: r["step_ms"]),
+            "turns_step_ms": [r["step_ms"] for r in rs],
+            "g_forward_ms": mean(lambda r: r["g_forward"]),
+            "g_backward_ms": mean(lambda r: r["g_backward"]),
+            "d_ms": mean(lambda r: r["d_real_forward_backward"]
+                         + r["d_fake_forward"] + r["d_fake_pullbacks"]),
+            "adam_ms": mean(lambda r: r["adam_updates"]),
+            "peak_memory_GB": max(r["peak_memory_GB"] for r in rs)}
+    fp32["fast_over_standard"] = round(fp32["fast"]["step_ms"]
+                                       / fp32["standard"]["step_ms"], 4)
+    print(f"fp32 gray-3 step, batch 100, standard vs --fast-ops in turns, on "
+          f"{smi}: " + json.dumps(fp32), flush=True)
+    del states, turns
+    torch.cuda.empty_cache()
+
+    # the bf16 K = 20 graph chunk, standard against fast, in turns
+    bf16 = {}
+    for variant, shape in (BF16_TRAIN[0], BF16_TRAIN[2]):
+        runs = {}
+        for name, over in (("standard", {}), ("fast", {"fast_ops": True})):
+            cfg = get_config(variant, env_override=False,
+                             compute_dtype="bfloat16", **over)
+            hr = _cli_batches(cfg, K_STEPS, dev)
+            st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                  device=dev)
+            run = build_multi_step(cfg)
+            _, m = run(st, hr)           # the warm-up chunk, then the capture
+            runs[name] = (run, st, hr)
+        times = {"standard": [], "fast": []}
+        for name in ("standard", "fast", "fast", "standard"):
+            run, st, hr = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = run(st, hr)
+            check(bool(torch.isfinite(m["errG"]).all()),
+                  f"{variant} bf16 {name}: losses not finite")
+            times[name].append((time.perf_counter() - t0) / K_STEPS * 1e3)
+        check(all(r.replays == 2 and r.captures == 1
+                  for r, _, _ in runs.values()), "bf16 chunks not replayed")
+        imgs = get_config(variant, env_override=False).images_consumed_per_step
+        r = {name: {"step_ms": round(sum(ts) / 2, 4),
+                    "turns_ms": [round(t, 4) for t in ts],
+                    "images_per_s": round(imgs / (sum(ts) / 2e3), 2)}
+             for name, ts in times.items()}
+        r["fast_over_standard"] = round(r["fast"]["step_ms"]
+                                        / r["standard"]["step_ms"], 4)
+        print(f"bf16 {variant} {shape}, K={K_STEPS} graph replays, standard "
+              f"vs --fast-ops in turns, on {smi}: " + json.dumps(r),
+              flush=True)
+        bf16[variant] = r
+        del runs
+        torch.cuda.empty_cache()
+
+    # --compact-params against standard over one replayed fp32 chunk
+    cfg = cfgs["standard"]
+    ccfg = get_config("gray-3", env_override=False, compact_params=True)
+    g_spec, d_spec = generator_spec(cfg), discriminator_spec(cfg)
+    chunks = (torch.stack(batches[:2]), torch.stack(batches[2:]))
+    prev = _deterministic()
+    try:
+        out = {}
+        for name, c in (("standard", cfg), ("compact", ccfg)):
+            st = state_from_numpy(cfg, snap, device=dev)
+            if name == "compact":
+                st = pack_state(st, g_spec, d_spec)
+            ptrs = [p.data_ptr() for p in params_of(st.g) + params_of(st.d)]
+            run = build_multi_step(c)
+            run(st, chunks[0])
+            _, m = run(st, chunks[1])
+            check(run.replays == 1 and [p.data_ptr() for p in params_of(st.g)
+                                        + params_of(st.d)] == ptrs,
+                  f"{name}: no replay, or a master moved")
+            if name == "compact":
+                check(all(p.dim() == 2 for p in params_of(st.g)
+                          if p.numel() > p.shape[0]), "masters not 2-D")
+                st = unpack_state(st, g_spec, d_spec)
+            out[name] = (torch.stack([m[k] for k in sorted(m)]).cpu().numpy(),
+                         state_to_numpy(st))
+    finally:
+        _deterministic(prev)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k])
+        elif isinstance(t, list):
+            for v in t:
+                yield from leaves(v)
+        elif t is not None:
+            yield np.asarray(t)
+
+    la, lb = (list(leaves(out[n][1])) for n in ("standard", "compact"))
+    n_diff = sum(not np.array_equal(a, b) for a, b in zip(la, lb))
+    check(np.array_equal(out["standard"][0], out["compact"][0])
+          and len(la) == len(lb) and n_diff == 0,
+          f"compact replayed chunk differs from standard: {n_diff} of "
+          f"{len(la)} leaves")
+    print(f"fp32 gray-3 --compact-params vs standard, one replayed 2-step "
+          f"chunk, deterministic cuDNN: losses and all {len(la)} state "
+          f"leaves equal bit for bit, on {smi}", flush=True)
+    del out
+    torch.cuda.empty_cache()
+
+    # the trainer as users start it, with both flags, then --resume
+    counts = {}
+    with tempfile.TemporaryDirectory() as ck:
+        flags = ["--config", "gray-3", "--synthetic", "--seed", "1",
+                 "--fast-ops", "--compact-params", "--checkpoint-dir", ck,
+                 "--steps", "6", "--scan", "3"]
+        for resume in (False, True):
+            t0 = time.perf_counter()
+            lines = _cli(flags + (["--epochs", "2", "--resume"] if resume
+                                  else ["--epochs", "1"]))
+            wall = time.perf_counter() - t0
+            check("fast_ops=True" in lines[0]
+                  and "compact_params=True" in lines[0], lines[0])
+            if resume:
+                check("resumed from epoch 1" in lines, "did not resume")
+            steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
+            check(len(steps) == 2 and all(steps), f"log lines: {lines}")
+            vals = [float(m.group(i)) for m in steps for i in (4, 5)]
+            check(all(math.isfinite(v) for v in vals), f"losses {vals}")
+            run, graph = k1_run(lines)
+            check(run == 6 and graph["captures"] == 1
+                  and graph["replays"] == 1,
+                  f"cli --fast-ops --compact-params: K1 ran {run}, {graph}")
+            counts["preprocess"] = counts.get("preprocess", 0) + run
+            ep = 2 if resume else 1
+            with np.load(checkpoint_path(ck, cfg.name, ep, "G")) as data:
+                check(data["_params_/_1_/_w_"].ndim == 2
+                      and int(data["_opt_/_t_"]) == 6 * ep,
+                      "checkpoint not in the compact layout, or t wrong")
+            print(f"cli gray-3 --fast-ops --compact-params"
+                  f"{' --resume' if resume else ''}, 6 steps --scan 3: "
+                  f"{wall:.2f} s, K1 ran {run}, graphs {graph}, Err_G/Err_D "
+                  f"{vals}, on {smi}", flush=True)
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3088,6 +3563,17 @@ def main():
     graph_step_phase(smi)
 
     stamp()
+    # phase 23: .t7 checkpoints on the served paths (counts from 0 in each
+    # server process after its warmup, and before each upscale run)
+    t7_launches = t7_phase(smi)
+    for k, v in t7_launches.items():
+        launches[k] += v
+
+    stamp()
+    # phase 24: the opt-in rewrites; K1 counted from 0 in each CLI run
+    opt_launches = opt_in_phase(smi)
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -3147,7 +3633,8 @@ def main():
         "name": "preprocess", "route": "cuda",
         "source": "dcgan_sr_tpu_torch/csrc/preprocess.cu",
         "replaces": "dcgan_sr_tpu/ops/pallas_kernels.py:64",
-        "launches": trainer_counts["preprocess"], "max_abs_err": pre_err,
+        "launches": trainer_counts["preprocess"] + opt_launches["preprocess"],
+        "max_abs_err": pre_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": r["shape"], "eager_ms": r["eager_ms"],

@@ -34,8 +34,11 @@ and copies chunk c+1 while the card runs chunk c (train/loop.py).
 ran (training, eval and dumps; train/multi_step.py `launches_run`: a
 launch captured into a graph runs at each replay, not at its capture);
 with `--scan` the line before "Total time" says what the graphs captured
-and replayed.  Options of the JAX CLI that the port does not have
-yet (data parallel, the opt-in rewrites) are absent.
+and replayed.  The JAX CLI's opt-in rewrites are here: `--fast-ops` runs
+the k4s2p1 convs in their k3s1p1 forms (ops/fast.py), `--compact-params`
+keeps the conv masters 2-D (ops/compact.py; its checkpoints hold that
+layout and resume under the same flag, and the eval and sample dumps run
+on the unpacked state).  Data parallel is not here yet.
 """
 
 from __future__ import annotations
@@ -60,7 +63,9 @@ from .image.ops import box_downsample2, resize_bilinear, rgb2gray
 from .infer.tiled import (make_generator_fn, make_overlap_sr_fn,
                           sr_full_image, sr_grid_patches, sr_overlap_image)
 from .metrics import cal_psnr, cal_ssim
+from .models import discriminator_spec, generator_spec
 from .ops import bulge, preprocess
+from .ops.compact import unpack_state
 from .train.checkpoint import latest_epoch, load_checkpoint
 from .train.loop import train_epochs
 from .train.multi_step import build_multi_step, launches_run
@@ -367,6 +372,16 @@ def main(argv=None):
                     help="ship batches host->device as bfloat16; the step "
                          "upcasts them at entry, so only the input pixels "
                          "carry bf16 rounding")
+    ap.add_argument("--compact-params", action="store_true",
+                    help="2-D master-weight layout: Adam's foreach passes "
+                         "run on 2-D conv masters and moments, which each "
+                         "layer views as 4-D (ops/compact.py); checkpoints "
+                         "hold that layout")
+    ap.add_argument("--fast-ops", action="store_true",
+                    help="sub-pixel/s2d conv rewrites: every k4s2p1 convT "
+                         "becomes a k3s1p1 conv + pixel shuffle, every "
+                         "k4s2p1 conv a space-to-depth + k3s1p1 conv "
+                         "(exact; ops/fast.py)")
     ap.add_argument("--self-ensemble", type=int, default=1, metavar="N",
                     choices=(1, 2, 4, 8),
                     help="eval-time geometric self-ensemble: average G over "
@@ -391,6 +406,8 @@ def main(argv=None):
     overrides = {}
     if args.bf16:
         overrides["compute_dtype"] = "bfloat16"
+    if args.fast_ops:
+        overrides["fast_ops"] = True
     if args.pixel_loss is not None:
         overrides["pixel_loss_weight"] = args.pixel_loss
     if args.gan_weight is not None:
@@ -402,6 +419,8 @@ def main(argv=None):
     if args.device_augment:
         overrides["device_augment"] = True
         overrides["device_preprocess"] = True
+    if args.compact_params:
+        overrides["compact_params"] = True
     cfg = get_config(args.config, **overrides)
     if args.seed is not None:
         cfg.manualSeed = args.seed
@@ -444,6 +463,10 @@ def main(argv=None):
                 multi_step_fn=multi_step_fn, start_epoch=start_epoch,
                 feed_dtype=torch.bfloat16 if args.feed_bf16 else None,
                 stage_ahead=args.stage_ahead)
+        if cfg.compact_params:
+            # eval and the sample dumps take 4-D conv weights
+            state = unpack_state(state, generator_spec(cfg),
+                                 discriminator_spec(cfg))
         if args.do_eval:
             run_eval(cfg, state, loader, args)
         if args.samples_dir:

@@ -37,6 +37,12 @@ just seen (momentum 0.1, unbiased variance) — the JAX package's threaded
 `new_state`, so two forwards in a row (D on real, then on fake) update in
 that order.  `logits=True` leaves out a Sigmoid head, for the BCE variants
 whose sigmoid is folded into the loss.
+
+`fast=True` of forward (the trainer's `--fast-ops`, JAX apply_network(fast=))
+rewrites every unfused k4s2p1 conv and convT whose input has an even H and
+W into its k3s1p1 form (ops/fast.py); the fused pair is never rewritten.
+A conv weight may be the 2-D master of ops/compact.py (`--compact-params`):
+the layer views it as 4-D (`Layer.weight`) wherever a convolution reads it.
 """
 
 from __future__ import annotations
@@ -45,8 +51,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import fast as FAST
 from ..ops import nn as N
 from ..ops.bulge import STATS_MODES, bulge
+from ..ops.compact import _w_shape
 from ..ops.init import init_bn, init_conv
 
 _ACTS = {
@@ -112,6 +120,8 @@ class Layer(nn.Module):
     def __init__(self, layer, p, s, device, trainable=False):
         super().__init__()
         self.spec = layer
+        self.foldable = (layer["kind"] in ("conv", "convT")
+                         and _is_k4s2p1(layer, layer["kind"]))
 
         def as_t(a):                # always a copy, float32, on `device`
             if not isinstance(a, torch.Tensor):
@@ -128,12 +138,24 @@ class Layer(nn.Module):
                 self.register_buffer("bn_mean", as_t(s["bn"]["mean"]))
                 self.register_buffer("bn_var", as_t(s["bn"]["var"]))
 
-    def conv(self, x, compute_dtype=None):
-        sp = self.spec
+    @property
+    def weight(self):
+        """`w` as the 4-D conv weight: a view of a 2-D compact master."""
+        w = self.w
+        return w if w.dim() == 4 else w.view(_w_shape(self.spec))
+
+    def conv(self, x, compute_dtype=None, fast=False):
+        sp, w = self.spec, self.weight
+        # JAX's fast_ok: k4s2p1 and an even input, conv and convT alike
+        if (fast and self.foldable and x.shape[-1] % 2 == 0
+                and x.shape[-2] % 2 == 0):
+            fn = (FAST.conv2d_s2d if sp["kind"] == "conv"
+                  else FAST.conv_transpose2d_subpixel)
+            return fn(x, w, compute_dtype=compute_dtype)
         if sp["kind"] == "conv":
-            return N.conv2d(x, self.w, sp["s"], sp["p"],
+            return N.conv2d(x, w, sp["s"], sp["p"],
                             compute_dtype=compute_dtype)
-        return N.conv_transpose2d(x, self.w, sp["s"], sp["p"],
+        return N.conv_transpose2d(x, w, sp["s"], sp["p"],
                                   compute_dtype=compute_dtype)
 
     def post(self, x, bn_stats, track_stats=False, logits=False, groups=None):
@@ -152,14 +174,14 @@ class Layer(nn.Module):
         return x if logits and act == "sigmoid" else _ACTS[act](x)
 
     def forward(self, x, bn_stats, track_stats=False, logits=False,
-                groups=None, compute_dtype=None):
+                groups=None, compute_dtype=None, fast=False):
         kind = self.spec["kind"]
         if kind == "upsample":
             return N.upsample_nearest(x, self.spec["factor"])
         if kind == "flatten":
             return x.reshape(x.shape[0], -1)[:, 0]
         if kind in ("conv", "convT"):
-            return self.post(self.conv(x, compute_dtype), bn_stats,
+            return self.post(self.conv(x, compute_dtype, fast), bn_stats,
                              track_stats, logits, groups)
         raise ValueError(f"unknown layer kind {kind!r}")
 
@@ -200,7 +222,7 @@ class Network(nn.Module):
         return params, state
 
     def forward(self, x, bn_stats="pooled", *, track_stats=False,
-                logits=False, groups=None, compute_dtype=None):
+                logits=False, groups=None, compute_dtype=None, fast=False):
         if bn_stats not in BN_STATS:
             raise ValueError(f"bn_stats must be one of {BN_STATS}")
         if groups is not None and (bn_stats != "pooled" or track_stats):
@@ -217,7 +239,7 @@ class Network(nn.Module):
             if i in self.pairs:
                 nxt = self.layers[i + 1]
                 x, _ = bulge(
-                    x, layer.w, layer.bn_scale, layer.bn_bias, nxt.w,
+                    x, layer.weight, layer.bn_scale, layer.bn_bias, nxt.weight,
                     stats=bn_stats, groups=groups, impl=self.bulge_impl,
                     running=((layer.bn_mean, layer.bn_var)
                              if bn_stats == "running" else None))
@@ -225,6 +247,6 @@ class Network(nn.Module):
                 i += 2
             else:
                 x = layer(x, bn_stats, track_stats, logits, groups,
-                          compute_dtype)
+                          compute_dtype, fast)
                 i += 1
         return x if compute_dtype is None else x.float()

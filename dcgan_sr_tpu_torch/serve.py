@@ -47,8 +47,12 @@ that no request waits for either.
 `--bf16` computes in bf16 (the precision bench_infer measures): the
 generator's layers and the fused pair's bf16 kernel.  With --u8-io the
 byte<->range maps stay fp32 around the generator, which casts at entry and
-hands fp32 back, as the JAX server's do.  Not yet ported, and refused by
-name: --t7.
+hands fp32 back, as the JAX server's do.
+
+`--t7 net_G.t7` serves a reference Torch checkpoint instead of `--ckpt`
+(compat/, imported over the random init as the JAX server does).  A
+--compact-params checkpoint serves as its unpacked weights
+(train/checkpoint.py load_generator).
 """
 
 from __future__ import annotations
@@ -456,7 +460,8 @@ def main(argv=None):
                     help="build the kernel and run every square (bucket, "
                          "mode) pipeline at batch 1 and --max-batch before "
                          "serving")
-    ap.add_argument("--t7", help="not yet ported (reference Torch checkpoint)")
+    ap.add_argument("--t7", help="reference Torch checkpoint (net_G.t7); "
+                    "takes the place of --ckpt")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 compute (the precision bench_infer measures)")
     ap.add_argument("--u8-io", action=argparse.BooleanOptionalAction,
@@ -468,9 +473,6 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
-    if args.t7:
-        raise NotImplementedError("--t7: .t7 checkpoint import is not yet "
-                                  "ported")
 
     from .core import get_config
     from .train.checkpoint import load_generator
@@ -479,7 +481,7 @@ def main(argv=None):
     device = pick_device(args.cpu)
     cfg = get_config(args.config)
     try:
-        net, msg = load_generator(cfg, args.ckpt, ema=args.ema,
+        net, msg = load_generator(cfg, args.ckpt, t7=args.t7, ema=args.ema,
                                   need_state=not args.parity_bn,
                                   device=device)
     except ValueError as e:

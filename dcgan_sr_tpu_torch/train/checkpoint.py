@@ -61,34 +61,52 @@ def npz_branches(data):
             if (m := re.match(r"_([A-Za-z0-9]+)_", k))}
 
 
-def load_branch(data, key, template):
+def load_branch(data, key, template, *, unpack=False):
     """Restore ONE branch of a saved net npz into `template`'s structure
-    (float32 numpy leaves). `data` is an open np.load handle."""
+    (float32 numpy leaves). `data` is an open np.load handle.
+
+    Like the JAX package's load_branch, it reads each leaf by its key; a
+    leaf of another shape than the template's raises, except with `unpack`
+    a 2-D leaf that is ops/compact.py's packed form of a 4-D one (a
+    checkpoint trained with --compact-params), which is unpacked."""
     leaves = []
     for path, leaf in _leaf_paths(template, (f"[{key!r}]",)):
         arr = np.asarray(data[_key(path)], np.float32)
-        if arr.shape != tuple(np.shape(leaf)):
+        want = tuple(np.shape(leaf))
+        if unpack and len(want) == 4 and arr.shape == (want[0],
+                                                       np.prod(want[1:])):
+            arr = arr.reshape(want)
+        if arr.shape != want:
             raise ValueError(f"shape mismatch for {_key(path)}: "
-                             f"{arr.shape} vs {tuple(np.shape(leaf))}")
+                             f"{arr.shape} vs {want}")
         leaves.append(arr)
     return _rebuild(template, iter(leaves))
 
 
-def load_generator(cfg, ckpt=None, *, ema=False, need_state=False,
+def load_generator(cfg, ckpt=None, *, t7=None, ema=False, need_state=False,
                    device="cuda", seed=0):
     """The generator of `cfg` as a models.Network on `device`.
 
     With `ckpt` (a JAX-package or port `..._net_G.npz`) its `params` branch
     (or `ema`) and, when present, its `state` branch carry over key for key;
-    `need_state` raises if BN running statistics are missing (bn_eval needs
-    them).  Without `ckpt` the weights are a random init drawn from `seed`.
-    Returns (net, message)."""
+    a --compact-params checkpoint's 2-D masters are unpacked.  `need_state`
+    raises if BN running statistics are missing (bn_eval needs them).
+    `t7` (a reference Torch `net_G.t7`, compat/torch_import.py) takes the
+    place of `ckpt`: imported over the random init, whose BN running
+    statistics stay where the file has none (tools/serve.py and
+    tools/upscale.py).  Without either the weights are a random init drawn
+    from `seed`.  Returns (net, message)."""
     import torch
 
     from ..models import Network, generator_spec, init_network
 
     spec = generator_spec(cfg)
     params, state = init_network(spec, torch.Generator().manual_seed(seed))
+    if t7 is not None:
+        from ..compat import import_torch_generator
+        params, state = import_torch_generator(t7, spec, params, state)
+        return (Network(spec, params, state, device=device),
+                f"loaded Torch checkpoint {t7}")
     if ckpt is None:
         return (Network(spec, params, state, device=device),
                 "WARNING: no checkpoint given; using random init")
@@ -97,7 +115,8 @@ def load_generator(cfg, ckpt=None, *, ema=False, need_state=False,
         if ema and "ema" not in branches:
             raise ValueError("--ema needs a checkpoint trained with --g-ema "
                              "(no 'ema' branch found)")
-        params = load_branch(data, "ema" if ema else "params", params)
+        params = load_branch(data, "ema" if ema else "params", params,
+                             unpack=True)
         if "state" in branches:
             state = load_branch(data, "state", state)
         elif need_state:

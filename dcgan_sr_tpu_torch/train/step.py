@@ -31,6 +31,13 @@ back to the losses (models/network.py); gradients reach the fp32 masters
 through the casts, and Adam updates the masters in fp32.  The preprocess
 still sees fp32: a bf16 feed is upcast first.
 
+cfg.fast_ops (`--fast-ops`): both networks run every unfused k4s2p1 conv
+and convT on an even input in its k3s1p1 form (ops/fast.py), as the JAX
+step passes fast= to apply_network; the option belongs to the step, not to
+the state.  cfg.compact_params (`--compact-params`): the state's conv
+masters and Adam moments are 2-D (ops/compact.py, init_train_state); the
+step itself is unchanged, since each layer views its master as 4-D.
+
 cfg.device_preprocess (`--device-preprocess`): the batch is raw [0,1] RGB
 from the folder loader, and the fused preprocess (K1) also gray-converts
 (nc = 1) and maps to [-1,1] (pm1 variants).  cfg.device_augment
@@ -52,6 +59,7 @@ from ..image.ops import crop_hflip_at
 from ..losses.schemes import bce_with_logits_loss, criterion, make_labels
 from ..models import Network, discriminator_spec, generator_spec, init_network
 from ..ops.adam import adam_init, adam_update_
+from ..ops.compact import pack_state
 from ..ops.preprocess import preprocess
 
 
@@ -77,7 +85,9 @@ def params_of(net):
 
 def init_train_state(cfg, generator, device="cuda"):
     """A fresh state on `device`, drawn from `generator` (a CPU
-    torch.Generator): G first, then D."""
+    torch.Generator): G first, then D.  Under cfg.compact_params the conv
+    masters and their moments take ops/compact.py's 2-D layout (the JAX
+    init_train_state's pack_state)."""
     g_spec, d_spec = generator_spec(cfg), discriminator_spec(cfg)
     g = Network(g_spec, *init_network(g_spec, generator), device=device,
                 fuse=False, trainable=True)
@@ -86,8 +96,11 @@ def init_train_state(cfg, generator, device="cuda"):
     ema = None
     if cfg.g_ema > 0:
         ema = [p.detach().clone() for p in params_of(g)]
-    return TrainState(g=g, d=d, g_opt=adam_init(params_of(g)),
-                      d_opt=adam_init(params_of(d)), g_ema=ema)
+    state = TrainState(g=g, d=d, g_opt=adam_init(params_of(g)),
+                       d_opt=adam_init(params_of(d)), g_ema=ema)
+    if cfg.compact_params:
+        state = pack_state(state, g_spec, d_spec)
+    return state
 
 
 # ---- carried across: the JAX package's TrainState leaves as numpy ----------
@@ -161,9 +174,6 @@ def state_from_trees(g_spec, d_spec, tree, device):
 
 # ---- the step ---------------------------------------------------------------
 
-_NOT_PORTED = ("fast_ops", "compact_params")
-
-
 def _no_mark(name):
     pass
 
@@ -185,9 +195,7 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     in it to see where the time goes).
     """
     cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
-    for name in _NOT_PORTED:
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{name} is not ported yet")
+    fast = cfg.fast_ops
     if axis_name is not None:
         raise NotImplementedError("a data-parallel axis is not ported yet")
 
@@ -223,12 +231,13 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
         g_params, d_params = params_of(state.g), params_of(state.d)
 
         # G forward: one graph, pulled back once, for G's update
-        fake = state.g(lr_img, track_stats=True, compute_dtype=cdt)
+        fake = state.g(lr_img, track_stats=True, compute_dtype=cdt,
+                       fast=fast)
         mark("g_forward")
 
         # D on real (own batch statistics; first running-stat update)
         out_real = state.d(hr, track_stats=True, logits=fold,
-                           compute_dtype=cdt)
+                           compute_dtype=cdt, fast=fast)
         err_d_real = crit(out_real, torch.full_like(out_real, cfg.real_label))
         gd_real = grad(err_d_real, d_params)
         mark("d_real_forward_backward")
@@ -236,7 +245,7 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
         # D on fake: one forward, shared by the D-fake and the G loss
         _, fake_vec, g_vec = make_labels(cfg, hr, fake.detach())
         out_fake = state.d(fake, track_stats=True, logits=fold,
-                           compute_dtype=cdt)
+                           compute_dtype=cdt, fast=fast)
         mark("d_fake_forward")
         err_d_fake = crit(out_fake, fake_vec)
         err_g = crit(out_fake, g_vec)

@@ -3,7 +3,8 @@ tools/upscale.py).
 
 Covers the reference's sample-making flows as a tool: full-image SR (gray-3,
 and rgb-full/gray/gray-2), grid-patch SR, or overlap-tile SR with seam-cut
-stitching (the patch configs), from a framework checkpoint (.npz).  Default
+stitching (the patch configs), from a framework checkpoint (.npz) or a
+reference Torch checkpoint (`--t7 net_G.t7`, compat/).  Default
 is the reference's eval protocol: degrade the input 2x2 internally, restore
 it at its own size and print PSNR against the original beside the bilinear
 control.  --true-2x treats the input as the LOW-RES image and writes a
@@ -18,7 +19,7 @@ pipeline call.
 
 `--bf16` runs the generator in bf16 (the fused pair through its bf16
 kernel on a card) in every mode.  Not yet ported, and refused by name: --dp
-(data parallelism), --t7 (.t7 import).
+(data parallelism).
 """
 
 from __future__ import annotations
@@ -43,10 +44,9 @@ def _psnr(nc, a, b):
 
 
 def _not_ported(args):
-    for flag, what in (("dp", "--dp: data-parallel inference"),
-                       ("t7", "--t7: .t7 checkpoint import")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"{what} is not yet ported")
+    if args.dp:
+        raise NotImplementedError("--dp: data-parallel inference is not yet "
+                                  "ported")
 
 
 def _dtype(args):
@@ -169,7 +169,8 @@ def main(argv=None):
                          "(infer/ensemble.py)")
     ap.add_argument("--dp", action="store_true",
                     help="not yet ported (data-parallel batch mode)")
-    ap.add_argument("--t7", help="not yet ported (reference Torch checkpoint)")
+    ap.add_argument("--t7", help="reference Torch checkpoint (net_G.t7); "
+                    "takes the place of --ckpt")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 compute (fp32 parameters, fp32 output)")
     ap.add_argument("--cpu", action="store_true",
@@ -192,7 +193,7 @@ def main(argv=None):
 
     device = pick_device(args.cpu)
     try:
-        net, msg = load_generator(cfg, args.ckpt, ema=args.ema,
+        net, msg = load_generator(cfg, args.ckpt, t7=args.t7, ema=args.ema,
                                   need_state=args.bn_eval, device=device)
     except ValueError as e:
         sys.exit(str(e))

@@ -44,10 +44,12 @@ from dcgan_sr_tpu_torch.train.step import (build_train_step, state_from_numpy,
                                            state_to_numpy)
 
 NGF, NDF = 4, 8
-# case -> (variant, batch of the step: (B, C, H, W))
+# case -> (variant, batch of the step: (B, C, H, W)[, config overrides])
 CASES = {"gray-3": ("gray-3", (4, 1, 64, 64)),
          "rgb-full": ("rgb-full", (4, 3, 64, 64)),
-         "gray-patch-batch": ("gray-patch-batch", (128, 1, 8, 8))}
+         "gray-patch-batch": ("gray-patch-batch", (128, 1, 8, 8)),
+         # tests/test_torch_fast_ops.py
+         "gray-3-fast": ("gray-3", (4, 1, 64, 64), {"fast_ops": True})}
 METRICS = ("errD", "errD_real", "errD_real_reported", "errD_fake", "errG",
            "pixel_loss")
 
@@ -66,8 +68,9 @@ def _fields(st):
 def _run(case):
     """[per step: {"bf16", "fp32" (JAX), "port"}: (metrics, state)], each
     step taken from the JAX bf16 state before it."""
-    variant, shape = CASES[case]
-    kw = dict(env_override=False, ngf=NGF, ndf=NDF, batchSize=shape[0])
+    variant, shape, *over = CASES[case]
+    kw = dict(env_override=False, ngf=NGF, ndf=NDF, batchSize=shape[0],
+              **(over[0] if over else {}))
     jbf = j_get_config(variant, compute_dtype="bfloat16", **kw)
     j32 = j_get_config(variant, **kw)
     cfg = get_config(variant, compute_dtype="bfloat16", **kw)

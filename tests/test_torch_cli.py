@@ -120,9 +120,17 @@ def test_cli_pm1_variants_feed_pm1_batches():
 
 
 @pytest.mark.parametrize("flag", ["--fast-ops", "--dp", "--use-pallas"])
-def test_cli_has_no_flags_of_unported_options(flag):
-    with pytest.raises(SystemExit):
-        cli.main(["--cpu", flag])
+def test_cli_has_no_flags_of_unported_options(flag, capsys):
+    """--dp is not ported and --use-pallas has no counterpart (the port's
+    step always runs K1): neither is a flag.  --fast-ops is ported and
+    listed (tests/test_torch_fast_ops.py, test_torch_compact.py)."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--cpu", flag] if flag != "--fast-ops" else ["--help"])
+    if flag == "--fast-ops":
+        assert e.value.code == 0
+        assert "--fast-ops" in capsys.readouterr().out
+    else:
+        assert e.value.code == 2
 
 
 def test_cli_patch_variants_say_not_ported(tmp_path, monkeypatch, capsys):

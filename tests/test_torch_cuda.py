@@ -843,7 +843,10 @@ def _chunks(cfg, cuda, n=3, k=3):
 @pytest.mark.parametrize("variant,over", [
     ("gray-3", {}), ("gray-3", {"compute_dtype": "bfloat16"}),
     ("rgb-full", {}), ("gray", {"device_augment": True,
-                                "device_preprocess": True})])
+                                "device_preprocess": True}),
+    ("gray-3", {"fast_ops": True}),
+    ("gray-3", {"fast_ops": True, "compact_params": True,
+                "compute_dtype": "bfloat16"})])
 def test_captured_chunks_equal_eager_chunks(cuda, deterministic, variant,
                                            over):
     """Three chunks of three steps: the runner's warm-up chunk and two
@@ -870,6 +873,35 @@ def test_captured_chunks_equal_eager_chunks(cuda, deterministic, variant,
         floor = 1e-6 * (1 + e1.abs().max().item())
         assert torch.isfinite(g).all()
         assert diff <= 2 * spread + floor, (key, diff, spread)
+
+
+def test_compact_graph_chunks_are_the_standard_ones_bit_for_bit(
+        cuda, deterministic):
+    """--compact-params on the card: the same three chunks (a warm-up and
+    two replays) from one init, compact against standard; after
+    unpack_state every leaf is equal, and the masters kept their storage."""
+    from dcgan_sr_tpu_torch.models import discriminator_spec, generator_spec
+    from dcgan_sr_tpu_torch.ops.compact import unpack_state
+    from dcgan_sr_tpu_torch.train.step import params_of
+
+    out = []
+    for compact in (False, True):
+        cfg = get_config("gray-3", **GRAPH_KW, compact_params=compact)
+        st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                              device=cuda)
+        ptrs = [p.data_ptr() for p in params_of(st.g) + params_of(st.d)]
+        run = build_multi_step(cfg)
+        for c in _chunks(cfg, cuda):
+            run(st, c)
+        assert (run.captures, run.replays) == (1, 2)
+        assert [p.data_ptr() for p in params_of(st.g) + params_of(st.d)] \
+            == ptrs
+        if compact:
+            st = unpack_state(st, generator_spec(cfg), discriminator_spec(cfg))
+        out.append(dict(_leaves(state_to_numpy(st))))
+    assert sorted(out[0]) == sorted(out[1])
+    for k in out[0]:
+        np.testing.assert_array_equal(out[0][k], out[1][k], err_msg=k)
 
 
 def test_each_replay_advances_the_step_count_on_the_card(cuda):

@@ -41,7 +41,8 @@ def test_port_modules_import_no_jax():
               "bench_fused", "bench_infer", "metrics.psnr_ssim",
               "utils.stats", "image.io", "image.ops", "data.folder",
               "data.indexed", "data.prefetch", "data.native", "data.dispatch",
-              "evaluation.harness"):
+              "evaluation.harness", "compat.t7", "compat.torch_import",
+              "compat.torch_export", "ops.fast", "ops.compact"):
         assert "dcgan_sr_tpu_torch." + m in mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

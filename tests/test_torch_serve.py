@@ -201,10 +201,12 @@ def test_validation_rejects_before_queueing(services):
     assert svc.submit(np.zeros((16, 16), np.float32)).shape == (32, 32)
 
 
-def test_patch_configs_not_yet_ported(net):
-    """The patch configs serve now (the tiled tests below); what the port
-    still lacks is refused by name."""
+def test_patch_configs_not_yet_ported(net, tmp_path, monkeypatch):
+    """The patch configs serve now (the tiled tests below), in bf16 too,
+    and so does a reference Torch checkpoint: `serve --t7` answers with the
+    bytes the same weights give through SRService."""
     from dcgan_sr_tpu_torch import serve
+    from dcgan_sr_tpu_torch.compat import export_torch_generator
     cfg = get_config("gray-patch-batch-overlap", env_override=False, ngf=4)
     pnet = load_generator(cfg, None, device="cpu")[0]
     svc = SRService(cfg, pnet, max_size=16)
@@ -217,8 +219,31 @@ def test_patch_configs_not_yet_ported(net):
         assert bf.health()["dtype"] == "bf16"
     finally:
         bf.close()
-    with pytest.raises(NotImplementedError, match="--t7"):
-        serve.main(["--cpu", "--t7", "net_G.t7"])
+    path = export_torch_generator(str(tmp_path / "net_G.t7"), pnet.spec,
+                                  *pnet.trees())
+    img = np.random.RandomState(5).rand(16, 12).astype(np.float32)
+    served = {}
+
+    class Front:                 # the HTTP front, answering one request
+        def __init__(self, service):
+            served["out"] = service.submit(img)
+
+        def serve_forever(self):
+            pass
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(serve, "make_http_server", lambda svc, *a: Front(svc))
+    monkeypatch.setenv("ngf", "4")
+    serve.main(["--cpu", "--config", "gray-patch-batch-overlap", "--t7", path,
+                "--max-size", "16", "--max-batch", "1", "--window-ms", "0"])
+    ref = SRService(cfg, pnet, max_size=16, max_batch=1, window_ms=0,
+                    u8_io=True)
+    try:
+        np.testing.assert_array_equal(served["out"], ref.submit(img))
+    finally:
+        ref.close()
 
 
 # ---- the tiled service: patch configs through the overlap pipeline ---------

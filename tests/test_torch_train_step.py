@@ -345,17 +345,13 @@ def test_g_gradient_does_not_leak_into_d():
     {"compute_dtype": "bfloat16"}, {"fast_ops": True},
     {"compact_params": True}, "axis_name"])
 def test_unported_options_raise(option):
-    if option == {"compute_dtype": "bfloat16"}:
-        # ported: builds, and its steps are held to the JAX package's bf16
-        # step in tests/test_torch_bf16_step.py
-        cfg = get_config("gray-3", env_override=False, **option)
-        assert callable(build_train_step(cfg))
-        return
     if option == "axis_name":
         cfg = get_config("gray-3", env_override=False)
         with pytest.raises(NotImplementedError, match="data-parallel"):
             build_train_step(cfg, axis_name="data")
         return
+    # ported: each builds, and its steps are held to the JAX package's in
+    # tests/test_torch_bf16_step.py, test_torch_fast_ops.py and
+    # test_torch_compact.py
     cfg = get_config("gray-3", env_override=False, **option)
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        build_train_step(cfg)
+    assert callable(build_train_step(cfg))

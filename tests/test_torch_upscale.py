@@ -138,11 +138,33 @@ def test_upscale_true_2x_directory(tmp_path, jax_weights):
 
 
 def test_upscale_refuses_unported_modes_and_cpu_fallback(tmp_path):
-    """Grid and overlap modes are ported; what is not is refused by name."""
-    for flag in (["--dp"], ["--t7", "net_G.t7"]):
-        with pytest.raises(NotImplementedError, match=flag[0]):
-            upscale.main(["--cpu", "--input", "x.png", "--output",
-                          str(tmp_path / "o.png")] + flag)
+    """Grid and overlap modes are ported, and so is --t7: the fixture's
+    weights exported as a reference Torch checkpoint upscale to the bytes
+    of --ckpt.  What is not ported (--dp) is refused by name."""
+    from dcgan_sr_tpu_torch.compat import export_torch_generator
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.train.checkpoint import load_generator
+
+    net, _ = load_generator(get_config("gray-3", env_override=False),
+                            FIXTURE, device="cpu")
+    t7 = export_torch_generator(str(tmp_path / "net_G.t7"), net.spec,
+                                *net.trees())
+    src = str(tmp_path / "in.png")
+    Image.fromarray((np.random.RandomState(6).rand(22, 30) * 255)
+                    .astype(np.uint8)).save(src)
+    outs = []
+    for weights in (["--ckpt", FIXTURE], ["--t7", t7]):
+        dst = str(tmp_path / f"{weights[0][2:]}.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            upscale.main(["--cpu", "--config", "gray-3", "--bn-eval",
+                          "--input", src, "--output", dst] + weights)
+        outs.append(open(dst, "rb").read())
+    assert f"loaded Torch checkpoint {t7}" in buf.getvalue()
+    assert outs[0] == outs[1]
+    with pytest.raises(NotImplementedError, match="--dp"):
+        upscale.main(["--cpu", "--input", "x.png", "--output",
+                      str(tmp_path / "o.png"), "--dp"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--cpu"):
             upscale.main(["--input", "x.png", "--output",
