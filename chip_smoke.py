@@ -165,7 +165,8 @@ Phases, each fatal on failure:
      gray-patch-batch, the eager loop and the graph in turns (eager, graph,
      graph, eager): ms a step, images/s, the device's busy share from
      torch.profiler over 5 eager steps and one replayed chunk.  The graph
-     is held to the eager loop on one replayed chunk: after the warm-up
+     is held to the eager loop on one replayed chunk, under cuDNN's
+     deterministic algorithms, by a runner of its own: after the warm-up
      chunk (its own batches), two eager twins start from a copy of the
      graph's state and run the next chunk (other batches) beside its
      replay; per-step losses within twice the eager twins' spread
@@ -198,6 +199,30 @@ Phases, each fatal on failure:
      `python -m dcgan_sr_tpu_torch.cli --config gray-3 --synthetic --steps
      6 --scan 3 --fast-ops --compact-params` (through cli.main), then
      `--resume`: K1 run 6 times each, compact checkpoints.
+ 25. data parallel (parallel/, `--dp`).  (a) In this process, a NCCL world
+     of one: build_dp_train_step against the single-device step from one
+     copied state, gray-3 batch 100, fp32 (TF32 off) and bf16: the first
+     step's losses and Adam's first moment under deterministic cuDNN (a
+     world of one adds only the collectives), then ms a step in turns (dp,
+     single, single, dp) and the device ms of NCCL's kernels a step
+     (torch.profiler).  (b) The bf16 K = 20 chunk of both as CUDA graphs,
+     the DP one with its NCCL collectives captured, in turns (single, dp,
+     dp, single) beside phase 22's graph; then `python -m
+     torch.distributed.run --standalone --nproc_per_node 1 -m
+     dcgan_sr_tpu_torch.cli --dp --bf16 --feed-bf16 --steps 40 --scan 20`:
+     its replayed chunk's images/s, one capture and one replay, K1 run 40
+     times.  (c) `upscale --dp` over 7 images for gray-3 and
+     gray-patch-batch-overlap from their fixtures, fp32 and bf16, in this
+     process as a launcher's rank of a world of one, byte-equal to the run
+     without --dp under deterministic cuDNN, K2 counted; and (fp32) under
+     the launcher itself, held to the plain run as phase 4 holds a server.
+     (d) Two ranks on the one card over gloo with CUDA tensors, gray-3
+     batch 100 (50 a rank), the DP step against the single-device step
+     from one state under deterministic cuDNN (tests/test_torch_dp.py's
+     tolerances: metrics rtol 1e-3
+     / atol 1e-4 and each network's gradient norm to 1e-3 in fp32; Adam's
+     first moment leaf by leaf at rtol 1e-4 / atol 1e-6 in float64, where
+     only the DP decomposition differs); both ranks launch K1.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (with their eval launches and times at the
      eval shape), K2 stats bf16, K2 main bf16, K3 stats, K3 main, K3 stats
@@ -250,10 +275,12 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
   captured chunk vs eager loop    per-step losses of one replayed chunk
                                   within twice the largest spread of two
                                   eager runs of that chunk from a copy of
-                                  the graph's state (cuDNN's backward may
-                                  sum with atomics), and at its first step
+                                  the graph's state, and at its first step
                                   (a forward) within twice their spread
-                                  there; plus 1e-6 relative
+                                  there; plus 1e-6 relative; all under
+                                  cuDNN's deterministic algorithms (its
+                                  default backward sums with atomics, which
+                                  20 GAN steps amplify chaotically)
   step, kernel vs plain           hr and lr are bit-equal, but cuDNN's
                                   backward sums atomically, and Adam's first
                                   steps are sign-like: losses rtol 1e-4
@@ -2701,6 +2728,36 @@ def adam_forms(state, n=50):
     return out
 
 
+def _replay_and_twins(cfg, chunks, dev):
+    """Under cuDNN's deterministic algorithms: a runner warms up on
+    chunks[0] and captures its graph; two eager twins start from copies of
+    its state; the graph's replay of chunks[1] and the twins' runs of it.
+    Returns their per-step losses, (metrics, K) arrays each.  (cuDNN's
+    default bf16 backward sums with atomics, and K GAN steps carry that
+    noise chaotically: 0.08-0.84 in a loss over 20 steps.)"""
+    import torch
+
+    from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+    from dcgan_sr_tpu_torch.train.step import (init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    prev = _deterministic()
+    try:
+        sg = init_train_state(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        mg, me = build_multi_step(cfg), build_multi_step(cfg)
+        mg(sg, chunks[0])
+        snap = state_to_numpy(sg)
+        se, se2 = (state_from_numpy(cfg, snap, device=dev) for _ in range(2))
+        return tuple(
+            torch.stack([m[k] for k in sorted(m)]).float().cpu().numpy()
+            for m in (mg(sg, chunks[1])[1], me.eager(se, chunks[1])[1],
+                      me.eager(se2, chunks[1])[1]))
+    finally:
+        _deterministic(prev)
+
+
 def graph_step_phase(smi):
     """Phase 22: the eager loop and the CUDA graph of a K = 20 chunk in
     turns for bench.py's three bf16 trainers; one replayed chunk against
@@ -2728,17 +2785,13 @@ def graph_step_phase(smi):
         # capture) and the compared replay; the timed turns reuse them
         hr = _cli_batches(cfg, 2 * K_STEPS, dev)
         chunks = (hr[:K_STEPS], hr[K_STEPS:])
+        lg, le1, le2 = _replay_and_twins(cfg, chunks, dev)
         sg = init_train_state(cfg, torch.Generator().manual_seed(0),
                               device=dev)
         mg, me = build_multi_step(cfg), build_multi_step(cfg)
         mg(sg, chunks[0])
-        # the eager twins start where the warm-up left the graph's state
-        snap = state_to_numpy(sg)
-        se, se2 = (state_from_numpy(cfg, snap, device=dev) for _ in range(2))
-        lg, le1, le2 = (
-            torch.stack([m[k] for k in sorted(m)]).float().cpu().numpy()
-            for m in (mg(sg, chunks[1])[1], me.eager(se, chunks[1])[1],
-                      me.eager(se2, chunks[1])[1]))
+        # the timed eager loop starts where the warm-up left the graph
+        se = state_from_numpy(cfg, state_to_numpy(sg), device=dev)
         # step 0 is a forward from one state on one batch: the replay must
         # agree with the twins as they agree among themselves (a replay
         # that trained on stale input would not); later steps within twice
@@ -2753,7 +2806,6 @@ def graph_step_phase(smi):
               f"{diff.max():.3e} ({diff[:, 0].max():.3e} at its first "
               f"step), the eager twins by {spread.max():.3e} "
               f"({spread[:, 0].max():.3e})")
-        del se2
 
         def timed(name, chunk):
             fn, st = (me.eager, se) if name == "eager" else (mg, sg)
@@ -2767,8 +2819,8 @@ def graph_step_phase(smi):
         for name, c in (("eager", 0), ("graph", 0), ("graph", 1),
                         ("eager", 1)):
             turns[name].append(timed(name, chunks[c]))
-        check(mg.captures == 1 and mg.replays == 3
-              and int(sg.g_opt["t"]) == int(sg.d_opt["t"]) == 4 * K_STEPS,
+        check(mg.captures == 1 and mg.replays == 2
+              and int(sg.g_opt["t"]) == int(sg.d_opt["t"]) == 3 * K_STEPS,
               f"{variant}: {mg.stats()}, t {int(sg.g_opt['t'])}: Adam's "
               f"step count advances by K a replay")
         # the profiler's own host cost grows with the launches it records:
@@ -3272,6 +3324,461 @@ def opt_in_phase(smi):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 25: data parallel on the card
+# ---------------------------------------------------------------------------
+
+# the DP step against the single-device step (tests/test_torch_dp.py): the
+# metrics, and each network's gradient norm (Adam's first moment over the
+# step's leaves; a DP gradient off by any factor fails); leaf by leaf where
+# only the DP decomposition differs: in a world of one (the same kernels in
+# the same order under deterministic cuDNN, only the collectives added) and
+# in float64 (fp32 sums in another order through G's train-mode BNs move a
+# gradient element by up to 1e-3 of its leaf's scale; tests/test_torch_dp.py)
+DP_METRIC_TOL = dict(rtol=1e-3, atol=1e-4)
+DP_M_TOL = dict(rtol=1e-4, atol=1e-6)
+DP_NORM_TOL = 1e-3
+
+
+def _moments(state):
+    """Adam's first moments, {"g" | "d": [numpy leaf, ...]}."""
+    return {n: [m.cpu().numpy() for m in opt["m"]]
+            for n, opt in (("g", state.g_opt), ("d", state.d_opt))}
+
+
+def _metric_err(ma, mb):
+    """The largest |a - b| of two metric dicts, and whether every metric
+    is within DP_METRIC_TOL."""
+    import numpy as np
+    a = np.array([float(ma[k]) for k in sorted(ma)])
+    b = np.array([float(mb[k]) for k in sorted(mb)])
+    ok = bool(np.all(np.abs(a - b) <= DP_METRIC_TOL["atol"]
+                     + DP_METRIC_TOL["rtol"] * np.abs(b)))
+    return float(np.abs(a - b).max()), ok
+
+
+def _grad_check(m_dp, m_one, leafwise):
+    """Adam's first moments of the DP step against the single step's: each
+    network's norm to DP_NORM_TOL and, `leafwise`, every element at
+    DP_M_TOL.  Returns (largest |diff| relative to its leaf's largest
+    |m|, {net: norm ratio}, ok)."""
+    import numpy as np
+    worst, ratios, ok = 0.0, {}, True
+    for net in ("g", "d"):
+        num = den = 0.0
+        for a, b in zip(m_dp[net], m_one[net]):
+            a, b = a.astype(np.float64), b.astype(np.float64)
+            d = np.abs(a - b)
+            worst = max(worst, float(d.max() / np.abs(b).max()))
+            if leafwise:
+                ok &= bool(np.all(d <= DP_M_TOL["atol"]
+                                  + DP_M_TOL["rtol"] * np.abs(b)))
+            num += float(np.sum(a ** 2))
+            den += float(np.sum(b ** 2))
+        ratios[net] = float(np.sqrt(num / den))
+        ok &= abs(ratios[net] - 1) < DP_NORM_TOL
+    return worst, ratios, ok
+
+
+def _double(state):
+    """The state in float64, in place (Adam's step count stays int32)."""
+    state.g.double(), state.d.double()
+    for opt in (state.g_opt, state.d_opt):
+        opt["m"] = [m.double() for m in opt["m"]]
+        opt["v"] = [v.double() for v in opt["v"]]
+    return state
+
+
+def _nccl_ms(fn, steps):
+    """(device ms a step of NCCL's kernels, of all kernels) over one call
+    of fn (`steps` steps) under torch.profiler; (None, None) where it
+    reports no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcgan_sr_tpu_torch.profile_step import _device_us
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    total = sum(_device_us(r) for r in rows)
+    if total <= 0:
+        return None, None
+    nccl = sum(_device_us(r) for r in rows if "nccl" in r.key.lower())
+    return round(nccl * 1e-3 / steps, 4), round(total * 1e-3 / steps, 4)
+
+
+def gloo_rank(rank, world, store, out):
+    """Phase 25 (d), one rank: over gloo with CUDA tensors on the one card,
+    the gray-3 DP step on this rank's half of batch 100 against the
+    single-device step on all of it, from one state, under cuDNN's
+    deterministic algorithms; writes out/rank<r>.json and raises if they
+    disagree."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+    from dcgan_sr_tpu_torch.parallel import (build_dp_train_step, create_mesh,
+                                             initialize_distributed,
+                                             shard_batch)
+    from dcgan_sr_tpu_torch.train.step import (build_train_step,
+                                               init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    dev = torch.device("cuda")
+    initialize_distributed(f"file://{store}", world, rank, backend="gloo")
+    try:
+        mesh = create_mesh(device=dev)
+        cfg = get_config("gray-3", env_override=False)
+        batch = _batches(cfg, 1, dev)[0]
+        snap = state_to_numpy(init_train_state(
+            cfg, torch.Generator().manual_seed(0), device=dev))
+        sd, ss = (state_from_numpy(cfg, snap, device=dev) for _ in range(2))
+        # cuDNN's default backward sums with atomics: the single-device
+        # reference alone moves G's gradient norm by ~1e-3 run to run
+        prev = _deterministic()
+        try:
+            P.launches["preprocess"] = 0
+            sd, md = build_dp_train_step(cfg, mesh)(sd,
+                                                    shard_batch(batch, mesh))
+            torch.cuda.synchronize()
+            k1 = P.launches["preprocess"]
+            ss, ms = build_train_step(cfg)(ss, batch)
+            merr, mok = _metric_err(md, ms)
+            gerr, ratios, gok = _grad_check(_moments(sd), _moments(ss),
+                                            False)
+            # float64 (the plain preprocess: K1 is fp32), leaf by leaf
+            kw = dict(preprocess_fn=P.preprocess_plain)
+            sd, ss = (_double(state_from_numpy(cfg, snap, device=dev))
+                      for _ in range(2))
+            sd, _ = build_dp_train_step(cfg, mesh, **kw)(
+                sd, shard_batch(batch.double(), mesh))
+            ss, _ = build_train_step(cfg, **kw)(ss, batch.double())
+            err64, ratios64, ok64 = _grad_check(_moments(sd), _moments(ss),
+                                                True)
+        finally:
+            _deterministic(prev)
+        r = {"rank": rank, "backend": mesh.backend, "local_batch": 50,
+             "k1_launches": k1, "metrics_max_abs_diff": merr,
+             "fp32_m_max_diff_of_leaf_scale": gerr,
+             "fp32_grad_norm_ratio": ratios,
+             "f64_m_max_diff_of_leaf_scale": err64,
+             "f64_grad_norm_ratio": ratios64}
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(r, f)
+        check(mok and gok and ok64 and k1 == 1, f"gloo rank {rank}: {r}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def gloo_pair(smi, env):
+    """Phase 25 (d): two gloo_rank processes on the one card, started
+    together (env: their environment).  Returns K1's launches on both."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as c; "
+             f"c.gloo_rank({r}, 2, {store!r}, {tmp!r})"], cwd=REPO, env=env,
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+        try:
+            for proc in procs:
+                proc.wait(timeout=600)
+        finally:
+            for proc in procs:
+                proc.kill()
+            for r, (proc, log) in enumerate(zip(procs, logs)):
+                log.seek(0)
+                text = log.read()
+                log.close()
+                if proc.returncode:
+                    sys.stderr.write(text[-4000:])
+                check(proc.returncode == 0, f"gloo rank {r} exited "
+                      f"{proc.returncode}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(2)]
+    print(f"DP step over gloo, two ranks on the one card (CUDA tensors), "
+          f"gray-3 batch 100 (50 a rank) against one device, on {smi}: "
+          + json.dumps(ranks), flush=True)
+    return sum(r["k1_launches"] for r in ranks)
+
+
+def dp_phase(smi, graph22=None):
+    """Phase 25: data parallel on the card.  (a) in this process, a NCCL
+    world of one: the DP step against the single-device step from one
+    copied state, gray-3 batch 100, fp32 (TF32 off) and bf16 (losses and
+    Adam's first moment under deterministic cuDNN, then ms a step in turns
+    and NCCL's device ms a step); (b) the bf16 K = 20 chunk of both as CUDA
+    graphs (the DP one with its NCCL collectives captured), in turns, then
+    `python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    dcgan_sr_tpu_torch.cli --dp --bf16 --scan 20`; (c) `upscale --dp` as a
+    launcher's rank of a world of one, gray-3 and gray-patch-batch-overlap,
+    fp32 and bf16, byte-equal to the run without --dp under deterministic
+    cuDNN, and under the launcher itself (phase 4's level); (d) two ranks on
+    the one card over gloo with CUDA tensors (fp32, and float64 for Adam's
+    first moment leaf by leaf).  `graph22`: phase 22's rows,
+    printed beside (b)'s.  Returns {kernel: launches} of its paths."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dcgan_sr_tpu_torch import upscale
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+    from dcgan_sr_tpu_torch.parallel import (build_dp_multi_step,
+                                             build_dp_train_step, create_mesh,
+                                             initialize_distributed)
+    from dcgan_sr_tpu_torch.train.multi_step import (build_multi_step,
+                                                     launches_run)
+    from dcgan_sr_tpu_torch.train.step import (build_train_step,
+                                               init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    dev = torch.device("cuda")
+    launches = {"preprocess": 0, **dict.fromkeys(K.launches, 0)}
+
+    def zero():
+        for counts in (K.launches, P.launches):
+            for k in counts:
+                counts[k] = 0
+
+    def add(counts):
+        for k, v in counts.items():
+            if k in launches:
+                launches[k] += v
+
+    initialize_distributed(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                           backend="nccl")
+    try:
+        mesh = create_mesh()
+        check(mesh.backend == "nccl" and mesh.size == 1
+              and mesh.device == torch.device("cuda", 0), f"mesh {mesh}")
+        # (a) the step, a world of one against one device
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config("gray-3", env_override=False,
+                             compute_dtype=dtype)
+            batches = _batches(cfg, 2, dev)
+            snap = state_to_numpy(init_train_state(
+                cfg, torch.Generator().manual_seed(0), device=dev))
+            sd, ss = (state_from_numpy(cfg, snap, device=dev)
+                      for _ in range(2))
+            dstep, step = build_dp_train_step(cfg, mesh), build_train_step(cfg)
+            prev = _deterministic()
+            try:
+                zero()
+                sd, md = dstep(sd, batches[0])
+                torch.cuda.synchronize()
+                add(P.launches)
+                ss, ms = step(ss, batches[0])
+                merr, mok = _metric_err(md, ms)
+                gerr, ratios, gok = _grad_check(_moments(sd), _moments(ss),
+                                                True)
+            finally:
+                _deterministic(prev)
+            check(mok and gok, f"{dtype}: the DP step of a world of one "
+                  f"differs from the single-device step: metrics "
+                  f"{merr:.3e}, m {gerr:.3e}")
+            turns = {"dp": [], "single": []}
+            zero()
+            for name in ("dp", "single", "single", "dp"):
+                fn, st = (dstep, sd) if name == "dp" else (step, ss)
+                turns[name].append(_step_ms(fn, st, batches[1], iters=10))
+            add(P.launches)
+            nccl, total = _nccl_ms(
+                lambda: [dstep(sd, batches[1]) for _ in range(3)], 3)
+            r = {"metrics_max_abs_diff": merr,
+                 "m_max_diff_of_leaf_scale": gerr,
+                 "grad_norm_ratio": ratios, "turns_ms": turns,
+                 "dp_step_ms": round(sum(turns["dp"]) / 2, 4),
+                 "single_step_ms": round(sum(turns["single"]) / 2, 4),
+                 "nccl_device_ms_per_step": nccl,
+                 "device_ms_per_step": total,
+                 "nccl_share": None if not total else round(nccl / total, 4)}
+            print(f"DP step, world of one (NCCL), gray-3 batch 100 {dtype}, "
+                  f"on {smi}: " + json.dumps(r), flush=True)
+            del sd, ss, dstep, step, batches
+            torch.cuda.empty_cache()
+
+        # (b) the bf16 K-step chunk: both as CUDA graphs, in turns
+        cfg = get_config("gray-3", env_override=False,
+                         compute_dtype="bfloat16")
+        hr = _cli_batches(cfg, K_STEPS, dev)
+        snap = state_to_numpy(init_train_state(
+            cfg, torch.Generator().manual_seed(0), device=dev))
+        sd, ss = (state_from_numpy(cfg, snap, device=dev) for _ in range(2))
+        mdp, mone = build_dp_multi_step(cfg, mesh), build_multi_step(cfg)
+        zero()
+        mdp(sd, hr)                       # warm-up chunk, then the capture
+        queued = P.launches["preprocess"]
+        mone(ss, hr)
+
+        def timed(runner, st):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = runner(st, hr)
+            m["errG"][-1].item()
+            return (time.perf_counter() - t0) / K_STEPS * 1e3
+
+        turns = {"dp": [], "single": []}
+        for name in ("single", "dp", "dp", "single"):
+            turns[name].append(timed(mdp, sd) if name == "dp"
+                               else timed(mone, ss))
+        check(mdp.captures == 1 and mdp.replays == 2
+              and int(sd.g_opt["t"]) == 3 * K_STEPS,
+              f"DP chunk: {mdp.stats()}, t {int(sd.g_opt['t'])}")
+        nccl, total = _nccl_ms(lambda: mdp(sd, hr), K_STEPS)
+        # the DP runner's launches that ran: its warm-up's and its replays'
+        ran = launches_run({"preprocess": queued}, mdp)["preprocess"]
+        check(ran == 4 * K_STEPS, f"K1 ran {ran} times in the DP chunks")
+        launches["preprocess"] += ran
+        r = {"K": K_STEPS, "dp_graph": mdp.stats(), "k1_run": ran,
+             "turns_ms": {k: [round(v, 4) for v in ts]
+                          for k, ts in turns.items()},
+             "dp_step_ms": round(sum(turns["dp"]) / 2, 4),
+             "single_step_ms": round(sum(turns["single"]) / 2, 4),
+             "dp_images_per_s": round(100 / (sum(turns["dp"]) / 2e3), 2),
+             "single_images_per_s": round(100 / (sum(turns["single"]) / 2e3),
+                                          2),
+             "phase22_graph_step_ms": (graph22["gray-3"]["graph"]["step_ms"]
+                                       if graph22 else None),
+             "nccl_device_ms_per_step_in_replay": nccl,
+             "device_ms_per_step_in_replay": total}
+        print(f"DP K={K_STEPS} chunk as a CUDA graph, bf16 gray-3, world of "
+              f"one (NCCL), on {smi}: " + json.dumps(r), flush=True)
+        del sd, ss, mdp, mone, hr
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (b) the trainer under the launcher
+    env = {k: v for k, v in os.environ.items() if k not in CONFIG_ENV
+           and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT")}
+    args = ["--config", "gray-3", "--synthetic", "--bf16", "--feed-bf16",
+            "--steps", "40", "--scan", str(K_STEPS), "--epochs", "1",
+            "--seed", "1"]
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "dcgan_sr_tpu_torch.cli", "--dp",
+         *args], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if p.returncode:
+        sys.stderr.write(p.stdout[-4000:] + p.stderr[-4000:])
+    check(p.returncode == 0, f"torchrun cli --dp exited {p.returncode}")
+    lines = p.stdout.splitlines()
+    steps = [LOG_LINE.match(l) for l in lines if l.startswith("Epoch:")]
+    check("data-parallel over 1 ranks" in lines and len(steps) == 2
+          and all(steps), f"torchrun cli --dp: {lines}")
+    run, graph = k1_run(lines)
+    check(run == 40 and graph["captures"] == 1 and graph["replays"] == 1,
+          f"torchrun cli --dp --scan {K_STEPS}: K1 ran {run} times, graphs "
+          f"{graph}")
+    launches["preprocess"] += run
+    times = [float(re.search(r"Time: ([\d.]+)", l).group(1))
+             for l in lines if l.startswith("Epoch:")]
+    r = {"wall_s": round(wall, 3), "chunk_time_s": times,
+         "replayed_chunk_images_per_s": round(K_STEPS * 100 / times[1], 2),
+         "graph": graph, "k1_run": run,
+         "phase22_cli_replayed_chunk_images_per_s": (
+             graph22["cli_stage_ahead_False"]["replayed_chunk_images_per_s"]
+             if graph22 else None)}
+    print(f"torchrun --nproc_per_node 1 cli --dp gray-3 --bf16 --feed-bf16 "
+          f"--scan {K_STEPS} on {smi}: " + json.dumps(r), flush=True)
+
+    # (c) upscale --dp, in this process as a launcher's rank (deterministic
+    # cuDNN), then under the launcher itself
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        rng = np.random.RandomState(25)
+        for i in range(7):            # 7 images: padded to the ranks
+            Image.fromarray((rng.rand(48 + 4 * i, 56) * 255).astype(
+                np.uint8)).save(os.path.join(src, f"im{i}.png"))
+        rank_env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                    "MASTER_ADDR": "127.0.0.1"}
+        for config, fixture in (("gray-3", FIXTURE),
+                                ("gray-patch-batch-overlap",
+                                 OVERLAP_FIXTURE)):
+            for bf16 in (False, True):
+                base = ["--config", config, "--ckpt", fixture, "--input",
+                        src] + (["--bf16"] if bf16 else [])
+                tag = f"{config}{'-bf16' if bf16 else ''}"
+                outs = {k: os.path.join(tmp, f"{tag}-{k}")
+                        for k in ("plain", "dp", "launcher")}
+                prev = _deterministic()
+                try:
+                    _in_process(upscale.main, base + ["--output",
+                                                      outs["plain"]])
+                    os.environ.update(rank_env,
+                                      MASTER_PORT=str(_free_port()))
+                    try:
+                        zero()
+                        dp_lines = _in_process(upscale.main, base + [
+                            "--output", outs["dp"], "--dp"])
+                        counts = dict(K.launches)
+                    finally:
+                        for k in (*rank_env, "MASTER_PORT"):
+                            os.environ.pop(k)
+                finally:
+                    _deterministic(prev)
+                add(counts)
+                kern = "bulge_main_bf16" if bf16 else "bulge_main"
+                names = sorted(os.listdir(outs["plain"]))
+                same = [open(os.path.join(outs["plain"], n), "rb").read()
+                        == open(os.path.join(outs["dp"], n), "rb").read()
+                        for n in names]
+                check(len(names) == 7 and all(same) and counts[kern] > 0
+                      and any("sharded over 1 ranks" in l for l in dp_lines),
+                      f"upscale --dp {tag}: files equal {same}, K2 {counts}")
+                r = {"files": len(names), "byte_equal": all(same),
+                     "k2_launches": {k: v for k, v in counts.items() if v}}
+                if not bf16:
+                    p = subprocess.run(
+                        [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc_per_node", "1", "-m",
+                         "dcgan_sr_tpu_torch.upscale", "--dp", *base,
+                         "--output", outs["launcher"]], cwd=REPO, env=env,
+                        capture_output=True, text=True, timeout=300)
+                    if p.returncode:
+                        sys.stderr.write(p.stdout[-4000:] + p.stderr[-4000:])
+                    check(p.returncode == 0, f"torchrun upscale --dp {tag}")
+                    # cuDNN's default algorithms there: phase 4's level,
+                    # and the tiled one's seam flips
+                    share = TILED_FLIP_SHARE if config != "gray-3" else 0.0
+                    levels, moved, beyond, pixels = 0, 0, 0, 0
+                    for n in names:
+                        a, b = (np.asarray(Image.open(os.path.join(
+                            outs[k], n))).astype(np.int16)
+                            for k in ("plain", "launcher"))
+                        d = np.abs(a - b)
+                        levels = max(levels, int(d.max()))
+                        moved += int((d > 0).sum())
+                        beyond += int((d > TOL_U8).sum())
+                        pixels += d.size
+                    check(beyond <= share * pixels, f"torchrun upscale --dp "
+                          f"{tag}: {beyond} pixels beyond {TOL_U8} level")
+                    r.update(launcher_max_levels=levels,
+                             launcher_pixels_differing=moved,
+                             launcher_pixels_beyond_1_level=beyond)
+                print(f"upscale --dp {tag}, 7 images, on {smi}: "
+                      + json.dumps(r), flush=True)
+
+    # (d) two ranks on the one card over gloo, CUDA tensors
+    launches["preprocess"] += gloo_pair(smi, env)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3560,7 +4067,7 @@ def main():
 
     stamp()
     # phase 22: the trainer's K-step chunk as one CUDA graph
-    graph_step_phase(smi)
+    graph22 = graph_step_phase(smi)
 
     stamp()
     # phase 23: .t7 checkpoints on the served paths (counts from 0 in each
@@ -3572,6 +4079,12 @@ def main():
     stamp()
     # phase 24: the opt-in rewrites; K1 counted from 0 in each CLI run
     opt_launches = opt_in_phase(smi)
+
+    stamp()
+    # phase 25: data parallel; counts from 0 before each of its paths
+    dp_launches = dp_phase(smi, graph22)
+    for k in K.launches:
+        launches[k] += dp_launches[k]
 
     stamp()
     # phase 20
@@ -3633,7 +4146,8 @@ def main():
         "name": "preprocess", "route": "cuda",
         "source": "dcgan_sr_tpu_torch/csrc/preprocess.cu",
         "replaces": "dcgan_sr_tpu/ops/pallas_kernels.py:64",
-        "launches": trainer_counts["preprocess"] + opt_launches["preprocess"],
+        "launches": trainer_counts["preprocess"] + opt_launches["preprocess"]
+        + dp_launches["preprocess"],
         "max_abs_err": pre_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -38,7 +38,17 @@ and replayed.  The JAX CLI's opt-in rewrites are here: `--fast-ops` runs
 the k4s2p1 convs in their k3s1p1 forms (ops/fast.py), `--compact-params`
 keeps the conv masters 2-D (ops/compact.py; its checkpoints hold that
 layout and resume under the same flag, and the eval and sample dumps run
-on the unpacked state).  Data parallel is not here yet.
+on the unpacked state).
+
+`--dp` under a launcher (`python -m torch.distributed.run --nproc_per_node
+N -m dcgan_sr_tpu_torch.cli --dp ...`, one rank per card; gloo ranks with
+`--cpu`) trains data-parallel (parallel/): cfg.batchSize is the global
+batch, every rank draws the same global batch from the same seed and keeps
+its slice (parallel.shard_batch, the loop's prepare_batch), BN is
+cross-replica and the gradients are pmean'd; rank 0 alone writes
+checkpoints, sample dumps, the eval lines and the log.  A world of one is
+still the data-parallel step.  Without a launcher `--dp` runs the
+single-device step, as the JAX CLI does on one device.
 """
 
 from __future__ import annotations
@@ -66,6 +76,8 @@ from .metrics import cal_psnr, cal_ssim
 from .models import discriminator_spec, generator_spec
 from .ops import bulge, preprocess
 from .ops.compact import unpack_state
+from .parallel import (build_dp_multi_step, build_dp_train_step,
+                       initialize_from_env, launched, shard_batch)
 from .train.checkpoint import latest_epoch, load_checkpoint
 from .train.loop import train_epochs
 from .train.multi_step import build_multi_step, launches_run
@@ -345,6 +357,8 @@ def main(argv=None):
     ap.add_argument("--eval-sets", type=int, default=2,
                     help="file_sets per eval slice")
     ap.add_argument("--samples-dir", default=None)
+    ap.add_argument("--dp", action="store_true",
+                    help="data-parallel over all local devices")
     ap.add_argument("--device-preprocess", action="store_true",
                     help="feed raw [0,1] images; grayscale-convert/normalize/"
                          "degrade run fused on the device (folder variants)")
@@ -401,6 +415,9 @@ def main(argv=None):
     ap.add_argument("--profile-dir", default=None,
                     help="capture a torch.profiler trace of the run")
     args = ap.parse_args(argv)
+    # a rank takes its own card (LOCAL_RANK) before pick_device reads it
+    mesh = initialize_from_env(args.cpu) if args.dp and launched() else None
+    lead = mesh is None or mesh.rank == 0
     device = pick_device(args.cpu)
 
     overrides = {}
@@ -450,26 +467,45 @@ def main(argv=None):
         ntrain = cfg.ntrain if math.isfinite(cfg.ntrain) else 1000
         steps = max(int(ntrain) // imgs, 1)
 
-    logger = MetricsLogger(jsonl_path=args.metrics_jsonl)
-    multi_step_fn = build_multi_step(cfg) if args.scan > 1 else None
+    logger = (MetricsLogger(jsonl_path=args.metrics_jsonl) if lead
+              else MetricsLogger(stdout=False))
+    step_fn = prepare = None
+    if mesh is not None:
+        step_fn = build_dp_train_step(cfg, mesh)
+        multi_step_fn = (build_dp_multi_step(cfg, mesh) if args.scan > 1
+                         else None)
+
+        def prepare(b):
+            # batch_dim 1 shards the B axis of a (K, B, ...) super-batch;
+            # the canvas leaf (max ndim) decides, and a device_augment
+            # tuple's (K, B) offset leaves shard on the same dimension
+            leaves = b if isinstance(b, tuple) else (b,)
+            return shard_batch(b, mesh,
+                               batch_dim=max(x.dim() for x in leaves) - 4)
+
+        print(f"data-parallel over {mesh.size} ranks")
+    else:
+        multi_step_fn = build_multi_step(cfg) if args.scan > 1 else None
     t0 = time.perf_counter()
     try:
         with profile_trace(args.profile_dir,
                            enabled=args.profile_dir is not None):
             state, _ = train_epochs(
-                cfg, state, batch_fn, niter=epochs, steps_per_epoch=steps,
-                checkpoint_dir=args.checkpoint_dir, logger=logger,
-                log_every=args.log_every, scan_steps=args.scan,
-                multi_step_fn=multi_step_fn, start_epoch=start_epoch,
+                cfg, state, batch_fn, step_fn=step_fn, niter=epochs,
+                steps_per_epoch=steps, prepare_batch=prepare,
+                checkpoint_dir=args.checkpoint_dir if lead else None,
+                logger=logger, log_every=args.log_every,
+                scan_steps=args.scan, multi_step_fn=multi_step_fn,
+                start_epoch=start_epoch,
                 feed_dtype=torch.bfloat16 if args.feed_bf16 else None,
                 stage_ahead=args.stage_ahead)
         if cfg.compact_params:
             # eval and the sample dumps take 4-D conv weights
             state = unpack_state(state, generator_spec(cfg),
                                  discriminator_spec(cfg))
-        if args.do_eval:
+        if args.do_eval and lead:
             run_eval(cfg, state, loader, args)
-        if args.samples_dir:
+        if args.samples_dir and lead:
             # dump_samples takes ONE image in the LOADER range [0,1], all
             # channels; it applies the gray/pm1 conventions itself
             dump_samples(cfg, state, args.samples_dir,
@@ -485,6 +521,8 @@ def main(argv=None):
     print("Total time: %.3f" % (time.perf_counter() - t0))
     print("kernel launches: " + json.dumps(launches_run(
         {**bulge.launches, **preprocess.launches}, multi_step_fn)))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return state
 
 

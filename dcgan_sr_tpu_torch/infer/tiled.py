@@ -13,8 +13,15 @@ batched seam DP (infer/seam_device.py); there is no jit and so nothing to
 compile per shape.  The host replay of the seam DP (infer/seam.py) is kept
 as its oracle.  `compute_dtype=torch.bfloat16` runs the generator in bf16
 (models/network.py: fp32 in and out, the fused pair through the bf16 kernel);
-the stitches see its fp32 output, as in the JAX package.  A device mesh is
-not yet ported and raises when asked for.
+the stitches see its fp32 output, as in the JAX package.
+
+`mesh=` (a parallel.Mesh) on make_full_sr_fn and make_overlap_sr_fn shards
+the images over the data-parallel ranks, as the JAX package's image
+sharding does: every rank is handed the whole batch, runs the pipeline on
+its contiguous slice (the image count must divide by the ranks), and the
+outputs are all_gathered, so every rank returns the whole batch (the JAX
+global output array).  BN statistics there are per image, per group or
+running, so the generator needs no collective.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from __future__ import annotations
 import torch
 
 from ..image.ops import box_downsample2
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import local_batch_slice
 from ..image.patches import (
     extract_grid_patches,
     extract_overlap_patches,
@@ -38,10 +47,24 @@ from .seam_device import seam_stitch_device
 TILE_BUDGET = 32768
 
 
-def _not_ported(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharded (data-parallel) inference is not yet ported")
+def _sharded(run, mesh):
+    """`run` over this rank's contiguous slice of the images, the ranks'
+    outputs (a tensor, or a dict of them) gathered in rank order."""
+    if mesh is None:
+        return run
+
+    @torch.inference_mode()
+    def sharded_run(images):
+        n = images.shape[0]
+        if n % mesh.size:
+            raise ValueError(f"{n} images do not shard over {mesh.size} "
+                             "ranks (pad the batch to a multiple)")
+        out = run(images[local_batch_slice(n, mesh.size, mesh.rank)])
+        if isinstance(out, dict):
+            return {k: all_gather(v, mesh) for k, v in out.items()}
+        return all_gather(out, mesh)
+
+    return sharded_run
 
 
 def overlap_pad_dim(d, patch, overlap):
@@ -173,8 +196,8 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
     images are moved next to their members and grouped.
 
     `compute_dtype=torch.bfloat16` runs the generator in bf16 (fp32 out).
+    `mesh` shards the images over data-parallel ranks (module docstring).
     """
-    _not_ported(mesh)
     cdt = compute_dtype              # the generator's compute dtype
     if bn_eval:
         gen = lambda lr: net(lr, bn_stats="running",      # noqa: E731
@@ -205,7 +228,7 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
         lr = images if lr_input else box_downsample2(images)
         return gen(lr)
 
-    return run
+    return _sharded(run, mesh)
 
 
 def make_overlap_sr_fn(cfg, net, *, compute_dtype=None, mesh=None, fine=None,
@@ -252,9 +275,9 @@ def make_overlap_sr_fn(cfg, net, *, compute_dtype=None, mesh=None, fine=None,
     regime.  Requires even patchSize and overlap.
 
     `compute_dtype=torch.bfloat16` runs the generator in bf16; its tiles come
-    back in fp32 and are stitched in fp32.
+    back in fp32 and are stitched in fp32.  `mesh` shards the images over
+    data-parallel ranks (module docstring); every output is gathered.
     """
-    _not_ported(mesh)
     patch, ov = cfg.patchSize, cfg.overlap
     fine = (cfg.fineSize, cfg.fineSize) if fine is None else tuple(fine)
     if flat_tiles is None:
@@ -316,4 +339,4 @@ def make_overlap_sr_fn(cfg, net, *, compute_dtype=None, mesh=None, fine=None,
                 "seam": seam_stitch_device(fake, fine, patch, ov,
                                            both_seams=both_seams)}
 
-    return run
+    return _sharded(run, mesh)

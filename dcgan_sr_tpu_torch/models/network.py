@@ -38,6 +38,12 @@ just seen (momentum 0.1, unbiased variance) — the JAX package's threaded
 that order.  `logits=True` leaves out a Sigmoid head, for the BCE variants
 whose sigmoid is folded into the loss.
 
+`axis_name` of forward (a parallel.Mesh; the data-parallel step,
+train/step.py) makes every train-mode BN cross-replica (ops/nn.py
+batch_norm), as JAX apply_network(axis_name=) does.  It goes with pooled
+statistics and an unfused network only: inference BN is per image, per
+group or running, and the fused pair's statistics stay in its kernel.
+
 `fast=True` of forward (the trainer's `--fast-ops`, JAX apply_network(fast=))
 rewrites every unfused k4s2p1 conv and convT whose input has an even H and
 W into its k3s1p1 form (ops/fast.py); the fused pair is never rewritten.
@@ -158,14 +164,15 @@ class Layer(nn.Module):
         return N.conv_transpose2d(x, w, sp["s"], sp["p"],
                                   compute_dtype=compute_dtype)
 
-    def post(self, x, bn_stats, track_stats=False, logits=False, groups=None):
+    def post(self, x, bn_stats, track_stats=False, logits=False, groups=None,
+             axis_name=None):
         """BN (if any) and the activation that follow this layer's conv."""
         if self.spec.get("bn"):
             x, new = N.batch_norm(
                 x, self.bn_scale, self.bn_bias,
                 state={"mean": self.bn_mean, "var": self.bn_var},
                 train=bn_stats != "running", per_image=bn_stats == "per_image",
-                groups=groups)
+                groups=groups, axis_name=axis_name)
             if track_stats and bn_stats == "pooled":
                 # in place: no backward reads the running statistics
                 self.bn_mean.copy_(new["mean"].detach())
@@ -174,7 +181,7 @@ class Layer(nn.Module):
         return x if logits and act == "sigmoid" else _ACTS[act](x)
 
     def forward(self, x, bn_stats, track_stats=False, logits=False,
-                groups=None, compute_dtype=None, fast=False):
+                groups=None, compute_dtype=None, fast=False, axis_name=None):
         kind = self.spec["kind"]
         if kind == "upsample":
             return N.upsample_nearest(x, self.spec["factor"])
@@ -182,7 +189,7 @@ class Layer(nn.Module):
             return x.reshape(x.shape[0], -1)[:, 0]
         if kind in ("conv", "convT"):
             return self.post(self.conv(x, compute_dtype, fast), bn_stats,
-                             track_stats, logits, groups)
+                             track_stats, logits, groups, axis_name)
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -222,7 +229,8 @@ class Network(nn.Module):
         return params, state
 
     def forward(self, x, bn_stats="pooled", *, track_stats=False,
-                logits=False, groups=None, compute_dtype=None, fast=False):
+                logits=False, groups=None, compute_dtype=None, fast=False,
+                axis_name=None):
         if bn_stats not in BN_STATS:
             raise ValueError(f"bn_stats must be one of {BN_STATS}")
         if groups is not None and (bn_stats != "pooled" or track_stats):
@@ -231,6 +239,12 @@ class Network(nn.Module):
         if track_stats and self.pairs:
             raise ValueError("track_stats needs fuse=False: the fused pair "
                              "does not move its BN layer's running statistics")
+        if axis_name is not None and (bn_stats != "pooled" or groups
+                                      is not None or self.pairs):
+            raise ValueError(
+                "axis_name (cross-replica BN statistics) goes with "
+                "bn_stats='pooled', no groups and fuse=False: the fused "
+                "pair's in-kernel statistics are never cross-replica")
         if compute_dtype is not None:
             x = x.to(compute_dtype)
         i = 0
@@ -247,6 +261,6 @@ class Network(nn.Module):
                 i += 2
             else:
                 x = layer(x, bn_stats, track_stats, logits, groups,
-                          compute_dtype, fast)
+                          compute_dtype, fast, axis_name)
                 i += 1
         return x if compute_dtype is None else x.float()

@@ -127,12 +127,18 @@ def conv_transpose2d(x, w, stride=2, padding=1, *, compute_dtype=None):
     return _Conv.apply(x, w, stride, padding, True)
 
 
+def _stats_dtype(x):
+    """x in the dtype its statistics accumulate in: fp32, or float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def batch_stats(x, per_image=False, groups=None):
     """(mean, biased var) over (N, H, W), or over (H, W) of each image with
     `per_image` ((N, C) results), or pooled within each of `groups` equal
     runs of consecutive images ((groups, C) results).  var = E[x^2] - mean^2
-    in fp32, the JAX package's formula (ops/nn.py batch_norm)."""
-    xf = x.float()
+    in fp32, the JAX package's formula (ops/nn.py batch_norm); a float64 x
+    (a check's exact run) keeps float64."""
+    xf = _stats_dtype(x)
     if groups is not None and not per_image:
         n, c, h, w = xf.shape
         if n % groups:
@@ -175,7 +181,7 @@ def normalize(x, mean, var, scale, bias, eps=1e-5):
 
 
 def batch_norm(x, scale, bias, *, state=None, train=True, per_image=False,
-               groups=None, eps=1e-5, momentum=0.1):
+               groups=None, eps=1e-5, momentum=0.1, axis_name=None):
     """Torch SpatialBatchNormalization semantics.
 
     Train mode normalizes with biased batch statistics over (N, H, W), or
@@ -184,16 +190,39 @@ def batch_norm(x, scale, bias, *, state=None, train=True, per_image=False,
     batch dimension.  Eval mode (`train=False`) uses `state`'s running
     statistics.
 
+    `axis_name` (a parallel.Mesh: torch names the data axis by its group)
+    makes the statistics cross-replica, as the JAX package's under
+    shard_map: this rank's fp32 mean and mean of squares go to the ranks'
+    mean as ONE concatenated collective (parallel/collectives.py pmean,
+    whose backward sums the cotangents across ranks, JAX's transpose), and
+    the running variance's n counts every rank's elements.  A sharded batch
+    then normalizes as the whole batch would on one device.  The per-image
+    and grouped statistics are inference modes and take no axis.
+
     Returns (y, new_state); new_state = {"mean", "var"} running stats after
     a train-mode step (unbiased var, momentum 0.1, Torch defaults), None when
     `state` is None or the statistics are per image or per group.
     """
     if not train:
         return normalize(x, state["mean"], state["var"], scale, bias, eps), state
-    mean, var = batch_stats(x, per_image, groups)
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    if axis_name is not None:
+        if per_image or groups is not None:
+            raise ValueError("cross-replica statistics (axis_name) are "
+                             "pooled over the batch: per_image and groups "
+                             "are inference modes and take no axis")
+        from ..parallel.collectives import pmean
+        xf = _stats_dtype(x)
+        c = xf.shape[1]
+        moments = pmean(torch.cat([xf.mean((0, 2, 3)),
+                                   (xf * xf).mean((0, 2, 3))]), axis_name)
+        mean, mean_sq = moments[:c], moments[c:]
+        var = mean_sq - mean * mean
+        n *= axis_name.size
+    else:
+        mean, var = batch_stats(x, per_image, groups)
     new_state = None
     if state is not None and not per_image and groups is None:
-        n = x.shape[0] * x.shape[2] * x.shape[3]
         unbiased = var * (n / max(n - 1, 1))
         new_state = {
             "mean": (1 - momentum) * state["mean"] + momentum * mean,

@@ -86,11 +86,11 @@ class _StagedFeed:
         return slot
 
 
-def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
-                 log_fn=None, checkpoint_dir=None,
-                 logger: MetricsLogger = None, log_every=1, scan_steps=1,
-                 multi_step_fn=None, start_epoch=0, feed_dtype=None,
-                 stage_ahead=False):
+def train_epochs(cfg, state, batch_fn, *, step_fn=None, niter=None,
+                 steps_per_epoch=None, log_fn=None, checkpoint_dir=None,
+                 prepare_batch=None, logger: MetricsLogger = None,
+                 log_every=1, scan_steps=1, multi_step_fn=None,
+                 start_epoch=0, feed_dtype=None, stage_ahead=False):
     """Run the training loop; returns (state, last metrics).
 
     batch_fn(epoch, step_index) -> (B, C, H, W) HR batch as a numpy array,
@@ -98,6 +98,14 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
     them; each batch (or, when scanning, each (K, B, ...) super-batch,
     stacked leaf by leaf) goes to the state's device, leaf by leaf, after
     the tuple's crop offsets are checked on the host
+    step_fn: the single step (default build_train_step(cfg); the
+    data-parallel CLI passes parallel.build_dp_train_step's)
+    prepare_batch: optional device placement hook (parallel.shard_batch:
+    this rank's slice of the batch on its device); receives the host batch
+    as CPU tensors, either a (B, ...) batch or, when scanning, a (K, B, ...)
+    super-batch (a tuple of them under device_augment).  It takes the place
+    of the plain copy and of stage_ahead's staged copy, as in JAX; the next
+    chunk is still built ahead under stage_ahead
     logger: optional MetricsLogger (default: stdout-only, reference format)
     log_every: fetch/print metrics every N steps.  1 = per-step logging like
     the reference (train.lua:286-293).  A fetch is the loop's only wait for
@@ -121,7 +129,8 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
     of the chunk (measured when it actually ran), Time is the chunk's wall
     (queue -> staging of the next -> fetch).
     """
-    step_fn = build_train_step(cfg)
+    if step_fn is None:
+        step_fn = build_train_step(cfg)
     if scan_steps > 1 and multi_step_fn is None:
         multi_step_fn = build_multi_step(cfg)
     niter = niter if niter is not None else cfg.niter
@@ -135,7 +144,7 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
         logger = MetricsLogger(log_fn=log_fn)
     device = state.g.device
     feed = (_StagedFeed(device) if stage_ahead and device.type == "cuda"
-            else None)
+            and prepare_batch is None else None)
 
     tm, data_tm, epoch_tm = Timer(), Timer(), Timer()
     metrics_last = None
@@ -156,7 +165,9 @@ def train_epochs(cfg, state, batch_fn, *, niter=None, steps_per_epoch=None,
                          for leaves in zip(*batches))
         else:
             host = _host_leaf(batches, k, feed_dtype)
-        if feed is not None:
+        if prepare_batch is not None:
+            hr = prepare_batch(host)
+        elif feed is not None:
             hr = feed.put(host if isinstance(host, tuple) else (host,))
         elif isinstance(host, tuple):
             hr = tuple(x.to(device) for x in host)

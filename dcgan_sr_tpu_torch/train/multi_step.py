@@ -49,6 +49,15 @@ launches the card ran, for the CLI and for whoever drives a runner.
 
 On a CPU state the runner is the Python loop over the single step
 (`eager`), which the CPU tests pin to K single steps bit for bit.
+
+Data parallel (`axis_name=mesh`, parallel/dp.py build_dp_multi_step): the
+body is the cross-replica step, and the runner broadcasts rank 0's state
+the first time it sees a state.  Under NCCL the collectives are captured
+into the graph with the rest of the chunk: the warm-up chunk's collectives
+(and the broadcast before it) create the communicator before the capture,
+and ProcessGroupNCCL joins its own stream to the capture stream by events.
+Gloo's collectives run on the host and cannot be captured, so a CUDA state
+under gloo raises instead of running the chunk eagerly.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import bulge, fused_nhwc, preprocess
+from ..parallel.dp import Replicas
 from .step import build_train_step
 
 # every kernel wrapper's launch counter ({kernel: launches queued})
@@ -107,6 +117,8 @@ class MultiStep:
 
     def __init__(self, cfg, **step_kw):
         self.step = build_train_step(cfg, **step_kw)
+        self.mesh = step_kw.get("axis_name")
+        self._replicas = None if self.mesh is None else Replicas(self.mesh)
         self._graphs = {}
         self._side = None
         self.replays = 0
@@ -138,8 +150,15 @@ class MultiStep:
                 "replayed": {k: n for k, n in self.replayed.items() if n}}
 
     def __call__(self, state, hr_batches):
+        if self._replicas is not None:
+            self._replicas(state)
         if state.g.device.type != "cuda":
             return self.eager(state, hr_batches)
+        if self.mesh is not None and self.mesh.backend != "nccl":
+            raise RuntimeError(
+                f"a CUDA graph cannot hold {self.mesh.backend} collectives "
+                "(they run on the host): a data-parallel K-step chunk on "
+                "the card needs the NCCL backend")
         leaves = hr_batches if isinstance(hr_batches, tuple) else (hr_batches,)
         key = tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
         g = self._graphs.get(key)

@@ -45,6 +45,16 @@ from the folder loader, and the fused preprocess (K1) also gray-converts
 tuple (canvas, tops, lefts, flips) of data/folder.py sample_canvas, and the
 trainHook's crop + hflip run on the device (image/ops.py crop_hflip_at)
 before the preprocess.
+
+Data parallel (`axis_name`, a parallel.Mesh; parallel/dp.py builds the
+step with it): each rank runs this step on its slice of the global batch
+with a replicated state.  Every train-mode BN takes cross-replica
+statistics (ops/nn.py), whose backward sums the moments' cotangents across
+ranks, as JAX transposes its pmean; then D's and G's gradients are
+pmean'd, each network's as ONE flattened all_reduce, and so are the losses
+(one more), before the replicated Adam updates.  The pixel loss's
+cotangent keeps the local `fake.numel()`, as in JAX.  A world of one is
+the single-device step, bit for bit.
 """
 
 from __future__ import annotations
@@ -61,6 +71,7 @@ from ..models import Network, discriminator_spec, generator_spec, init_network
 from ..ops.adam import adam_init, adam_update_
 from ..ops.compact import pack_state
 from ..ops.preprocess import preprocess
+from ..parallel.collectives import pmean
 
 
 @dataclasses.dataclass
@@ -181,6 +192,10 @@ def _no_mark(name):
 def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     """Returns train_step(state, hr_batch) -> (state, metrics).
 
+    axis_name: None (one device), or the data axis's parallel.Mesh (torch
+    names an axis by its process group); then hr_batch is this rank's
+    slice and the step is the data-parallel one (module docstring).
+
     hr_batch: (B, C, H, W) in the variant's data range, float32 or (a
     bfloat16 feed) bfloat16, on the state's device; raw [0,1] RGB under
     cfg.device_preprocess; under cfg.device_augment the tuple (canvas,
@@ -196,8 +211,9 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     """
     cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     fast = cfg.fast_ops
-    if axis_name is not None:
-        raise NotImplementedError("a data-parallel axis is not ported yet")
+    if isinstance(axis_name, str):
+        raise TypeError("axis_name is the data axis's parallel.Mesh (torch "
+                        "names an axis by its process group), not a name")
 
     crit = criterion(cfg)
     # fold D's Sigmoid head into the loss (bce_with_logits): identical math
@@ -232,12 +248,12 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
 
         # G forward: one graph, pulled back once, for G's update
         fake = state.g(lr_img, track_stats=True, compute_dtype=cdt,
-                       fast=fast)
+                       fast=fast, axis_name=axis_name)
         mark("g_forward")
 
         # D on real (own batch statistics; first running-stat update)
         out_real = state.d(hr, track_stats=True, logits=fold,
-                           compute_dtype=cdt, fast=fast)
+                           compute_dtype=cdt, fast=fast, axis_name=axis_name)
         err_d_real = crit(out_real, torch.full_like(out_real, cfg.real_label))
         gd_real = grad(err_d_real, d_params)
         mark("d_real_forward_backward")
@@ -245,7 +261,7 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
         # D on fake: one forward, shared by the D-fake and the G loss
         _, fake_vec, g_vec = make_labels(cfg, hr, fake.detach())
         out_fake = state.d(fake, track_stats=True, logits=fold,
-                           compute_dtype=cdt, fast=fast)
+                           compute_dtype=cdt, fast=fast, axis_name=axis_name)
         mark("d_fake_forward")
         err_d_fake = crit(out_fake, fake_vec)
         err_g = crit(out_fake, g_vec)
@@ -269,6 +285,13 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
 
         # fDx accumulates real+fake gradients before one adam step
         gd = torch._foreach_add(gd_real, gd_fake)
+        err_d_real, err_d_fake, err_g = (err_d_real.detach(),
+                                         err_d_fake.detach(), err_g.detach())
+        if axis_name is not None:
+            gd, gg = pmean(gd, axis_name), pmean(gg, axis_name)
+            err_d_real, err_d_fake, err_g, pixel_loss = pmean(
+                [err_d_real, err_d_fake, err_g, pixel_loss], axis_name)
+            mark("pmeans")
         adam_update_(d_params, gd, state.d_opt, **adam_kw)
         adam_update_(g_params, gg, state.g_opt, **adam_kw)
         if state.g_ema is not None and cfg.g_ema > 0:
@@ -278,8 +301,6 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
                                     alpha=1.0 - cfg.g_ema)
         mark("adam_updates")
 
-        err_d_real, err_d_fake, err_g = (err_d_real.detach(),
-                                         err_d_fake.detach(), err_g.detach())
         metrics = {
             "errD": err_d_real + err_d_fake,
             "errD_real": err_d_real,

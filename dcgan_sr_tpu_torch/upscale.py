@@ -18,8 +18,13 @@ pipeline call.
       --input face.jpg --output sr.png
 
 `--bf16` runs the generator in bf16 (the fused pair through its bf16
-kernel on a card) in every mode.  Not yet ported, and refused by name: --dp
-(data parallelism).
+kernel on a card) in every mode.  `--dp` under a launcher (`python -m
+torch.distributed.run --nproc_per_node N -m dcgan_sr_tpu_torch.upscale --dp
+...`) shards directory mode's images over the ranks (infer/tiled.py
+`mesh=`): the image count is padded with modular rows to a multiple of the
+ranks, as in JAX, every rank gets the whole batch back, and rank 0 writes
+the same files as a run without `--dp`; a single image runs on rank 0
+alone.  Without a launcher `--dp` is the plain run.
 """
 
 from __future__ import annotations
@@ -43,21 +48,16 @@ def _psnr(nc, a, b):
     return float(cal_psnr_batch(a, b).mean())
 
 
-def _not_ported(args):
-    if args.dp:
-        raise NotImplementedError("--dp: data-parallel inference is not yet "
-                                  "ported")
-
-
 def _dtype(args):
     return torch.bfloat16 if args.bf16 else None
 
 
-def batch_upscale(args, cfg, net):
-    """Directory mode: ONE batched SR call over all images.  Patch configs
-    run the overlap-tile pipeline; full-image configs run their net-2x
-    generator on whole images.  Images of mixed sizes are edge-padded to a
-    common pipeline-legal (Hp, Wp) and cropped back."""
+def batch_upscale(args, cfg, net, mesh=None):
+    """Directory mode: ONE batched SR call over all images, optionally
+    sharded over data-parallel ranks (`mesh`, --dp).  Patch configs run the
+    overlap-tile pipeline; full-image configs run their net-2x generator on
+    whole images.  Images of mixed sizes are edge-padded to a common
+    pipeline-legal (Hp, Wp) and cropped back."""
     from .image.io import load_image, save_image
     from .image.ops import box_downsample2, resize_bilinear
     from .infer.tiled import (lr_pad_dim, make_full_sr_fn,
@@ -87,9 +87,14 @@ def batch_upscale(args, cfg, net):
                + [(0, Hp - im.shape[-2]), (0, Wp - im.shape[-1])],
                mode="edge") for im in imgs])
     n = len(batch)
+    if mesh is not None:
+        pad_n = (-n) % mesh.size         # shardable image count
+        if pad_n:
+            # modular row indexing: pad_n rows, no transient full copies
+            batch = np.concatenate([batch, batch[np.arange(pad_n) % n]])
     ens = dict(self_ensemble=args.self_ensemble,
                ensemble_batched=args.ensemble_batched,
-               compute_dtype=_dtype(args))
+               compute_dtype=_dtype(args), mesh=mesh)
     if tiled:
         fine = (2 * Hp, 2 * Wp) if args.true_2x else (Hp, Wp)
         ov_fn = make_overlap_sr_fn(cfg, net, fine=fine, lr_input=args.true_2x,
@@ -106,8 +111,10 @@ def batch_upscale(args, cfg, net):
     pm1 = cfg.data_range == "pm1"
     x = torch.from_numpy(batch * 2.0 - 1.0 if pm1 else batch).to(net.device)
     t0 = time.perf_counter()
-    sr_all = fn(x).cpu().numpy()
+    sr_all = fn(x).cpu().numpy()[:n]
     dt = time.perf_counter() - t0
+    if mesh is not None and mesh.rank != 0:
+        return                           # rank 0 writes the files
     if pm1:
         sr_all = (sr_all + 1.0) * 0.5
     os.makedirs(args.output, exist_ok=True)
@@ -126,7 +133,10 @@ def batch_upscale(args, cfg, net):
             print(f"{name}: {h}x{w}  PSNR(G)={_psnr(nc, im, sr):.3f}  "
                   f"PSNR(bilinear)={_psnr(nc, im, bil):.3f}")
     mp = sum(scale * scale * h * w for h, w in sizes) / 1e6
-    print(f"batch: {n} images ({mp:.2f} MP) in {dt:.2f}s on {net.device}")
+    where = (f"sharded over {mesh.size} ranks" if mesh is not None
+             else "single device")
+    print(f"batch: {n} images ({mp:.2f} MP) in {dt:.2f}s on {net.device} "
+          f"({where})")
 
 
 def main(argv=None):
@@ -168,7 +178,8 @@ def main(argv=None):
                          "pooled-BN-stats variant in train mode "
                          "(infer/ensemble.py)")
     ap.add_argument("--dp", action="store_true",
-                    help="not yet ported (data-parallel batch mode)")
+                    help="batch mode: shard images over all visible devices "
+                         "(the ranks of a torch.distributed launcher)")
     ap.add_argument("--t7", help="reference Torch checkpoint (net_G.t7); "
                     "takes the place of --ckpt")
     ap.add_argument("--bf16", action="store_true",
@@ -176,9 +187,28 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
-    _not_ported(args)
 
     from .core import get_config
+    from .parallel import initialize_from_env, launched
+    from .utils.device import pick_device
+
+    cfg = get_config(args.config)  # env-var overrides apply (ngf=…, etc.)
+
+    # a rank takes its own card (LOCAL_RANK) before pick_device reads it
+    mesh = initialize_from_env(args.cpu) if args.dp and launched() else None
+    try:
+        if mesh is not None and not os.path.isdir(args.input):
+            if mesh.rank != 0:
+                return                   # a single image: rank 0 alone
+            return _run(args, cfg, None, pick_device(args.cpu))
+        return _run(args, cfg, mesh, pick_device(args.cpu))
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, mesh, device):
+    """main() once the device (and under --dp the mesh) is settled."""
     from .image.io import load_image, save_image
     from .image.ops import box_downsample2, resize_bilinear
     from .infer.tiled import (lr_pad_dim, make_full_sr_fn, make_generator_fn,
@@ -187,11 +217,7 @@ def main(argv=None):
                               sr_overlap_image)
     from .metrics import cal_psnr
     from .train.checkpoint import load_generator
-    from .utils.device import pick_device
 
-    cfg = get_config(args.config)  # env-var overrides apply (ngf=…, etc.)
-
-    device = pick_device(args.cpu)
     try:
         net, msg = load_generator(cfg, args.ckpt, t7=args.t7, ema=args.ema,
                                   need_state=args.bn_eval, device=device)
@@ -200,7 +226,7 @@ def main(argv=None):
     print(msg)
 
     if os.path.isdir(args.input):
-        return batch_upscale(args, cfg, net)
+        return batch_upscale(args, cfg, net, mesh)
 
     img = load_image(args.input, nc=cfg.nc)
     if args.resize:

@@ -121,14 +121,19 @@ def test_cli_pm1_variants_feed_pm1_batches():
 
 @pytest.mark.parametrize("flag", ["--fast-ops", "--dp", "--use-pallas"])
 def test_cli_has_no_flags_of_unported_options(flag, capsys):
-    """--dp is not ported and --use-pallas has no counterpart (the port's
-    step always runs K1): neither is a flag.  --fast-ops is ported and
-    listed (tests/test_torch_fast_ops.py, test_torch_compact.py)."""
+    """--use-pallas has no counterpart (the port's step always runs K1): it
+    is not a flag.  --fast-ops and --dp are ported and listed
+    (tests/test_torch_fast_ops.py, test_torch_compact.py,
+    test_torch_dp.py)."""
     with pytest.raises(SystemExit) as e:
-        cli.main(["--cpu", flag] if flag != "--fast-ops" else ["--help"])
-    if flag == "--fast-ops":
+        cli.main(["--help"] if flag != "--use-pallas" else ["--cpu", flag])
+    if flag != "--use-pallas":
         assert e.value.code == 0
-        assert "--fast-ops" in capsys.readouterr().out
+        out = capsys.readouterr().out
+        assert flag in out
+        if flag == "--dp":
+            assert "data-parallel over all local devices" in \
+                " ".join(out.split())
     else:
         assert e.value.code == 2
 

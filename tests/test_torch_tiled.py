@@ -154,7 +154,7 @@ def test_lr_input_matches_jax_and_the_protocol_path(pair, bn_eval):
     assert torch.equal(proto["seam"], half["seam"])
 
 
-def test_overlap_sr_fn_refusals(pair):
+def test_overlap_sr_fn_refusals(pair, tmp_path):
     _, _, _, cfg, net = pair
     with pytest.raises(ValueError, match="flat_tiles requires bn_eval"):
         TT.make_overlap_sr_fn(cfg, net, flat_tiles=True)
@@ -162,11 +162,27 @@ def test_overlap_sr_fn_refusals(pair):
                      patchSize=9, overlap=4)
     with pytest.raises(ValueError, match="even patchSize and overlap"):
         TT.make_overlap_sr_fn(odd, net, lr_input=True)
-    for make in (lambda **kw: TT.make_overlap_sr_fn(cfg, net, **kw),
-                 lambda **kw: TT.make_full_sr_fn(net, **kw)):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            make(mesh=object())
-        make(compute_dtype=torch.bfloat16)     # ported: test_torch_bf16_infer
+    # mesh= is ported: over a world of one (a gloo group in this process)
+    # it returns the unsharded result; two ranks: tests/test_torch_dp.py
+    import torch.distributed as dist
+    from dcgan_sr_tpu_torch.parallel import create_mesh, initialize_distributed
+    imgs = torch.from_numpy(np.random.RandomState(2).rand(2, 64, 64)
+                            .astype(np.float32))
+    initialize_distributed(f"file://{tmp_path}/store", 1, 0, backend="gloo")
+    try:
+        mesh = create_mesh()
+        for make, x in ((lambda **kw: TT.make_overlap_sr_fn(cfg, net, **kw),
+                         imgs),
+                        (lambda **kw: TT.make_full_sr_fn(net, **kw),
+                         imgs[:, None])):
+            got, want = make(mesh=mesh)(x), make()(x)
+            for k in (("tiles", "naive", "seam") if isinstance(want, dict)
+                      else (None,)):
+                a, b = (got, want) if k is None else (got[k], want[k])
+                assert torch.equal(a, b)
+            make(compute_dtype=torch.bfloat16)  # ported: test_torch_bf16_infer
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("both_seams,device_seam", [(False, True), (True, True),

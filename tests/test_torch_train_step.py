@@ -344,10 +344,35 @@ def test_g_gradient_does_not_leak_into_d():
 @pytest.mark.parametrize("option", [
     {"compute_dtype": "bfloat16"}, {"fast_ops": True},
     {"compact_params": True}, "axis_name"])
-def test_unported_options_raise(option):
+def test_unported_options_raise(option, tmp_path):
     if option == "axis_name":
-        cfg = get_config("gray-3", env_override=False)
-        with pytest.raises(NotImplementedError, match="data-parallel"):
+        # ported: the step builds with a data axis, and over a world of one
+        # (a gloo group in this process) it is the single-device step, bit
+        # for bit; two and four ranks: tests/test_torch_dp.py
+        import torch.distributed as dist
+        from dcgan_sr_tpu_torch.parallel import (create_mesh,
+                                                 initialize_distributed)
+        cfg = get_config("gray-3", env_override=False, ngf=NGF, ndf=NDF,
+                         batchSize=2)
+        hr = torch.from_numpy(np.random.RandomState(1).rand(
+            2, 1, 64, 64).astype(np.float32))
+        initialize_distributed(f"file://{tmp_path}/store", 1, 0,
+                               backend="gloo")
+        try:
+            dstep = build_train_step(cfg, axis_name=create_mesh())
+            st = [init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu") for _ in range(2)]
+            _, dm = dstep(st[0], hr)
+        finally:
+            dist.destroy_process_group()
+        _, m = build_train_step(cfg)(st[1], hr)
+        assert {k: float(v) for k, v in dm.items()} == \
+            {k: float(v) for k, v in m.items()}
+        a, b = state_to_numpy(st[0]), state_to_numpy(st[1])
+        for f in FIELDS[:-1]:
+            for (_, x), (_, y) in zip(_leaves(a[f]), _leaves(b[f])):
+                np.testing.assert_array_equal(x, y)
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             build_train_step(cfg, axis_name="data")
         return
     # ported: each builds, and its steps are held to the JAX package's in

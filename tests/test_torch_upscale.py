@@ -137,10 +137,12 @@ def test_upscale_true_2x_directory(tmp_path, jax_weights):
         assert np.abs(got - w8.astype(np.int16)).max() <= 1
 
 
-def test_upscale_refuses_unported_modes_and_cpu_fallback(tmp_path):
+def test_upscale_refuses_unported_modes_and_cpu_fallback(tmp_path,
+                                                          monkeypatch):
     """Grid and overlap modes are ported, and so is --t7: the fixture's
     weights exported as a reference Torch checkpoint upscale to the bytes
-    of --ckpt.  What is not ported (--dp) is refused by name."""
+    of --ckpt.  --dp is ported: without a launcher it is the plain run
+    (tests/test_torch_dp.py runs it over two ranks)."""
     from dcgan_sr_tpu_torch.compat import export_torch_generator
     from dcgan_sr_tpu_torch.core import get_config
     from dcgan_sr_tpu_torch.train.checkpoint import load_generator
@@ -162,9 +164,12 @@ def test_upscale_refuses_unported_modes_and_cpu_fallback(tmp_path):
         outs.append(open(dst, "rb").read())
     assert f"loaded Torch checkpoint {t7}" in buf.getvalue()
     assert outs[0] == outs[1]
-    with pytest.raises(NotImplementedError, match="--dp"):
-        upscale.main(["--cpu", "--input", "x.png", "--output",
-                      str(tmp_path / "o.png"), "--dp"])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    dst = str(tmp_path / "dp.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        upscale.main(["--cpu", "--config", "gray-3", "--bn-eval", "--input",
+                      src, "--output", dst, "--dp", "--ckpt", FIXTURE])
+    assert open(dst, "rb").read() == outs[0]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--cpu"):
             upscale.main(["--input", "x.png", "--output",
