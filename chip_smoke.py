@@ -223,6 +223,27 @@ Phases, each fatal on failure:
      / atol 1e-4 and each network's gradient norm to 1e-3 in fp32; Adam's
      first moment leaf by leaf at rtol 1e-4 / atol 1e-6 in float64, where
      only the DP decomposition differs); both ranks launch K1.
+ 26. the user tools (python -m dcgan_sr_tpu_torch.<tool>), at full width,
+     each in this process (every kernel's count from 0 just before it)
+     unless said otherwise: overlap_protocol on the overlap fixture over
+     the held-out sets 10000:10005 in both BN modes, its five rows held to
+     PARITY.md within 0.02 dB / 3e-4, and one set on the card against the
+     same on the CPU (phase 19's tolerance); select_checkpoint --full on 3
+     gray-3 epochs that cli.main trained (--textured, 10 steps each) beside
+     a torn 4th (its SKIPPED line, 51 K2 launches of each kernel), and
+     `python -m ...select_checkpoint` without --full as a subprocess (the
+     same BEST line); validate_bf16 at its defaults, twice (its verdict,
+     and the spread of two runs of each dtype; K1 run 200 times each);
+     zssr_photo --bf16 --steps 200 on a seeded 384x512 photo;
+     serve_load (--size 100x72 --warm 10) against a gray-3 server started
+     with --warmup --warmup-rect (the first request, non-square, within 3x
+     the p50 of the next ten); loader_bench at its defaults; and
+     quality_protocol on a baseline directory written in
+     tools/torch_baseline.py's format from the gray-3 fixture's G (its
+     result.json scored by the torch.nn modules themselves on the card,
+     TF32 off; the imported G's scores within 1e-3 dB / 1e-4 of those; the
+     twin trained 3 epochs of 2000 images).  Each tool's K1 and K2
+     launches go into the kernels line.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (with their eval launches and times at the
      eval shape), K2 stats bf16, K2 main bf16, K3 stats, K3 main, K3 stats
@@ -2136,30 +2157,24 @@ def folder_crop_check(ds, cfg):
     return {"shape": list(crop.shape), "max_abs_err": err}
 
 
-def _cli(args):
-    """The trainer's entry point, cli.main, in this process as a user's
-    `python -m dcgan_sr_tpu_torch.cli` runs it: the launch counts from 0,
-    no config override from the environment, its output captured."""
-    import contextlib
-
-    from dcgan_sr_tpu_torch import cli
+def _zero_counts():
+    """Every kernel wrapper's launch count set to 0."""
     from dcgan_sr_tpu_torch.ops import bulge as K
     from dcgan_sr_tpu_torch.ops import preprocess as P
 
     for counts in (K.launches, P.launches):
         for k in counts:
             counts[k] = 0
-    saved = {k: os.environ.pop(k) for k in CONFIG_ENV if k in os.environ}
-    out = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(out):
-            cli.main(args)
-    except BaseException:
-        sys.stderr.write(out.getvalue()[-4000:])
-        raise
-    finally:
-        os.environ.update(saved)
-    return out.getvalue().splitlines()
+
+
+def _cli(args):
+    """The trainer's entry point, cli.main, in this process as a user's
+    `python -m dcgan_sr_tpu_torch.cli` runs it: the launch counts from 0,
+    no config override from the environment, its output captured."""
+    from dcgan_sr_tpu_torch import cli
+
+    _zero_counts()
+    return _in_process(cli.main, args)[1]
 
 
 def _step_ms(step, state, batch, iters=5):
@@ -2890,20 +2905,20 @@ def graph_step_phase(smi):
 def _in_process(main, args):
     """An entry point's main(args) in this process as a user's `python -m`
     runs it: no config override from the environment, its output
-    captured."""
+    captured.  Returns (its return value, its output lines)."""
     import contextlib
 
     saved = {k: os.environ.pop(k) for k in CONFIG_ENV if k in os.environ}
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
-            main(args)
+            ret = main(args)
     except BaseException:
         sys.stderr.write(out.getvalue()[-4000:])
         raise
     finally:
         os.environ.update(saved)
-    return out.getvalue().splitlines()
+    return ret, out.getvalue().splitlines()
 
 
 def _deterministic(on=True):
@@ -3093,7 +3108,7 @@ def t7_phase(smi):
                 prev = _deterministic()
                 t0 = time.perf_counter()
                 try:
-                    lines = _in_process(upscale.main, [
+                    _, lines = _in_process(upscale.main, [
                         "--config", "gray-patch-batch-overlap", "--bn-eval",
                         "--input", src_dir, "--output", dst, *weights]
                         + (["--bf16"] if bf16 else []))
@@ -3724,7 +3739,7 @@ def dp_phase(smi, graph22=None):
                                       MASTER_PORT=str(_free_port()))
                     try:
                         zero()
-                        dp_lines = _in_process(upscale.main, base + [
+                        _, dp_lines = _in_process(upscale.main, base + [
                             "--output", outs["dp"], "--dp"])
                         counts = dict(K.launches)
                     finally:
@@ -3776,6 +3791,369 @@ def dp_phase(smi, graph22=None):
 
     # (d) two ranks on the one card over gloo, CUDA tensors
     launches["preprocess"] += gloo_pair(smi, env)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the user tools
+# ---------------------------------------------------------------------------
+
+# PARITY.md's overlap rows (tools/overlap_protocol.py on the committed
+# fixture over the held-out sets 10000:10005): (PSNR, SSIM) of the bilinear
+# control and, by BN mode (bn_eval), of each stitch
+PARITY_OVERLAP = {"bilinear": (28.461, 0.97440),
+                  (False, "naive"): (24.161, 0.97114),
+                  (False, "seam"): (24.364, 0.97574),
+                  (True, "naive"): (29.558, 0.97521),
+                  (True, "seam"): (29.986, 0.97852)}
+TOL_PARITY = (0.02, 3e-4)          # PARITY.md prints 3 / 5 decimals
+TOOL_KERNELS = ("bulge_stats", "bulge_main", "preprocess")
+
+
+def _tool(main, args):
+    """A tool's main(args) in this process as `python -m` runs it, with
+    every kernel's count set to 0 just before: (its return value, its output
+    lines, seconds, {kernel: launches counted by the wrappers})."""
+    import torch
+
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import preprocess as P
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    ret, lines = _in_process(main, args)
+    torch.cuda.synchronize()
+    return (ret, lines, round(time.perf_counter() - t0, 2),
+            {**K.launches, **P.launches})
+
+
+def write_photo(path, hw=(384, 512), seed=26):
+    """A photo-like RGB PNG from a seed: a smooth random field, oriented
+    gratings under soft masks (texture), and sharp-edged rectangles."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    img = np.asarray(Image.fromarray(
+        (rng.rand(h // 32, w // 32, 3) * 255).astype(np.uint8)).resize(
+        (w, h), Image.BICUBIC), np.float32) / 255.0 * 0.6 + 0.2
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for _ in range(8):
+        cy, cx, r = rng.rand() * h, rng.rand() * w, 30 + rng.rand() * 90
+        f, a = 0.15 + rng.rand() * 0.9, rng.rand() * np.pi
+        mask = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * r * r))
+        grating = np.sin(f * (xx * np.cos(a) + yy * np.sin(a)))
+        img += (0.15 * mask * grating)[..., None] * rng.rand(3)
+    for _ in range(10):
+        y0, x0 = rng.randint(0, h - 20), rng.randint(0, w - 20)
+        y1, x1 = y0 + rng.randint(10, 120), x0 + rng.randint(10, 160)
+        img[y0:y1, x0:x1] = img[y0:y1, x0:x1] * 0.5 + rng.rand(3) * 0.5
+    Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(path)
+    return path
+
+
+def _torch_sequential(spec, params):
+    """The spec as torch.nn modules in tools/torch_baseline.py's order (one
+    module an upsample or flatten; a conv, then its BatchNorm2d, then its
+    activation), carrying `params`; on the CPU, train mode."""
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    acts = {"relu": nn.ReLU, "lrelu": lambda: nn.LeakyReLU(0.2),
+            "sigmoid": nn.Sigmoid, "tanh": nn.Tanh}
+    mods = []
+    for layer, p in zip(spec, params):
+        kind = layer["kind"]
+        if kind in ("upsample", "flatten"):
+            mods.append(nn.UpsamplingNearest2d(scale_factor=layer["factor"])
+                        if kind == "upsample" else nn.Flatten(0))
+            continue
+        conv = (nn.Conv2d if kind == "conv" else nn.ConvTranspose2d)(
+            layer["cin"], layer["cout"], layer["k"], layer["s"], layer["p"],
+            bias=False)
+        conv.weight.data = torch.as_tensor(np.asarray(p["w"])).float()
+        mods.append(conv)
+        if layer.get("bn"):
+            bn = nn.BatchNorm2d(layer["cout"])
+            bn.weight.data = torch.as_tensor(np.asarray(p["bn_scale"])).float()
+            bn.bias.data = torch.as_tensor(np.asarray(p["bn_bias"])).float()
+            mods.append(bn)
+        if layer.get("act"):
+            mods.append(acts[layer["act"]]())
+    return nn.Sequential(*mods).train()
+
+
+def write_torch_baseline(directory, cfg, g_params, epochs, ntrain, seed):
+    """A --torch-dir in tools/torch_baseline.py's format from the port's own
+    weights (G: `g_params`; D: a random init): torch_weights.npz holds each
+    Conv2d/ConvTranspose2d weight and BatchNorm2d affine by module index,
+    and result.json the scores of the torch.nn G itself, evaluated on the
+    card with TF32 off over the protocol's slices (batch 20).  Returns that
+    result."""
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    from dcgan_sr_tpu_torch.data import TexturedImages
+    from dcgan_sr_tpu_torch.evaluation import evaluate_slice
+    from dcgan_sr_tpu_torch.models import (discriminator_spec, generator_spec,
+                                           init_network)
+
+    os.makedirs(directory, exist_ok=True)
+    d_params, _ = init_network(discriminator_spec(cfg),
+                               torch.Generator().manual_seed(seed))
+    seqs = {"g": _torch_sequential(generator_spec(cfg), g_params),
+            "d": _torch_sequential(discriminator_spec(cfg), d_params)}
+    tensors = {}
+    for tag, net in seqs.items():
+        for i, m in enumerate(net):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                tensors[f"{tag}_{i}_w"] = m.weight.detach().numpy()
+            elif isinstance(m, nn.BatchNorm2d):
+                tensors[f"{tag}_{i}_bn_w"] = m.weight.detach().numpy()
+                tensors[f"{tag}_{i}_bn_b"] = m.bias.detach().numpy()
+    np.savez(os.path.join(directory, "torch_weights.npz"), **tensors)
+
+    g = seqs["g"].cuda()
+    src = TexturedImages(cfg.fineSize, nc=1, seed=1234)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            scores = {tag: vars(evaluate_slice(cfg, lambda lr: g(lr), src,
+                                               sets, batch_size=20,
+                                               device="cuda"))
+                      for tag, sets in (("train", range(5)),
+                                        ("test", range(2000, 2005)))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    result = {"config": cfg.variant, "epochs": epochs, "ntrain": ntrain,
+              "seed": seed, **scores}
+    with open(os.path.join(directory, "result.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    return result
+
+
+def tools_phase(smi):
+    """Phase 26: the user tools on the card at full width, each started as a
+    user starts it (in this process unless said otherwise; every kernel's
+    count from 0 just before each): overlap_protocol, select_checkpoint,
+    validate_bf16, zssr_photo, serve_load against a `serve --warmup
+    --warmup-rect` server, loader_bench, quality_protocol.  Returns
+    {tool: {kernel: launches run}}."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch import (loader_bench, overlap_protocol,
+                                    quality_protocol, select_checkpoint,
+                                    serve_load, validate_bf16, zssr_photo)
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.train.checkpoint import load_branch
+    from dcgan_sr_tpu_torch.models import generator_spec, init_network
+
+    launches = {}
+
+    def done(name, entry):
+        """Print one tool's results as soon as it has passed."""
+        print(f"phase 26, {name}, on {smi}: "
+              + json.dumps(entry, default=float), flush=True)
+
+    def ran(name, counts, lines=None):
+        """The tool's kernel launches that ran: the wrappers' counts, or
+        its own last line (which takes a CUDA graph's replays into
+        account)."""
+        if lines is not None:
+            counts = _launch_line(lines)
+        launches[name] = {k: counts[k] for k in TOOL_KERNELS}
+        return launches[name]
+
+    # overlap_protocol on the committed fixture, both BN modes, against
+    # PARITY.md; then one set on the card against the same on the CPU
+    rows = {}
+    for bn_eval in (False, True):
+        res, lines, secs, c = _tool(overlap_protocol.main, [
+            "--ckpt", OVERLAP_FIXTURE] + ["--bn-eval"] * bn_eval)
+        k = ran(f"overlap_protocol{' --bn-eval' * bn_eval}", c)
+        check(res.n_images == 500 and k["bulge_main"] == 5
+              and k["bulge_stats"] == (0 if bn_eval else 5),
+              f"overlap_protocol bn_eval={bn_eval}: {res.n_images} images, "
+              f"launches {k}")
+        got = {"bilinear": (res.psnr_bilinear, res.ssim_bilinear),
+               (bn_eval, "naive"): (res.psnr_naive, res.ssim_naive),
+               (bn_eval, "seam"): (res.psnr_seam, res.ssim_seam)}
+        for key, (p, s) in got.items():
+            wp, ws = PARITY_OVERLAP[key]
+            check(abs(p - wp) <= TOL_PARITY[0] and abs(s - ws) <= TOL_PARITY[1],
+                  f"overlap_protocol {key}: {p:.5f} / {s:.6f} against "
+                  f"PARITY.md {wp} / {ws}")
+            rows[str(key)] = [round(p, 5), round(s, 6), wp, ws]
+        done(f"overlap_protocol bn_eval={bn_eval}", {
+            "s": secs, "images_per_s": round(500 / secs, 2), "lines": lines})
+    one = ["--ckpt", OVERLAP_FIXTURE, "--bn-eval", "--sets", "10000:10001"]
+    card, _, _, _ = _tool(overlap_protocol.main, one)
+    cpu, _, cpu_s, _ = _tool(overlap_protocol.main, one + ["--cpu"])
+    diff = {f: abs(getattr(card, f) - getattr(cpu, f)) for f in (
+        "psnr_bilinear", "psnr_naive", "psnr_seam", "ssim_bilinear",
+        "ssim_naive", "ssim_seam")}
+    for f, d in diff.items():
+        check(d <= (1e-3 if f.startswith("psnr") else 1e-4),
+              f"overlap_protocol card against CPU, {f}: {d}")
+    done("overlap_protocol", {"parity_rows": rows,
+                              "card_vs_cpu_one_set": diff, "cpu_s": cpu_s})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # select_checkpoint --full on what the trainer wrote: 3 short gray-3
+        # epochs on the textured set, and a torn 4th epoch (G cut short,
+        # D intact)
+        ck = os.path.join(tmp, "ck")
+        lines = _cli(["--config", "gray-3", "--textured", "--steps", "10",
+                      "--scan", "5", "--epochs", "3", "--seed", "1",
+                      "--checkpoint-dir", ck])
+        ran("cli (select_checkpoint's epochs)", None, lines)
+        cfg = get_config("gray-3", env_override=False)
+        with open(os.path.join(ck, f"{cfg.name}_4_net_G.npz"), "wb") as f:
+            f.write(b"PK\x03\x04 cut short")
+        with open(os.path.join(ck, f"{cfg.name}_3_net_D.npz"), "rb") as f:
+            d3 = f.read()
+        with open(os.path.join(ck, f"{cfg.name}_4_net_D.npz"), "wb") as f:
+            f.write(d3)
+        best, lines, secs, c = _tool(select_checkpoint.main,
+                                     ["--dir", ck, "--full"])
+        k = ran("select_checkpoint --full", c)
+        check(any(l.startswith("epoch 4: SKIPPED unreadable checkpoint")
+                  for l in lines), f"no SKIPPED line: {lines}")
+        scored = [l for l in lines if "train-slice PSNR" in l
+                  and l.startswith("epoch ")]
+        ref = [l for l in lines if l.startswith("[")]
+        check(len(scored) == 3 and len(ref) == 8
+              and all(l.endswith("train-Size: 2100") for l in ref)
+              and k["bulge_stats"] == k["bulge_main"] == 3 * 3 + 42,
+              f"select_checkpoint: {lines}, launches {k}")
+        done("select_checkpoint --full", {
+            "s": secs, "images_per_s": round((900 + 4200) / secs, 2),
+            "best": best, "lines": lines})
+        sub = _module(["dcgan_sr_tpu_torch.select_checkpoint", "--dir", ck])
+        check(sub[-1] == [l for l in lines if l.startswith("BEST")][0],
+              f"python -m select_checkpoint: {sub[-1]}")
+
+        # validate_bf16 at its defaults (100 steps of batch 100, K = 20),
+        # twice: its verdict beside the spread of two runs of each dtype
+        # (cuDNN's default algorithms sum with atomics, which 100 GAN steps
+        # amplify)
+        runs = []
+        for rep in (1, 2):
+            ok, lines, secs, c = _tool(validate_bf16.main, [])
+            k = ran(f"validate_bf16 #{rep}", c, lines)
+            check(lines[-2].startswith("delta PSNR ")
+                  and lines[-2].endswith("-> PASS" if ok else "-> FAIL"),
+                  f"validate_bf16: {lines}")
+            check(k["preprocess"] == 200 and k["bulge_stats"] == 4
+                  and k["bulge_main"] == 4, f"validate_bf16 launches {k}")
+            runs.append({"s": secs, "pass": bool(ok), "lines": lines})
+        fields = [[float(v) for v in re.findall(
+            r"G-(?:PSNR|SSIM) ([\d.]+)", l)] for r in runs
+            for l in r["lines"][:2]]
+        done("validate_bf16", {"runs": runs, "spread_of_two_runs": {
+            d: [round(abs(fields[i][j] - fields[i + 2][j]), 4)
+                for j in (0, 1)] for i, d in enumerate(("fp32", "bf16"))}})
+
+        # zssr_photo --bf16 on a seeded photo
+        photo = write_photo(os.path.join(tmp, "photo.png"))
+        res, lines, secs, c = _tool(zssr_photo.main, [
+            "--input", photo, "--bf16", "--steps", "200",
+            "--ckpt-out", os.path.join(tmp, "zssr"),
+            "--sr-out", os.path.join(tmp, "zssr_sr.png")])
+        k = ran("zssr_photo --bf16", c, lines)
+        check(all(np.isfinite(v) for f, v in res.items()
+                  if f.startswith(("psnr", "ssim")))
+              and res["holdout_hw"] == [96, 512]
+              and os.path.isfile(os.path.join(tmp, "zssr_sr.png"))
+              and os.path.isfile(os.path.join(
+                  tmp, "zssr", f"{cfg.name}_200_net_G.npz")),
+              f"zssr_photo: {lines}")
+        check(k["preprocess"] == 200 and k["bulge_stats"] == 1
+              and k["bulge_main"] == 2, f"zssr_photo launches {k}")
+        done("zssr_photo --bf16", {
+            "s": secs, "steps_per_s": round(200 / res["train_time_s"], 2),
+            "result": res})
+
+        # serve_load against a gray-3 server warmed on every ladder pair;
+        # the first request is non-square
+        with tempfile.TemporaryFile() as log:
+            server = start_server(cfg, False, log,
+                                  extra=("--warmup", "--warmup-rect"))
+            try:
+                before = wait_up(server, "serve --warmup-rect")
+                _, lines, secs, _ = _tool(serve_load.main, [
+                    "--port", str(server[1]), "--size", "100x72",
+                    "--warm", "10"])
+                after = _healthz(server[1])
+            except Exception:
+                log.seek(0)
+                sys.stderr.write(log.read().decode(errors="replace")[-8000:])
+                raise
+            finally:
+                stop_server(server[0])
+            log.seek(0)
+            warm_line = [l for l in log.read().decode(
+                errors="replace").splitlines() if l.startswith("warmup:")]
+        phases = {}
+        for l in lines:
+            rec = json.loads(l)
+            phases.setdefault(rec["phase"], []).append(rec)
+        cold_ms = phases["cold_first"][0]["s"] * 1e3
+        p50 = phases["warm_single"][0]["median_ms"]
+        errors = [e for r in phases["concurrent"] for e in r["errors"]]
+        k = ran("serve_load", {n: after["kernel_launches"].get(n, 0)
+                               - before["kernel_launches"].get(n, 0)
+                               for n in TOOL_KERNELS})
+        check(cold_ms <= 3 * p50, f"the first non-square request took "
+              f"{cold_ms:.1f} ms against a p50 of {p50} ms after "
+              f"--warmup-rect")
+        check(not errors and after["requests"] - before["requests"] == 43
+              and k["bulge_main"] > 0, f"serve_load: {lines}, launches {k}")
+        done("serve_load", {"s": secs, "warmup": warm_line,
+                            "lines": phases})
+
+        # loader_bench at its defaults (the host alone)
+        res, lines, secs, c = _tool(loader_bench.main, [])
+        ran("loader_bench", c)
+        check(sorted(res) == sorted([
+            "folder_sample_images_per_sec", "folder_prefetch4_images_per_sec",
+            "folder_canvas_images_per_sec"]), f"loader_bench: {lines}")
+        done("loader_bench", {"s": secs, "images_per_s": res})
+
+        # quality_protocol on a baseline directory written here from the
+        # committed gray-3 fixture's G
+        qcfg = get_config("gray-3", env_override=False, batchSize=20)
+        g_params, _ = init_network(generator_spec(qcfg),
+                                   torch.Generator().manual_seed(0))
+        with np.load(FIXTURE) as data:
+            g_params = load_branch(data, "params", g_params)
+        epochs, ntrain = 3, 2000
+        base = write_torch_baseline(os.path.join(tmp, "tb"), qcfg, g_params,
+                                    epochs, ntrain, seed=1)
+        (qrows, qdiff), lines, secs, c = _tool(quality_protocol.main, [
+            "--torch-dir", os.path.join(tmp, "tb")])
+        k = ran("quality_protocol", c, lines)
+        steps = epochs * ntrain // 20
+        check(k["preprocess"] == steps and k["bulge_stats"] == 21
+              and k["bulge_main"] == 21, f"quality_protocol launches {k}")
+        imported = dict((r[0], r[1:]) for r in qrows)["torch-trained, OUR eval"]
+        for tag, r in zip(("train", "test"), imported):
+            for f in ("psnr_generator", "ssim_generator"):
+                d = abs(getattr(r, f) - base[tag][f])
+                check(d <= (1e-3 if f.startswith("psnr") else 1e-4),
+                      f"quality_protocol: the imported G's {tag} {f} is "
+                      f"{getattr(r, f)}, torch.nn's {base[tag][f]}")
+        check(qdiff <= TOL_Y, f"quality_protocol fused vs unfused {qdiff}")
+        done("quality_protocol", {"s": secs, "steps": steps,
+                                  "lines": lines})
+
+    print(f"phase 26, kernel launches of each tool, on {smi}: "
+          + json.dumps(launches), flush=True)
     return launches
 
 
@@ -4087,6 +4465,12 @@ def main():
         launches[k] += dp_launches[k]
 
     stamp()
+    # phase 26: the user tools; counts from 0 before each
+    tool_launches = tools_phase(smi)
+    for k in ("bulge_stats", "bulge_main"):
+        launches[k] += sum(c[k] for c in tool_launches.values())
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -4106,6 +4490,8 @@ def main():
             "impl": r["impl"], "fma_ms": r[f"{key}_fma_ms"],
             "bound_fp32_fma_ms": r[f"{key}_bound_fp32_fma"][0],
             "eval_launches": eval_launches[name],
+            "tools_launches": {t: c[name] for t, c in tool_launches.items()
+                               if c[name]},
             "at_eval_shape": {
                 "shape": list(EVAL_SHAPE), "ms": eval_row[f"{key}_ms"],
                 "bound_ms": eval_row[f"{key}_bound"][0],
@@ -4147,7 +4533,10 @@ def main():
         "source": "dcgan_sr_tpu_torch/csrc/preprocess.cu",
         "replaces": "dcgan_sr_tpu/ops/pallas_kernels.py:64",
         "launches": trainer_counts["preprocess"] + opt_launches["preprocess"]
-        + dp_launches["preprocess"],
+        + dp_launches["preprocess"]
+        + sum(c["preprocess"] for c in tool_launches.values()),
+        "tools_launches": {t: c["preprocess"] for t, c in
+                           tool_launches.items() if c["preprocess"]},
         "max_abs_err": pre_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -42,7 +42,9 @@ kernel library is built from csrc/bulge.cu at its first launch (seconds of
 nvcc after a fresh checkout), and cuDNN picks its algorithms at each shape's
 first call: `--warmup` builds the kernel and runs every square bucket in
 both modes, at batch 1 and at --max-batch, before the server listens, so
-that no request waits for either.
+that no request waits for either.  `--warmup-rect` runs every (bh, bw) pair
+of the ladder instead (buckets^2 x 2 modes), so that a non-square first
+request is warm too.
 
 `--bf16` computes in bf16 (the precision bench_infer measures): the
 generator's layers and the fused pair's bf16 kernel.  With --u8-io the
@@ -116,6 +118,7 @@ class SRService:
             d = int(d * 1.5)
         self.buckets = buckets + [snap(max_size)]
         self._fns = {}            # (bh, bw, mode) -> pipeline
+        self.shapes_run = set()   # (bh, bw, mode, batch) the device has run
         self._q = queue.Queue()
         self.stats = {"requests": 0, "batches": 0, "errors": 0}
         self._stats_lock = threading.Lock()  # handler threads + dispatcher
@@ -188,20 +191,26 @@ class SRService:
                     compute_dtype=self.compute_dtype)
         return self._fns[key]
 
-    def warmup(self):
+    def warmup(self, batch_sizes=None, rect=False):
         """Build the fused pair's kernel (on a card) and run every SQUARE
-        (bucket, mode) pipeline once at batch 1 and at max_batch, through
-        the dispatcher queue like any request, so that neither the kernel's
-        build nor a shape's first cuDNN call lands on a user's request (JAX
-        tools/serve.py warmup).  main() runs it before it listens."""
+        (bucket, mode) pipeline once at each of `batch_sizes` (default: 1
+        and max_batch), through the dispatcher queue like any request, so
+        that neither the kernel's build nor a shape's first cuDNN call lands
+        on a user's request (JAX tools/serve.py warmup).  rect=True runs
+        every (bh, bw) pair of the ladder instead (buckets^2 pairs, in both
+        modes), so that a non-square first request finds its shape warm
+        too.  main() runs it before it listens."""
         if self.device.type == "cuda" and self.net.pairs:
             bulge_ops.build()
-        batch_sizes = sorted({1, self.max_batch})
+        if batch_sizes is None:
+            batch_sizes = sorted({1, self.max_batch})
         shape = (self.cfg.nc,) if self.cfg.nc != 1 else ()
-        for b in self.buckets:
+        pairs = ([(bh, bw) for bh in self.buckets for bw in self.buckets]
+                 if rect else [(b, b) for b in self.buckets])
+        for bh, bw in pairs:
             for mode in MODES:
-                side = b if mode == "2x" else 2 * b
-                img = np.zeros(shape + (side, side), np.float32)
+                sh, sw = (bh, bw) if mode == "2x" else (2 * bh, 2 * bw)
+                img = np.zeros(shape + (sh, sw), np.float32)
                 for n in batch_sizes:
                     self.submit_many([img] * n, mode)
 
@@ -316,6 +325,7 @@ class SRService:
         if self.pm1:                # HTTP is [0,1]; the G trains on [-1,1]
             x = x * 2.0 - 1.0
         y = self._fn(bh, bw, mode)(x)
+        self.shapes_run.add((bh, bw, mode, n2))
         if self.pm1:
             y = (y + 1.0) * 0.5
         if self.u8_io:
@@ -460,6 +470,11 @@ def main(argv=None):
                     help="build the kernel and run every square (bucket, "
                          "mode) pipeline at batch 1 and --max-batch before "
                          "serving")
+    ap.add_argument("--warmup-rect", action="store_true",
+                    help="warm every RECTANGULAR (bh, bw) ladder pair too "
+                         "(buckets^2 pairs x 2 modes), so that a non-square "
+                         "first request finds its shape warm; implies "
+                         "--warmup")
     ap.add_argument("--t7", help="reference Torch checkpoint (net_G.t7); "
                     "takes the place of --ckpt")
     ap.add_argument("--bf16", action="store_true",
@@ -493,10 +508,11 @@ def main(argv=None):
                         self_ensemble=args.self_ensemble,
                         compute_dtype=torch.bfloat16 if args.bf16 else None,
                         u8_io=args.u8_io)
-    if args.warmup:
+    if args.warmup or args.warmup_rect:
         t0 = time.perf_counter()
-        service.warmup()
-        print(f"warmup: {len(service._fns)} pipelines, kernels "
+        service.warmup(rect=args.warmup_rect)
+        print(f"warmup: {len(service.shapes_run)} shapes, "
+              f"{len(service._fns)} pipelines, kernels "
               f"{dict(bulge_ops.launches)}, in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
     srv = make_http_server(service, args.port, args.host)

@@ -42,7 +42,10 @@ def test_port_modules_import_no_jax():
               "utils.stats", "image.io", "image.ops", "data.folder",
               "data.indexed", "data.prefetch", "data.native", "data.dispatch",
               "evaluation.harness", "compat.t7", "compat.torch_import",
-              "compat.torch_export", "ops.fast", "ops.compact"):
+              "compat.torch_export", "ops.fast", "ops.compact",
+              "utils.measure", "select_checkpoint", "overlap_protocol",
+              "validate_bf16", "zssr_photo", "serve_load", "loader_bench",
+              "quality_protocol"):
         assert "dcgan_sr_tpu_torch." + m in mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
