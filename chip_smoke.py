@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build of every kernel of every
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
-     preprocess.cu, fused_nhwc.cu — started together), timed, with the
-     `-Xptxas -v` resource lines.
+     bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu — started together),
+     timed, with the `-Xptxas -v` resource lines.
   2. kernels: the fused bulge kernel (ops/bulge.py, csrc/bulge.cu), both its
      implementations (the tensor-core one the paths run, and the earlier
      fp32 FMA one), against its plain PyTorch version on the card
@@ -98,15 +98,21 @@ Phases, each fatal on failure:
      pipeline on the card; /healthz must show bulge_main moved from 0.
      `python -m dcgan_sr_tpu_torch.upscale --mode overlap` and `--mode
      grid` (graypatch fixture) each write one image.
- 14. kernel: the bulge kernel's bf16 instantiation (x, weights, h fed to
-     the second product and y in bf16; statistics and BN in fp32) against
-     its plain bf16 version on the card: x (1,16,2048,2048) with the gray-3
-     fixture's pair, (225,32,32,32) and (14400,32,32,32) with the overlap
-     fixture's, every statistics mode (grouped by 225 at 14,400 tiles), and
-     the ragged shapes of BF16_RAGGED; at the three path shapes each launch
-     timed in turns against the fp32 tensor-core kernel on the same values,
-     beside the plain version, the cuDNN bf16 composition and the bound at
-     the bf16 rate.
+ 14. kernel: K2 in bf16 (x, weights, h fed to the second product and y in
+     bf16; statistics and BN in fp32) against its plain bf16 version on the
+     card, through bulge()'s own choice — the wgmma kernel
+     (csrc/bulge_wgmma.cu) at every path shape: x (1,16,2048,2048) with the
+     gray-3 fixture's pair, (225,32,32,32) and (14400,32,32,32) with the
+     overlap fixture's, every statistics mode (grouped by 225 at 14,400
+     tiles), and the ragged shapes of BF16_RAGGED (the mma.sync kernel of
+     bulge.cu where W % 8 != 0 or Ci = 8); the mma.sync kernel also by name
+     at (225,32,32,32) and at the ragged shapes the wgmma kernel takes.  At
+     the three path shapes each launch of the two kernels timed in turns
+     (mma, wgmma, wgmma, mma), beside the plain version, the cuDNN bf16
+     composition and the bound at the bf16 rate, with the host's time to
+     queue a main launch and the tensor-map encode alone; an error if
+     bulge()'s choice is the slower kernel.  Alone: `python -c "import
+     chip_smoke as c; c.bf16_kernel_phase_alone()"`.
  15. the bf16 training step at bench.py's geometry, K = 20 steps a call
      (train/multi_step.py): gray-3 (100,1,64,64), rgb-full (100,3,64,64),
      gray-patch-batch (1280,1,8,8) = 20 images, full width from a seed; ms
@@ -122,8 +128,11 @@ Phases, each fatal on failure:
      warmup at most 3x the p50 of the next ten), then the requests of phase
      4, each held to the unfused bf16 generator in this process; /healthz
      must show the bf16 kernel's launches (and no fp32 launch) move after
-     the warmup.  bench_infer in bf16 (both BN modes) and `bench_fused
-     --kernel bulge --dtype bf16` as a subprocess.
+     the warmup, every one by the wgmma kernel.  bench_infer in bf16 (both
+     BN modes; every bf16 launch by the wgmma kernel, its implementation
+     counts printed), then the same measured with the pair by each bf16
+     kernel by name in turns; `bench_fused --kernel bulge --dtype bf16` as a
+     subprocess.
  17. path: training on image files.  200 CelebA-like 178x218 JPEGs of
      smooth random textures, written here from a seed, as one class
      folder; `python -m dcgan_sr_tpu_torch.cli --config gray --data-root
@@ -232,7 +241,9 @@ Phases, each fatal on failure:
      gray-3 epochs that cli.main trained (--textured, 10 steps each) beside
      a torn 4th (its SKIPPED line, 51 K2 launches of each kernel), and
      `python -m ...select_checkpoint` without --full as a subprocess (the
-     same BEST line); validate_bf16 at its defaults, twice (its verdict,
+     same BEST line); validate_bf16 at its defaults, twice (the same
+     PSNR/SSIM pairs and verdict both times, under deterministic cuDNN; its
+     verdict,
      and the spread of two runs of each dtype; K1 run 200 times each);
      zssr_photo --bf16 --steps 200 on a seeded 384x512 photo;
      serve_load (--size 100x72 --warm 10) against a gray-3 server started
@@ -246,9 +257,10 @@ Phases, each fatal on failure:
      launches go into the kernels line.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (with their eval launches and times at the
-     eval shape), K2 stats bf16, K2 main bf16, K3 stats, K3 main, K3 stats
-     bf16, K3 main bf16), then the contract line {"ok": true, "device":
-     {...}}.
+     eval shape), K2 stats bf16, K2 main bf16 (the wgmma kernel the paths
+     run, with the mma.sync kernel's times in turns), K3 stats, K3 main, K3
+     stats bf16, K3 main bf16), then the contract line {"ok": true,
+     "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
@@ -855,7 +867,7 @@ def serve_phase(cfg, parity, ref_service, server, timed=((256, 256),),
               f"pixels off by more than {levels}, launches after the first "
               f"/healthz {counts}, by implementation {by_impl}, batch_ms "
               f"p50 {hz['batch_ms_p50']}", flush=True)
-        mine = "mma_bf16" if bf16 else "mma"
+        mine = "wgmma_bf16" if bf16 else "mma"
         check(by_impl[mine] > 0 and all(v == 0 for k, v in by_impl.items()
                                         if k != mine),
               f"the served path ran {by_impl}")
@@ -1684,9 +1696,12 @@ def tiled_upscale_phase():
 # phase 14: the bulge kernel in bf16 against its plain version
 # ---------------------------------------------------------------------------
 
-# ragged and small geometries (B, Ci, Cm, Co, H, W), every triple
+# ragged and small geometries (B, Ci, Cm, Co, H, W), every triple; the last
+# three are ragged shapes the wgmma kernel takes (W % 8 == 0)
 BF16_RAGGED = [(2, 16, 8, 16, 37, 45), (1, 32, 16, 32, 24, 40),
-               (1, 8, 4, 8, 16, 20), (3, 16, 8, 16, 1, 3)]
+               (1, 8, 4, 8, 16, 20), (3, 16, 8, 16, 1, 3),
+               (2, 16, 8, 16, 37, 40), (3, 16, 8, 16, 1, 8),
+               (2, 32, 16, 32, 13, 24)]
 
 
 def bf16_step(y):
@@ -1696,24 +1711,31 @@ def bf16_step(y):
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
-def hold_bf16(K, args, mode, run, groups, label, step=None):
-    """bulge() on bf16 x against bulge_plain on the same bf16 x (in slices
-    of `step` images where the unfused hidden tensor would not fit): y
-    within TOL_Y_BF16_STEPS bf16 steps of max |y|, at most TOL_Y_BF16_SHARE
-    of y's elements different at all, statistics within TOL_STATS.  Returns
-    (max |dy|, max |dstats|, share of y elements that differ)."""
+def hold_bf16(K, args, mode, run, groups, label, step=None, impl=None):
+    """bulge() on bf16 x, by `impl` (None: the wrapper's own choice), against
+    bulge_plain on the same bf16 x (in slices of `step` images where the
+    unfused hidden tensor would not fit): y within TOL_Y_BF16_STEPS bf16
+    steps of max |y|, at most TOL_Y_BF16_SHARE of y's elements different at
+    all, statistics within TOL_STATS.  Returns (the implementation that ran,
+    max |dy|, max |dstats|, share of y elements that differ)."""
     import torch
     x = args[0]
     bsz = x.shape[0]
     step = step or bsz
-    n0 = dict(K.launches)
-    y, (m, v) = K.bulge(*args, stats=mode, running=run, groups=groups)
+    ran = impl or K._impl_for(None, x, args[1], args[4])
+    n0, i0 = dict(K.launches), dict(K.impl_launches)
+    y, (m, v) = K.bulge(*args, stats=mode, running=run, groups=groups,
+                        impl=impl)
     torch.cuda.synchronize()
     check(y.dtype == torch.bfloat16 and m.dtype == torch.float32,
           f"bf16 bulge gave y {y.dtype}, stats {m.dtype}")
+    moved = 1 + (mode != "running")
     check(K.launches["bulge_main_bf16"] == n0["bulge_main_bf16"] + 1
-          and K.launches["bulge_main"] == n0["bulge_main"],
-          f"bf16 bulge launched {K.launches} (before {n0})")
+          and K.launches["bulge_main"] == n0["bulge_main"]
+          and K.impl_launches[ran + "_bf16"] == i0[ran + "_bf16"] + moved
+          and sum(K.impl_launches.values()) == sum(i0.values()) + moved,
+          f"bf16 bulge ({ran}) launched {K.launches} {K.impl_launches} "
+          f"(before {n0} {i0})")
     err, differ, per = [0.0, 0.0], 0, bsz // groups if groups else None
     for i in range(0, bsz, step):
         sl = slice(i, min(i + step, bsz))
@@ -1723,7 +1745,7 @@ def hold_bf16(K, args, mode, run, groups, label, step=None):
         d = (y[sl].float() - yp.float()).abs()
         check(bool(torch.isfinite(y[sl]).all()), f"non-finite y, {label}")
         check(d.max().item() <= TOL_Y_BF16_STEPS * bf16_step(yp.float()),
-              f"bf16 bulge kernel differs from its plain version by "
+              f"bf16 bulge kernel ({ran}) differs from its plain version by "
               f"{d.max().item():.3e} at {label} {mode}")
         err[0] = max(err[0], d.max().item())
         differ += int((d > 0).sum())
@@ -1739,23 +1761,38 @@ def hold_bf16(K, args, mode, run, groups, label, step=None):
         else:       # statistics pooled over more than this slice
             continue
         check(_close(ms, mp, TOL_STATS) and _close(vs, vp, TOL_STATS),
-              f"bf16 bulge statistics disagree at {label} {mode}")
+              f"bf16 bulge statistics ({ran}) disagree at {label} {mode}")
         err[1] = max(err[1], (ms - mp).abs().max().item(),
                      (vs - vp).abs().max().item())
     share = differ / y.numel()
-    check(share <= TOL_Y_BF16_SHARE, f"bf16 bulge: {share:.4%} of y differs "
-          f"from the plain version at {label} {mode}")
-    print(f"kernel bf16 {label} {mode:9s} groups {groups}: max|dy| "
+    check(share <= TOL_Y_BF16_SHARE, f"bf16 bulge ({ran}): {share:.4%} of y "
+          f"differs from the plain version at {label} {mode}")
+    print(f"kernel bf16 {ran:5s} {label} {mode:9s} groups {groups}: max|dy| "
           f"{err[0]:.3e} max|dstats| {err[1]:.3e}, {share:.4%} of y differs",
           flush=True)
-    return err[0], err[1], share
+    return ran, err[0], err[1], share
+
+
+def host_us(fn, calls=200):
+    """The host's time to queue one call, us (no wait for the card)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bf16_pair_times(K, N, x32, wT, wC, scale, bias, rmean, rvar, iters):
-    """ms per call of the bf16 kernel's two launches beside the fp32
-    tensor-core kernel's on the same values (x rounded to bf16), in turns
-    (fp32, bf16, bf16, fp32); the plain bf16 version, the cuDNN bf16
-    composition (convT, var_mean / batch_norm, ReLU, conv), both bounds."""
+    """ms per call of each bf16 launch by the two kernels, in turns (mma,
+    wgmma, wgmma, mma); the plain bf16 version, the cuDNN bf16 composition
+    (convT, var_mean / batch_norm, ReLU, conv), the bound at the bf16 rate;
+    the host's time to queue each kernel's main launch, and the wgmma
+    launcher's tensor-map encode alone.  It is an error if bulge()'s choice
+    is the slower kernel here."""
     import torch
     import torch.nn.functional as F
 
@@ -1766,28 +1803,38 @@ def bf16_pair_times(K, N, x32, wT, wC, scale, bias, rmean, rvar, iters):
     mu = rmean.expand(b, cm).contiguous()
     gain = (torch.rsqrt(rvar + 1e-5) * scale).expand(b, cm).contiguous()
     wTb, wCb = wT.to(torch.bfloat16), wC.to(torch.bfloat16)
-    st, _ = in_turns({"fp32": lambda: K.launch_stats(x32, wT, "mma"),
-                      "bf16": lambda: K.launch_stats(xb, wT, "mma")}, iters)
-    mn, _ = in_turns({"fp32": lambda: K.launch_main(x32, wT, wC, mu, gain,
-                                                    bias, "mma"),
-                      "bf16": lambda: K.launch_main(xb, wT, wC, mu, gain,
-                                                    bias, "mma")}, iters)
+    st, st_best = in_turns(
+        {i: (lambda i=i: K.launch_stats(xb, wT, i)) for i in ("mma", "wgmma")},
+        iters)
+    mn, mn_best = in_turns(
+        {i: (lambda i=i: K.launch_main(xb, wT, wC, mu, gain, bias, i))
+         for i in ("mma", "wgmma")}, iters)
+    chosen = K.choose_impl(ci, cm, co, h, w, torch.bfloat16)
     lib_stats = lambda: torch.var_mean(  # noqa: E731
         F.conv_transpose2d(xb, wTb, stride=2, padding=1), dim=(0, 2, 3),
         correction=0)
     lib_main = lambda: F.conv2d(F.relu(F.batch_norm(  # noqa: E731
         F.conv_transpose2d(xb, wTb, stride=2, padding=1), rmean, rvar,
         scale, bias, training=False)), wCb, stride=2, padding=1)
+    reps = 1000
+    t = time.perf_counter()
+    check(K._wlib.bulge_wgmma_encode(xb.data_ptr(), b, ci, h, w, reps) == 0,
+          "tensor-map encode failed")
+    encode = (time.perf_counter() - t) / reps * 1e6
     with N.fp32_convs():
-        r = {"stats_ms": st["bf16"], "main_ms": mn["bf16"],
-             "stats_fp32_ms": st["fp32"], "main_fp32_ms": mn["fp32"],
+        r = {"impl": chosen, "stats_ms": st[chosen], "main_ms": mn[chosen],
+             "stats_wgmma_ms": st["wgmma"], "main_wgmma_ms": mn["wgmma"],
+             "stats_mma_ms": st["mma"], "main_mma_ms": mn["mma"],
              "plain_stats_ms": time_ms(lambda: N.batch_stats(
                  N.conv_transpose2d(x32, wTb.float(), 2, 1)), iters),
              "plain_main_ms": time_ms(lambda: K.bulge_plain(
                  xb, wT, scale, bias, wC, stats="running",
                  running=(rmean, rvar)), iters),
              "lib_stats_ms": time_ms(lib_stats, iters),
-             "lib_main_ms": time_ms(lib_main, iters)}
+             "lib_main_ms": time_ms(lib_main, iters),
+             "host_us_main": {i: host_us(lambda i=i: K.launch_main(
+                 xb, wT, wC, mu, gain, bias, i)) for i in ("mma", "wgmma")},
+             "encode_us": encode}
     hw = b * h * w
     flops_convT = 2 * 16 * hw * ci * cm
     f_stats = flops_convT + 3 * 4 * hw * cm
@@ -1800,14 +1847,21 @@ def bf16_pair_times(K, N, x32, wT, wC, scale, bias, rmean, rvar, iters):
     r["main_bound"] = bound(f_main, b_main, PEAK_BF16)
     for k in ("stats", "main"):
         r[f"{k}_share_of_bound"] = r[f"{k}_bound"][0] / r[f"{k}_ms"]
+    # the better turn of each, with phase 2's slack
+    check(mn_best[chosen] <= min(mn_best.values()) * 1.05 + 0.01
+          and st_best[chosen] <= min(st_best.values()) * 1.05 + 0.01,
+          f"bulge() runs {chosen} on bf16 x {tuple(x32.shape)}, which is the "
+          f"slower kernel in this run: stats {st}, main {mn}")
     return r
 
 
 def bf16_kernel_phase(params, state, oparams, ostate):
-    """K2's bf16 instantiation against its plain version on the card at the
-    path shapes (gray-3 LR 256, one image's and 64 images' overlap tiles),
-    every statistics mode, and ragged shapes; times at the path shapes.
-    Returns ({kernel: worst |diff|}, [(shape, times)])."""
+    """K2 in bf16 against its plain version on the card: through bulge()'s
+    own choice (the wgmma kernel at the path shapes) at gray-3 LR 256, one
+    image's and 64 images' overlap tiles, every statistics mode, and ragged
+    shapes; the mma.sync kernel by name at one image's tiles and the ragged
+    shapes.  Times of both kernels in turns at the three path shapes.
+    Returns ({impl: {kernel: worst |diff|}}, [(shape, times)])."""
     import numpy as np
     import torch
 
@@ -1822,23 +1876,30 @@ def bf16_kernel_phase(params, state, oparams, ostate):
                 t(p[3]["bn_bias"]), t(s[3]["bn"]["mean"]), t(s[3]["bn"]["var"]))
 
     gen = torch.Generator(device=dev).manual_seed(10)
-    err = {"bulge_stats_bf16": 0.0, "bulge_main_bf16": 0.0}
+    err = {i: {"bulge_stats_bf16": 0.0, "bulge_main_bf16": 0.0}
+           for i in K.BF16_IMPLS}
+
+    def hold(*a, **kw):
+        ran, dy, ds, _ = hold_bf16(K, *a, **kw)
+        err[ran]["bulge_main_bf16"] = max(err[ran]["bulge_main_bf16"], dy)
+        err[ran]["bulge_stats_bf16"] = max(err[ran]["bulge_stats_bf16"], ds)
+
     rows = []
     cases = ((weights(params, state), (1, 16, 2048, 2048),
-              [(m, None) for m in K.STATS_MODES], None, 5),
+              [(m, None) for m in K.STATS_MODES], None, 5, ()),
              (weights(oparams, ostate), (225, 32, 32, 32),
-              [(m, None) for m in K.STATS_MODES], None, 20),
+              [(m, None) for m in K.STATS_MODES], None, 20, ("mma",)),
              (weights(oparams, ostate), (14400, 32, 32, 32),
-              [("running", None), ("pooled", 64)], 225 * 16, 5))
-    for (wT, wC, scale, bias, rmean, rvar), shape, modes, step, iters in cases:
+              [("running", None), ("pooled", 64)], 225 * 16, 5, ()))
+    for (wT, wC, scale, bias, rmean, rvar), shape, modes, step, iters, \
+            also in cases:
         x = torch.rand(shape, generator=gen, device=dev)
         xb = x.to(torch.bfloat16)
         for mode, groups in modes:
             run = (rmean, rvar) if mode == "running" else None
-            e = hold_bf16(K, (xb, wT, scale, bias, wC), mode, run, groups,
-                          str(shape), step=step)
-            err["bulge_main_bf16"] = max(err["bulge_main_bf16"], e[0])
-            err["bulge_stats_bf16"] = max(err["bulge_stats_bf16"], e[1])
+            for impl in (None,) + also:
+                hold((xb, wT, scale, bias, wC), mode, run, groups,
+                     str(shape), step=step, impl=impl)
         r = bf16_pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar, iters)
         print(f"bf16 times {shape}: " + _fmt(r), flush=True)
         rows.append((shape, r))
@@ -1851,12 +1912,34 @@ def bf16_kernel_phase(params, state, oparams, ostate):
              t(1 + 0.1 * rng.randn(cm)), t(0.1 * rng.randn(cm)),
              t(0.1 * rng.randn(co, cm, 4, 4)))
         run = (t(0.1 * rng.randn(cm)), t(0.5 + rng.rand(cm)))
+        chosen = K._impl_for(None, a[0], a[1], a[4])
         for mode in K.STATS_MODES:
-            e = hold_bf16(K, a, mode, run if mode == "running" else None,
-                          None, str((bsz, ci, cm, co, h, w)))
-            err["bulge_main_bf16"] = max(err["bulge_main_bf16"], e[0])
-            err["bulge_stats_bf16"] = max(err["bulge_stats_bf16"], e[1])
+            for impl in (None, "mma") if chosen == "wgmma" else (None,):
+                hold(a, mode, run if mode == "running" else None, None,
+                     str((bsz, ci, cm, co, h, w)), impl=impl)
     return err, rows
+
+
+def bf16_kernel_phase_alone():
+    """Phase 14 by itself, with both fixtures' layer-3/4 weights:
+    python -c "import chip_smoke as c; c.bf16_kernel_phase_alone()"."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.models import generator_spec, init_network
+    from dcgan_sr_tpu_torch.train.checkpoint import load_branch
+
+    trees = []
+    for variant, path in (("gray-3", FIXTURE),
+                          ("gray-patch-batch-overlap", OVERLAP_FIXTURE)):
+        p, s = init_network(generator_spec(get_config(
+            variant, env_override=False)), torch.Generator().manual_seed(0))
+        with np.load(path) as data:
+            trees += [load_branch(data, "params", p),
+                      load_branch(data, "state", s)]
+    return bf16_kernel_phase(*trees)
 
 
 # ---------------------------------------------------------------------------
@@ -2064,14 +2147,31 @@ def bf16_bench_phase(smi):
                 d[k] = 0
         rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda",
                                          steps=10, dtype="bf16")
+        # every tile batch of the pipeline is 64 images x 225 tiles of
+        # 32x32x32, which ops/bulge.py's rule gives to the wgmma kernel
         check(rec["value"] > 0 and rec["dtype"] == "bf16"
               and K.launches["bulge_main_bf16"] > 0
+              and K.impl_launches["wgmma_bf16"] > 0
+              and K.impl_launches["mma_bf16"] == 0
               and K.impl_launches["mma"] == K.impl_launches["fma"] == 0,
-              f"bench_infer bf16: {rec}, launches {K.launches}")
+              f"bench_infer bf16: {rec}, launches {K.launches}, by "
+              f"implementation {K.impl_launches}")
         for k in counts:
             counts[k] += K.launches[k]
         print(f"bench_infer bf16 on {smi}: " + json.dumps(rec) + " launches "
-              + json.dumps(K.launches), flush=True)
+              + json.dumps(K.launches) + " by implementation "
+              + json.dumps(K.impl_launches), flush=True)
+    # the same measurement with the pair by each bf16 kernel by name, in
+    # turns (mma, wgmma, wgmma, mma): comparison runs, not counted
+    for bn_eval in (False, True):
+        got = {"mma": [], "wgmma": []}
+        for impl in ("mma", "wgmma", "wgmma", "mma"):
+            got[impl] += bench_infer.measure(bn_eval=bn_eval, reps=3,
+                                             steps=10, bulge_impl=impl)
+        print(f"bench_infer bf16 {'bn_eval' if bn_eval else 'parity BN'}, "
+              f"pair by each kernel in turns (MP/s, 2 x 3 repetitions) on "
+              f"{smi}: " + json.dumps({k: [round(v, 3) for v in vs]
+                                       for k, vs in got.items()}), flush=True)
     lines = _module(["dcgan_sr_tpu_torch.bench_fused", "--kernel", "bulge",
                      "--dtype", "bf16", "--iters", "10"])
     rec = json.loads(lines[-1])
@@ -2084,8 +2184,9 @@ def bf16_bench_phase(smi):
           f"bench_fused bf16: max_abs_diff {rec['max_abs_diff']}")
     check(fused_counts["bulge_stats_bf16"] > 0
           and fused_counts["bulge_main_bf16"] > 0
-          and by_impl["bulge"]["mma_bf16"] == fused_counts["bulge_stats_bf16"]
+          and by_impl["bulge"]["wgmma_bf16"] == fused_counts["bulge_stats_bf16"]
           + fused_counts["bulge_main_bf16"]
+          and by_impl["bulge"]["mma_bf16"] == 0
           and by_impl["bulge"]["mma"] == by_impl["bulge"]["fma"] == 0,
           f"bench_fused bf16 launched {fused_counts}, {by_impl}")
     print(f"bench_fused --kernel bulge --dtype bf16 on {smi}: "
@@ -4039,9 +4140,8 @@ def tools_phase(smi):
               f"python -m select_checkpoint: {sub[-1]}")
 
         # validate_bf16 at its defaults (100 steps of batch 100, K = 20),
-        # twice: its verdict beside the spread of two runs of each dtype
-        # (cuDNN's default algorithms sum with atomics, which 100 GAN steps
-        # amplify)
+        # twice: under cuDNN's deterministic algorithms both runs must print
+        # the same PSNR/SSIM of each dtype and the same verdict
         runs = []
         for rep in (1, 2):
             ok, lines, secs, c = _tool(validate_bf16.main, [])
@@ -4055,6 +4155,9 @@ def tools_phase(smi):
         fields = [[float(v) for v in re.findall(
             r"G-(?:PSNR|SSIM) ([\d.]+)", l)] for r in runs
             for l in r["lines"][:2]]
+        check(fields[:2] == fields[2:] and runs[0]["pass"] == runs[1]["pass"]
+              and runs[0]["lines"][-2] == runs[1]["lines"][-2],
+              f"validate_bf16's two runs differ: {runs}")
         done("validate_bf16", {"runs": runs, "spread_of_two_runs": {
             d: [round(abs(fields[i][j] - fields[i + 2][j]), 4)
                 for j in (0, 1)] for i, d in enumerate(("fp32", "bf16"))}})
@@ -4191,26 +4294,30 @@ def main():
     t0 = time.perf_counter()
     took, failed = {}, []
 
-    def build(mod, name):
+    def build(fn, name):
         try:
-            mod.build()
+            fn()
             took[name] = time.perf_counter() - t0
         except Exception as e:      # re-raised below, on the main thread
             failed.append(e)
 
-    sources = ((K, "bulge"), (P, "preprocess"), (F3, "fused_nhwc"))
-    threads = [threading.Thread(target=build, args=(mod, name))
-               for mod, name in sources]
+    # (source stem, its build, its nvcc output)
+    sources = (("bulge", K.build, lambda: K.build_log),
+               ("bulge_wgmma", K.build_wgmma, lambda: K.wgmma_build_log),
+               ("preprocess", P.build, lambda: P.build_log),
+               ("fused_nhwc", F3.build, lambda: F3.build_log))
+    threads = [threading.Thread(target=build, args=(fn, name))
+               for name, fn, _ in sources]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if failed:
         raise failed[0]
-    for mod, name in sources:
+    for name, _, log in sources:
         print(f"build: csrc/{name}.cu done {took[name]:.1f}s after the "
               f"{len(sources)} nvcc runs started", flush=True)
-        print(mod.build_log.strip(), flush=True)
+        print(log().strip(), flush=True)
 
     cfg = get_config("gray-3", env_override=False)
     spec = generator_spec(cfg)
@@ -4506,26 +4613,37 @@ def main():
                  "bound_fp32_fma_ms": ro[f"{key}_bound_fp32_fma"][0],
                  "plain_ms": ro[f"plain_{key}_ms"],
                  "library_ms": ro[f"lib_{key}_ms"]} for sh, ro in o_rows]})
+    # K2 in bf16: the paths run the wgmma kernel (phase 16 holds every bf16
+    # launch of bench_infer, bench_fused and the bf16 servers to it); the
+    # mma.sync kernel's times in turns beside it
     bshape, br = bf16_rows[-1]    # 64 images' overlap tiles, bf16
     for name, line, key in (("bulge_stats_bf16", 159, "stats"),
                             ("bulge_main_bf16", 206, "main")):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "dcgan_sr_tpu_torch/csrc/bulge.cu",
+            "source": "dcgan_sr_tpu_torch/csrc/bulge_wgmma.cu",
             "replaces": f"dcgan_sr_tpu/ops/pallas_bulge.py:{line}",
-            "launches": launches[name], "max_abs_err": bf16_err[name],
+            "launches": launches[name],
+            "max_abs_err": bf16_err["wgmma"][name],
             "ms": br[f"{key}_ms"], "plain_ms": br[f"plain_{key}_ms"],
             "bound_ms": br[f"{key}_bound"][0],
             "bound_by": br[f"{key}_bound"][1],
             "library_ms": br[f"lib_{key}_ms"], "shape": list(bshape),
-            "dtype": "bf16", "fp32_mma_ms": br[f"{key}_fp32_ms"],
+            "dtype": "bf16", "impl": br["impl"],
+            "mma_ms": br[f"{key}_mma_ms"],
+            "mma_source": "dcgan_sr_tpu_torch/csrc/bulge.cu",
+            "mma_max_abs_err": bf16_err["mma"][name],
+            "host_us_main": br["host_us_main"], "encode_us": br["encode_us"],
             "at_other_shapes": [
-                {"shape": list(sh), "ms": ro[f"{key}_ms"],
-                 "fp32_mma_ms": ro[f"{key}_fp32_ms"],
+                {"shape": list(sh), "impl": ro["impl"], "ms": ro[f"{key}_ms"],
+                 "mma_ms": ro[f"{key}_mma_ms"],
+                 "wgmma_ms": ro[f"{key}_wgmma_ms"],
                  "bound_ms": ro[f"{key}_bound"][0],
                  "bound_by": ro[f"{key}_bound"][1],
                  "plain_ms": ro[f"plain_{key}_ms"],
-                 "library_ms": ro[f"lib_{key}_ms"]}
+                 "library_ms": ro[f"lib_{key}_ms"],
+                 "host_us_main": ro["host_us_main"],
+                 "encode_us": ro["encode_us"]}
                 for sh, ro in bf16_rows[:-1]]})
     r = pre_rows[0]       # the trainer's own call: (100, 1, 64, 64), flags off
     kernels.append({

@@ -3,6 +3,7 @@ CUDA source with one part removed or changed at a time and time its two
 launches.
 
   python -m dcgan_sr_tpu_torch.ablation --kernel bulge [--iters 10]
+  python -m dcgan_sr_tpu_torch.ablation --kernel bulge_wgmma [--iters 10]
   python -m dcgan_sr_tpu_torch.ablation --kernel nhwc [--batch 100]
          [--hw 256] [--tm 32] [--iters 10]
 
@@ -18,6 +19,24 @@ run).
     no_stage2     main: the consumer product and the y stores left out
     no_next_x     main: the next item's x is not staged (stage 1 reads
                   stale x)
+
+  --kernel bulge_wgmma: csrc/bulge_wgmma.cu (the bf16 kernel the paths
+  run), at the same two shapes
+    base          the source as it is
+    no_transpose  the producer does not turn the box into xq (stage 1
+                  reads stale xq)
+    no_wgmma      no wgmma.mma_async (stage 2's A fragments are still
+                  loaded)
+    no_a_loads    stage 2: no ldmatrix of A (wgmma multiplies addresses)
+    no_hp_store   main: stage 1's epilogue stores no hidden plane
+    no_y_store    main: no y store to device memory
+    stage2_quarter main: stage 2 runs one of its four m64 tiles (y rows
+                  0-1)
+    skeleton      the five left-outs above together: the TMA ring, the
+                  barriers, the epilogues' arithmetic and the y stores'
+                  address math remain
+    skeleton_no_tma  skeleton without the TMA load: the producer arrives
+                  on the full barrier itself
 
   --kernel nhwc: csrc/fused_nhwc.cu's fp32 kernel (namespace tc), at
   bench_fused's shape (--batch, 16, --hw, --hw), row bands of --tm
@@ -73,7 +92,7 @@ _K2_VARIANTS = {
 }
 
 
-def _k2_cases(args, torch, rng, dev):
+def _k2_cases(args, torch, rng, dev, impl="mma"):
     cases = {}
     for b, ci, h, w in ((1, 16, 2048, 2048), (14400, 32, 32, 32)):
         cm = ci // 2
@@ -86,10 +105,63 @@ def _k2_cases(args, torch, rng, dev):
         beta = torch.zeros(cm, device=dev)
 
         def launches(name, x=x, wT=wT, wC=wC, mu=mu, gain=gain, beta=beta):
-            return (lambda: K2.launch_stats(x, wT),
-                    lambda: K2.launch_main(x, wT, wC, mu, gain, beta))
+            return (lambda: K2.launch_stats(x, wT, impl),
+                    lambda: K2.launch_main(x, wT, wC, mu, gain, beta, impl))
         cases[str((b, ci, h, w))] = launches
     return cases
+
+
+def _k2_mma_cases(args, torch, rng, dev):
+    return _k2_cases(args, torch, rng, dev, "mma")
+
+
+def _k2_wgmma_cases(args, torch, rng, dev):
+    return _k2_cases(args, torch, rng, dev, "wgmma")
+
+
+# ---- K2 in bf16 on Hopper's units (csrc/bulge_wgmma.cu) ---------------------
+
+_WG_TRANSPOSE = """    ldsm_x4_t(v, box_s + (((cg * 8 + rr) * XR + r) * XC + cb * 8) * 2);
+    stsm_x4((unsigned)col < (unsigned)XQC
+                ? xq_s + (cg * XQPOS + r * XQC + col) * 16 : junk_s, v);"""
+_WG_VARIANTS = {
+    "base": [],
+    "no_transpose": [(_WG_TRANSPOSE, "    (void)v; (void)col; (void)box_s; "
+                      "(void)xq_s; (void)junk_s; (void)cg; (void)r; (void)rr;"
+                      )],
+    "no_wgmma": [("      Wgmma<N>::run(dd, aa[ks], desc(b0 + (h * KH + ks) * "
+                  "b_step, lbo, 128));", "      dd[ks % (N / 2)] += "
+                  "__uint_as_float(aa[ks][0] ^ (uint32_t)desc(b0 + (h * KH + "
+                  "ks) * b_step, lbo, 128));"),
+                 ("      WgmmaSS<N>::run(dd, desc(a0 + a_koff(ks), a_lbo, 128),\n"
+                  "                      desc(b0 + ks * b_step, b_lbo, 128));",
+                  "      dd[ks % (N / 2)] += __uint_as_float((uint32_t)(desc("
+                  "a0 + a_koff(ks), a_lbo, 128) ^ desc(b0 + ks * b_step, "
+                  "b_lbo, 128)));")],
+    "no_a_loads": [("    for (int ks = 0; ks < KH; ++ks) ldsm_x4(aa[ks], r + "
+                    "off(h * KH + ks));", "    for (int ks = 0; ks < KH; ++ks) "
+                    "aa[ks][0] = aa[ks][1] = aa[ks][2] = aa[ks][3] = r + off(h "
+                    "* KH + ks);")],
+    "no_hp_store": [("              stsm_x4(pj <= TW && q <= LASTQ\n"
+                     "                          ? hp_s + (plane * NPOS + pi * "
+                     "PC + pj) * 16\n                          : junk_s, v);",
+                     "              if (v[0] == 0x7fc07fc0u && v[3] == 1u && "
+                     "q == plane + pi + pj) stsm_x4(junk_s, v);")],
+    "no_y_store": [("          *reinterpret_cast<uint4*>(yb + ((size_t)co * H + "
+                    "row) * W + col) = v;", "          if (v.x == 0x7fc07fc0u "
+                    "&& v.w == 1u) *reinterpret_cast<uint4*>(yb) = v;")],
+    "stage2_quarter": [("pipelined_halves<N2, K2S, M2T>(",
+                        "pipelined_halves<N2, K2S, 1>(")],
+    "skeleton": None, "skeleton_no_tma": None,
+}
+_WG_VARIANTS["skeleton"] = [
+    sub for name in ("no_transpose", "no_wgmma", "no_a_loads", "no_hp_store",
+                     "no_y_store") for sub in _WG_VARIANTS[name]]
+_WG_VARIANTS["skeleton_no_tma"] = _WG_VARIANTS["skeleton"] + [(
+    """    mbar_expect_tx(&full[slot], (uint32_t)BOX);
+    tma_load_box(smem + o_ring + slot * al128(BOX), map, &full[slot],
+                 m.c0 - XO - 1, m.r0 - 1, m.b);""", """    mbar_arrive(&full[slot]);
+    (void)m; (void)map;""")]
 
 
 # ---- K3 (csrc/fused_nhwc.cu), the fp32 tensor-core kernel -----------------
@@ -164,7 +236,9 @@ def _k3_cases(args, torch, rng, dev):
 
 class Kernel(NamedTuple):
     source: str             # in csrc/
-    module: object          # its wrapper: build(), compile_and_load, _lib
+    module: object          # its wrapper: compile_and_load and the two below
+    lib: str                # the module's attribute holding the library
+    build: str              # the module's function that builds and loads it
     prefix: str             # mangled-name prefix of the ablated kernels
     variants: dict          # name -> [(old text, new text), ...]
     sass_ops: tuple         # SASS instructions counted in the base build
@@ -173,12 +247,17 @@ class Kernel(NamedTuple):
 
 
 KERNELS = {
-    "bulge": Kernel("bulge.cu", K2, "_ZN3tcb", _K2_VARIANTS,
+    "bulge": Kernel("bulge.cu", K2, "_lib", "build", "_ZN3tcb", _K2_VARIANTS,
                     ("HMMA", "LDS.U16", "LDS ", "PRMT", "STS ", "LDGSTS",
-                     "STG.E.U16", "F2FP", "BAR"), _k2_cases),
-    "nhwc": Kernel("fused_nhwc.cu", K3, "_ZN2tc", _K3_VARIANTS,
-                   ("HMMA", "LDS.64", "LDS ", "STS.64", "LOP3", "FADD",
-                    "LDGSTS", "STG.E.64", "BAR"), _k3_cases),
+                     "STG.E.U16", "F2FP", "BAR"), _k2_mma_cases),
+    "bulge_wgmma": Kernel("bulge_wgmma.cu", K2, "_wlib", "build_wgmma",
+                          "_ZN2wg", _WG_VARIANTS,
+                          ("HGMMA", "LDSM", "STSM", "UTMALDG", "SYNCS",
+                           "BAR", "STG.E.128", "F2FP"), _k2_wgmma_cases),
+    "nhwc": Kernel("fused_nhwc.cu", K3, "_lib", "build", "_ZN2tc",
+                   _K3_VARIANTS, ("HMMA", "LDS.64", "LDS ", "STS.64", "LOP3",
+                                  "FADD", "LDGSTS", "STG.E.64", "BAR"),
+                   _k3_cases),
 }
 
 
@@ -196,16 +275,16 @@ def variant_source(kernel, name):
     return src
 
 
-def _bind(module, path):
-    """The wrapper module bound to the library at `path`."""
+def _bind(k, path):
+    """The kernel's wrapper module bound to the library at `path`."""
     lib = ctypes.CDLL(path)
-    module._lib = None
-    build = module.compile_and_load
-    module.compile_and_load = lambda stem: (lib, "")
+    setattr(k.module, k.lib, None)
+    build = k.module.compile_and_load
+    k.module.compile_and_load = lambda stem: (lib, "")
     try:
-        return module.build()
+        return getattr(k.module, k.build)()
     finally:
-        module.compile_and_load = build
+        k.module.compile_and_load = build
 
 
 def ptxas_lines(log, prefix):
@@ -299,13 +378,13 @@ def main(argv=None):
         times = {}
         try:
             for name in list(k.variants) + list(reversed(k.variants)):
-                _bind(k.module, os.path.join(tmp, f"{name}.so"))
+                _bind(k, os.path.join(tmp, f"{name}.so"))
                 for shape, launches in cases.items():
                     stats, main_ = launches(name)
                     times.setdefault(name, {}).setdefault(shape, []).append(
                         [time_ms(stats), time_ms(main_)])
         finally:
-            k.module._lib = None    # the next build() loads the real kernel
+            setattr(k.module, k.lib, None)   # the next build loads the real one
     print(json.dumps({"card": smi, "kernel": args.kernel, "tm": args.tm,
                       "ms": times}))
 

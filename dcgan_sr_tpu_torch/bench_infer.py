@@ -30,12 +30,14 @@ DTYPES = ("bf16", "fp32")
 
 
 def measure(n_images=N_IMAGES, reps=3, steps=20, bn_eval=False, device="cuda",
-            seed=0, cfg=None, dtype="bf16"):
+            seed=0, cfg=None, dtype="bf16", bulge_impl=None):
     """Sustained MP/s of the overlap pipeline on `device`: one value per
     repetition.  bn_eval=False is the parity pipeline (each image's 225
     tiles one train-mode BN batch — the reference's convention,
     overlap:427-431); bn_eval=True the running-stats mode through the flat
-    (N*T)-tile generator call."""
+    (N*T)-tile generator call.  `bulge_impl` asks the generator's fused
+    pair for a kernel by name (ops/bulge.py); None takes the wrapper's
+    choice."""
     import numpy as np
     import torch
 
@@ -47,6 +49,7 @@ def measure(n_images=N_IMAGES, reps=3, steps=20, bn_eval=False, device="cuda",
     if cfg is None:
         cfg = get_config("gray-patch-batch-overlap", env_override=False)
     net, _ = load_generator(cfg, None, device=device, seed=seed)
+    net.bulge_impl = bulge_impl
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {DTYPES}, got {dtype!r}")
     run = make_overlap_sr_fn(

@@ -22,8 +22,14 @@ kernel's bf16 instantiation, one bf16 mma (m16n8k16, fp32 accumulators) a
 product.  x, the packed weights, the hidden tensor fed to the second
 product and y are bf16; the statistics, the BN gain and shift and the
 normalisation of h are fp32, and h is rounded to bf16 only after BN, ReLU
-and the edge mask (pallas_bulge.py:216-228).  Only "mma" has a bf16
-instantiation, at bulge_mma.MMA_TRIPLES; "fma" or another triple raises.
+and the edge mask (pallas_bulge.py:216-228).  Two kernels take bf16:
+"wgmma" (csrc/bulge_wgmma.cu: TMA, wgmma and mbarrier rings, built for
+Hopper) at bulge_mma.WGMMA_TRIPLES, and "mma" (bulge.cu's mma.sync kernel)
+at bulge_mma.MMA_TRIPLES.  `choose_impl` gives a bf16 call to "wgmma" where
+its tensor map can take x (W a multiple of 8, x's base 16-byte aligned) at
+a triple it was built for, and to "mma" otherwise; "fma", or a triple
+neither has, raises.  The choice depends on dtype, shape and alignment
+alone, never on whether a launch failed.
 
 BN statistics of h, three ways (`stats=`):
   "pooled"     over the whole batch — K2's own statistics
@@ -49,20 +55,24 @@ from . import nn as N
 from ._build import compile_and_load, raw_stream, sm_count
 
 STATS_MODES = ("pooled", "per_image", "running")
-IMPLS = ("mma", "fma")
+IMPLS = ("mma", "fma")          # float32 x
+BF16_IMPLS = ("wgmma", "mma")   # bfloat16 x
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
 launches = {"bulge_stats": 0, "bulge_main": 0, "bulge_stats_bf16": 0,
             "bulge_main_bf16": 0}
 # The same launches by the implementation that ran (both kernels of a pair
-# counted): which one `choose_impl` sent a path through; bf16 launches of
-# the tensor-core kernel under "mma_bf16".
-impl_launches = {"mma": 0, "fma": 0, "mma_bf16": 0}
+# counted): which one `choose_impl` sent a path through; bf16 launches
+# under "wgmma_bf16" (bulge_wgmma.cu) and "mma_bf16" (bulge.cu).
+impl_launches = {"mma": 0, "fma": 0, "mma_bf16": 0, "wgmma_bf16": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
+_wlib = None
+_wlib_lock = threading.Lock()
+wgmma_build_log = ""
 
 
 def build():
@@ -106,10 +116,51 @@ def build():
         return lib
 
 
-def choose_impl(ci, cm, co, h, w):
-    """The implementation `bulge()` runs at these shapes: the tensor-core
-    kernel wherever it has an instantiation (it was the faster of the two at
-    every path shape measured, PERF.md section 6), else the FMA kernel."""
+def build_wgmma():
+    """Compile csrc/bulge_wgmma.cu (once per source content) and load it."""
+    global _wlib, wgmma_build_log
+    with _wlib_lock:
+        if _wlib is not None:
+            return _wlib
+        lib, wgmma_build_log = compile_and_load("bulge_wgmma")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name in ("band_rows", "chunk_cols", "box_rows", "box_cols"):
+            fn = getattr(lib, "bulge_wgmma_" + name)
+            fn.argtypes, fn.restype = [], i
+        lib.bulge_wgmma_supported.argtypes = [i, i, i]
+        lib.bulge_wgmma_supported.restype = i
+        lib.bulge_wgmma_encode.argtypes = [p, i, i, i, i, i]
+        lib.bulge_wgmma_encode.restype = i
+        lib.bulge_wgmma_stats_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.bulge_wgmma_stats_bf16.restype = i
+        lib.bulge_wgmma_main_bf16.argtypes = [p] * 7 + [i] * 7 + [p]
+        lib.bulge_wgmma_main_bf16.restype = i
+        if (lib.bulge_wgmma_band_rows(), lib.bulge_wgmma_chunk_cols(),
+                lib.bulge_wgmma_box_rows(), lib.bulge_wgmma_box_cols()) != (
+                M.BAND_ROWS, M.CHUNK_COLS, M.BOX_ROWS, M.BOX_COLS) or not all(
+                    lib.bulge_wgmma_supported(*t) for t in M.WGMMA_TRIPLES):
+            raise RuntimeError("csrc/bulge_wgmma.cu and ops/bulge_mma.py "
+                               "disagree on the work item, the box or the "
+                               "channel triples built")
+        _wlib = lib
+        return lib
+
+
+def wgmma_takes(ci, cm, co, w, aligned):
+    """Can the wgmma kernel take bf16 x of Ci channels and width w at this
+    triple: an instantiation, and a tensor map (16-byte row strides, so
+    w % 8 == 0, and a 16-byte aligned base)."""
+    return (ci, cm, co) in M.WGMMA_TRIPLES and w % 8 == 0 and aligned
+
+
+def choose_impl(ci, cm, co, h, w, dtype=torch.float32, aligned=True):
+    """The implementation `bulge()` runs at these shapes, from dtype, shape
+    and alignment alone.  float32: the tensor-core kernel wherever it has an
+    instantiation (it was the faster of the two at every path shape
+    measured, PERF.md section 6), else the FMA kernel.  bfloat16: "wgmma"
+    wherever `wgmma_takes`, else "mma"."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if wgmma_takes(ci, cm, co, w, aligned) else "mma"
     return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
 
 
@@ -182,20 +233,32 @@ def _check(x, wT, scale, bias, wC, stats, running, groups):
 
 def _impl_for(impl, x, wT, wC=None):
     """The implementation a launch runs: `impl` if given (checked), else
-    `choose_impl`'s.  The stats launch has no wC: it takes the choice of the
-    pair it belongs to on the paths, Co = 2 Cm.  A bf16 x runs "mma" or
-    raises: the FMA kernel is fp32 only."""
+    `choose_impl`'s for x as it is (its dtype, shape and base address).  The
+    stats launch has no wC: it takes the choice of the pair it belongs to on
+    the paths, Co = 2 Cm.  A bf16 x runs "wgmma" or "mma" or raises: the FMA
+    kernel is fp32 only, the wgmma kernel bf16 only."""
     ci, cm = x.shape[1], wT.shape[1]
     co = 2 * cm if wC is None else wC.shape[0]
     bf16 = x.dtype == torch.bfloat16
+    aligned = x.data_ptr() % 16 == 0
     if impl is None:
-        impl = "mma" if bf16 else choose_impl(ci, cm, co, x.shape[2],
-                                              x.shape[3])
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        impl = choose_impl(ci, cm, co, x.shape[2], x.shape[3], x.dtype,
+                           aligned)
+    if impl not in IMPLS + BF16_IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS + BF16_IMPLS[:1]}, "
+                         f"got {impl!r}")
     if impl == "fma" and bf16:
         raise ValueError("the FMA bulge kernel takes float32 only; bf16 runs "
-                         "impl='mma'")
+                         "impl='wgmma' or 'mma'")
+    if impl == "wgmma":
+        if not bf16:
+            raise ValueError("the wgmma bulge kernel takes bfloat16 only")
+        if not wgmma_takes(ci, cm, co, x.shape[3], aligned):
+            raise ValueError(f"the wgmma bulge kernel takes Ci/Cm/Co in "
+                             f"{M.WGMMA_TRIPLES}, W a multiple of 8 and a "
+                             f"16-byte aligned x; got Ci={ci}, Cm={cm}, "
+                             f"Co={co}, W={x.shape[3]}, x at "
+                             f"{x.data_ptr() % 16} mod 16")
     if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
         raise ValueError(f"the tensor-core bulge kernel has no "
                          f"{'bf16 ' if bf16 else ''}instantiation for "
@@ -209,16 +272,36 @@ def _count(kernel, impl, x):
     impl_launches[impl + ("_bf16" if bf16 else "")] += 1
 
 
+def _raise_failed(kernel, impl, x, err):
+    if err < 0:
+        raise RuntimeError(f"{kernel} ({impl}, {x.dtype}): the tensor map "
+                           f"of x could not be encoded (code {err})")
+    raise RuntimeError(f"{kernel} ({impl}, {x.dtype}) launch failed: "
+                       f"cudaError {err}")
+
+
 def launch_stats(x, wT, impl=None):
     """Stats launch: fp32 (sum, sum of squares) of h = convT(x) per (image,
     slot), shape (B, slots, 2, Cm); a slot is a work item of
-    bulge_mma.Schedule ("mma") or a 16x16 tile ("fma").  x contiguous fp32
-    or bf16 CUDA, wT fp32 (packed in x's dtype).  impl=None takes
-    `choose_impl`'s."""
-    lib = _lib or build()
+    bulge_mma.Schedule ("wgmma", "mma") or a 16x16 tile ("fma").  x
+    contiguous fp32 or bf16 CUDA, wT fp32 (packed in x's dtype).  impl=None
+    takes `choose_impl`'s."""
     impl = _impl_for(impl, x, wT)
     bsz, ci, h, w = x.shape
     cm = wT.shape[1]
+    if impl == "wgmma":
+        lib = _wlib or build_wgmma()
+        partial = torch.empty((bsz, M.slots_per_image(h, w), 2, cm),
+                              device=x.device, dtype=torch.float32)
+        w1 = M.packed_operand("wT", wT, x.dtype, "wgmma")
+        err = lib.bulge_wgmma_stats_bf16(
+            x.data_ptr(), w1.data_ptr(), partial.data_ptr(), bsz, ci, cm, h,
+            w, sm_count(x.device), raw_stream(x.get_device()))
+        if err:
+            _raise_failed("bulge_stats", impl, x, err)
+        _count("bulge_stats", impl, x)
+        return partial
+    lib = _lib or build()
     if impl == "mma":
         slots = M.slots_per_image(h, w)
         w1 = M.packed_operand("wT", wT, x.dtype)
@@ -237,8 +320,7 @@ def launch_stats(x, wT, impl=None):
                                       partial.data_ptr(), bsz, ci, cm, h, w,
                                       raw_stream(x.get_device()))
     if err:
-        raise RuntimeError(f"bulge_stats ({impl}, {x.dtype}) launch failed: "
-                           f"cudaError {err}")
+        _raise_failed("bulge_stats", impl, x, err)
     _count("bulge_stats", impl, x)
     return partial
 
@@ -248,11 +330,23 @@ def launch_main(x, wT, wC, mu, gain, beta, impl=None):
     (h - mu) * gain + beta; mu, gain (B, Cm), beta (Cm,) contiguous fp32;
     x contiguous fp32 or bf16 CUDA; wT, wC fp32 (packed in x's dtype).
     impl=None takes `choose_impl`'s."""
-    lib = _lib or build()
     impl = _impl_for(impl, x, wT, wC)
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
     y = torch.empty((bsz, co, h, w), device=x.device, dtype=x.dtype)
+    if impl == "wgmma":
+        lib = _wlib or build_wgmma()
+        w1 = M.packed_operand("wT", wT, x.dtype, "wgmma")
+        w2 = M.packed_operand("wC", wC, x.dtype, "wgmma")
+        err = lib.bulge_wgmma_main_bf16(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), mu.data_ptr(),
+            gain.data_ptr(), beta.data_ptr(), y.data_ptr(), bsz, ci, cm, co, h,
+            w, sm_count(x.device), raw_stream(x.get_device()))
+        if err:
+            _raise_failed("bulge_main", impl, x, err)
+        _count("bulge_main", impl, x)
+        return y
+    lib = _lib or build()
     if impl == "mma":
         w1 = M.packed_operand("wT", wT, x.dtype)
         w2 = M.packed_operand("wC", wC, x.dtype)
@@ -269,8 +363,7 @@ def launch_main(x, wT, wC, mu, gain, beta, impl=None):
                                      y.data_ptr(), bsz, ci, cm, co, h, w,
                                      raw_stream(x.get_device()))
     if err:
-        raise RuntimeError(f"bulge_main ({impl}, {x.dtype}) launch failed: "
-                           f"cudaError {err}")
+        _raise_failed("bulge_main", impl, x, err)
     _count("bulge_main", impl, x)
     return y
 
@@ -281,8 +374,7 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
 
     x (B, Ci, H, W) fp32 or bf16 (y in x's dtype); wT (Ci, Cm, 4, 4) IOHW;
     wC (Co, Cm, 4, 4) OIHW; scale, bias (Cm,).  See the module docstring for
-    `stats`, `groups` and `impl` (CUDA only; None = `choose_impl`, or "mma"
-    for bf16)."""
+    `stats`, `groups` and `impl` (CUDA only; None = `choose_impl`)."""
     _check(x, wT, scale, bias, wC, stats, running, groups)
     if stats != "pooled":
         groups = None
@@ -294,23 +386,26 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the bulge kernel takes float32 or bfloat16, got "
                          f"{x.dtype}")
-    lib = build()
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
-    if not lib.bulge_supported(cm, co):
-        raise ValueError(f"the bulge kernel has no instantiation for "
-                         f"Cm={cm}, Co={co} (built: 4/8, 8/16, 16/32)")
-    impl = _impl_for(impl, x, wT, wC)
-    if impl == "fma":
-        smem = lib.bulge_main_smem_bytes(ci, cm, co)
-    elif x.dtype == torch.bfloat16:
-        smem = lib.bulge_mma_bf16_smem_bytes(cm)
-    else:
-        smem = lib.bulge_mma_smem_bytes(cm)
-    if smem > 227 * 1024:
-        raise ValueError(f"bulge tile needs {smem} B of shared memory "
-                         f"(Ci={ci}); the card offers 232448")
     x = x.contiguous()
+    impl = _impl_for(impl, x, wT, wC)
+    if impl == "wgmma":
+        build_wgmma()
+    else:
+        lib = build()
+        if not lib.bulge_supported(cm, co):
+            raise ValueError(f"the bulge kernel has no instantiation for "
+                             f"Cm={cm}, Co={co} (built: 4/8, 8/16, 16/32)")
+        if impl == "fma":
+            smem = lib.bulge_main_smem_bytes(ci, cm, co)
+        elif x.dtype == torch.bfloat16:
+            smem = lib.bulge_mma_bf16_smem_bytes(cm)
+        else:
+            smem = lib.bulge_mma_smem_bytes(cm)
+        if smem > 227 * 1024:
+            raise ValueError(f"bulge tile needs {smem} B of shared memory "
+                             f"(Ci={ci}); the card offers 232448")
     if wT.dtype != torch.float32 or not wT.is_contiguous():
         wT = wT.float().contiguous()
     if wC.dtype != torch.float32 or not wC.is_contiguous():

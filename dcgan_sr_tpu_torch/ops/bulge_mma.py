@@ -32,6 +32,18 @@ the kernel pairs A's k-adjacent values (two channels of one position) from
 its NCHW x staging with two 2-byte loads, and from its hidden planes, which
 it stores channel-pair interleaved, with one 4-byte load.  `bulge_packed`
 takes bf16 x with the kernel's rounding points.
+
+wgmma (csrc/bulge_wgmma.cu, bf16 only): the same W1 and W2, rounded to
+bf16, as wgmma's B operand in shared memory, K-major without swizzle
+(`to_wgmma_bf16`): 8x8 core matrices (8 n x 8 k, 16 contiguous bytes per
+n), ordered k-block major, so the descriptor's leading byte offset (between
+core matrices adjacent in k) is N/8 * 128 and its stride byte offset
+(adjacent in n) 128 (`wgmma_offsets`, `wgmma_read`).  x reaches that kernel
+as one TMA box an item (`tma_box`): BOX_ROWS x BOX_COLS from (r0-1, c0-1),
+zero outside the image (the innermost box coordinate must be a multiple of
+16 bytes, so the box starts at column c0-8), of which stage 1 reads the
+window `staged_window`, from box column BOX_COL0, that the mma.sync kernel
+stages by hand.
 """
 
 from __future__ import annotations
@@ -47,6 +59,14 @@ CHUNK_COLS = 32      # TW: y columns of a work item (tc::TW)
 
 # (Ci, Cm, Co) with a compiled tensor-core instantiation
 MMA_TRIPLES = ((8, 4, 8), (16, 8, 16), (32, 16, 32))
+# (Ci, Cm, Co) with an instantiation of the wgmma kernel (bf16 only)
+WGMMA_TRIPLES = ((16, 8, 16), (32, 16, 32))
+# the x box the wgmma kernel's tensor map loads an item (csrc/bulge_wgmma.cu
+# XR, XC, XO): rows r0-1 .. r0+8, columns c0-8 .. c0+39; x column c0-1 is
+# box column BOX_COL0
+BOX_ROWS = BAND_ROWS + 2
+BOX_COLS = 48
+BOX_COL0 = 7
 
 
 def padded_cm(cm):
@@ -135,6 +155,34 @@ def to_fragments_bf16(mat):
     return blocks.transpose(0, 4, 5, 2, 1, 3).reshape(-1)  # ks, nt, g, t, j, i
 
 
+def to_wgmma_bf16(mat):
+    """A (K, N) B operand in wgmma's canonical K-major layout without
+    swizzle, flat: element [((kb*(N/8) + nb)*8 + r)*8 + e] = mat[kb*8 + e]
+    [nb*8 + r]: core matrix (kb, nb) is 8 n-rows of 8 k-values, 128
+    contiguous bytes in bf16, core matrices k-block major."""
+    k, n = mat.shape
+    blocks = mat.reshape(k // 8, 8, n // 8, 8)      # kb, e, nb, r
+    return blocks.transpose(0, 2, 3, 1).reshape(-1)  # kb, nb, r, e
+
+
+def wgmma_offsets(n):
+    """(leading, stride) byte offsets of the wgmma descriptor for an operand
+    of N = n columns in `to_wgmma_bf16`'s layout: between core matrices
+    adjacent in k, and adjacent in n."""
+    return n // 8 * 128, 128
+
+
+def wgmma_read(flat, k, n, n_cols, ks=0):
+    """Element (k, n) of the 16-row k-step `ks` of a `to_wgmma_bf16`
+    operand with n_cols columns, read as the descriptor addresses it:
+    start = ks * 2 * leading, then (k // 8) * leading + (n // 8) * stride
+    + (n % 8) * 16 + (k % 8) * 2 bytes."""
+    lead, stride = wgmma_offsets(n_cols)
+    byte = (ks * 2 * lead + (k // 8) * lead + (n // 8) * stride
+            + (n % 8) * 16 + (k % 8) * 2)
+    return flat[byte // 2]
+
+
 def _gather(w, idx):
     flat = torch.cat([w.reshape(-1), w.new_zeros(1)])
     return flat[idx]
@@ -155,14 +203,16 @@ def pack_wC(wC):
 _index_cache = {}
 
 
-def _fragment_index(kind, shape, device, dtype=torch.float32):
+def _fragment_index(kind, shape, device, dtype=torch.float32, layout="mma"):
     """Flat gather indices of a weight of `shape` into its operand in the
-    fragment order of `dtype`'s mma, on `device`; kind "wT" or "wC"."""
-    key = (kind, tuple(shape[:2]), str(device), dtype)
+    fragment order of `dtype`'s mma (layout "mma") or in wgmma's shared
+    memory layout (layout "wgmma"), on `device`; kind "wT" or "wC"."""
+    key = (kind, tuple(shape[:2]), str(device), dtype, layout)
     if key not in _index_cache:
         idx = _w1_index(*shape[:2]) if kind == "wT" else \
             _w2_index(shape[1], shape[0])
-        order = to_fragments_bf16 if dtype == torch.bfloat16 else to_fragments
+        order = to_wgmma_bf16 if layout == "wgmma" else \
+            to_fragments_bf16 if dtype == torch.bfloat16 else to_fragments
         _index_cache[key] = torch.from_numpy(
             np.ascontiguousarray(order(idx))).to(device)
     return _index_cache[key]
@@ -175,17 +225,17 @@ _packed = OrderedDict()
 _PACKED_MAX = 16
 
 
-def packed_operand(kind, w, dtype=torch.float32):
+def packed_operand(kind, w, dtype=torch.float32, layout="mma"):
     """W1 of wT (kind "wT") or W2 of wC (kind "wC") in the fragment order of
-    `dtype`'s mma (fp32: m16n8k8 TF32, bf16: m16n8k16), flat, in `dtype` on
-    w's device."""
-    key = (kind, id(w), dtype)
+    `dtype`'s mma (fp32: m16n8k8 TF32, bf16: m16n8k16), or with layout
+    "wgmma" in `to_wgmma_bf16`'s order, flat, in `dtype` on w's device."""
+    key = (kind, id(w), dtype, layout)
     hit = _packed.get(key)
     if hit is not None and hit[0] is w and hit[1] == w._version:
         _packed.move_to_end(key)
         return hit[2]
-    op = _gather(w.detach().float(),
-                 _fragment_index(kind, w.shape, w.device, dtype)).to(dtype)
+    op = _gather(w.detach().float(), _fragment_index(
+        kind, w.shape, w.device, dtype, layout)).to(dtype)
     _packed[key] = (w, w._version, op)
     while len(_packed) > _PACKED_MAX:
         _packed.popitem(last=False)
@@ -271,15 +321,46 @@ def reduce_partials(partial, n_cells, groups):
 # the packed plain version
 # ---------------------------------------------------------------------------
 
+def _window(x_img, r0, c0, rows, cols):
+    """x_img rows r0-1 .. r0-2+rows, columns c0-1 .. c0-2+cols, zero outside
+    the image."""
+    ci, h, w = x_img.shape
+    xs = x_img.new_zeros((ci, rows, cols))
+    i0, i1 = max(r0 - 1, 0), min(r0 - 1 + rows, h)
+    j0, j1 = max(c0 - 1, 0), min(c0 - 1 + cols, w)
+    if i1 > i0 and j1 > j0:
+        xs[:, i0 - (r0 - 1):i1 - (r0 - 1), j0 - (c0 - 1):j1 - (c0 - 1)] = \
+            x_img[:, i0:i1, j0:j1]
+    return xs
+
+
+def staged_window(x_img, r0, c0):
+    """The (Ci, R+2, TW+2) x window stage 1 of item (r0, c0) reads: what the
+    mma.sync kernel's stage_x copies and zero-fills by hand."""
+    return _window(x_img, r0, c0, BAND_ROWS + 2, CHUNK_COLS + 2)
+
+
+def tma_box_origin(r0, c0):
+    """(column, row) of the wgmma kernel's box for item (r0, c0), innermost
+    first, as the tensor-map coordinates it issues; may be negative, and the
+    column is a multiple of 8 (16 bytes of bf16), which the hardware
+    requires of the innermost coordinate."""
+    return c0 - BOX_COL0 - 1, r0 - 1
+
+
+def tma_box(x_img, r0, c0):
+    """The (Ci, BOX_ROWS, BOX_COLS) box the wgmma kernel's TMA load writes
+    for item (r0, c0): the image from `tma_box_origin`, the elements outside
+    the image zero-filled by the hardware."""
+    c, r = tma_box_origin(r0, c0)
+    return _window(x_img, r + 1, c + 1, BOX_ROWS, BOX_COLS)
+
+
 def _stage1_item(x_img, w1, r0, c0):
     """HP (PR, PC, 4 Cmp) of one item: A1 @ W1 over the staged x window."""
-    ci, h, w = x_img.shape
+    ci = x_img.shape[0]
     pr, pc = BAND_ROWS + 1, CHUNK_COLS + 1
-    xs = x_img.new_zeros((ci, pr + 1, pc + 1))
-    i0, i1 = max(r0 - 1, 0), min(r0 + BAND_ROWS + 1, h)
-    j0, j1 = max(c0 - 1, 0), min(c0 + CHUNK_COLS + 1, w)
-    xs[:, i0 - (r0 - 1):i1 - (r0 - 1), j0 - (c0 - 1):j1 - (c0 - 1)] = \
-        x_img[:, i0:i1, j0:j1]
+    xs = staged_window(x_img, r0, c0)
     taps = [xs[:, ti:ti + pr, tj:tj + pc] for ti in range(2) for tj in range(2)]
     a1 = torch.stack(taps).reshape(4 * ci, pr * pc).T        # k = tap*Ci + ci
     return torch.matmul(a1, w1).reshape(pr, pc, -1)

@@ -10,6 +10,13 @@ every step), then scores both in fp32 on the eval harness (the bulge kernel
 on a card) and passes if the bf16 run's PSNR/SSIM is within tolerance of
 the fp32 run's.
 
+Both runs and both scores use cuDNN's deterministic algorithms
+(torch.backends.cudnn.deterministic on, benchmark off; the caller's
+settings are restored after): cuDNN's default algorithms sum with atomics,
+and 100 GAN steps amplify that to more than the tolerance between two runs
+of one dtype, so the verdict would change from run to run.  The two flags
+touch only cuDNN, so a CPU run is unchanged.
+
   python -m dcgan_sr_tpu_torch.validate_bf16 [--cpu]
 
 Exits 0 on PASS, 1 on FAIL.  The last line counts the kernel launches that
@@ -19,6 +26,7 @@ ran (train/multi_step.py `launches_run`).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
@@ -34,13 +42,31 @@ from .train.step import init_train_state, state_from_numpy, state_to_numpy
 from .utils.device import pick_device
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms, no autotuning; the caller's two
+    settings are restored on the way out."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def run(steps=100, batch=100, tol_psnr=1.0, tol_ssim=0.02, device=None,
         k=20, **overrides):
-    """The two runs and the verdict line; returns True on PASS.  `device`
-    defaults to the first CUDA device; `k` steps a chunk; `overrides` go to
-    get_config (a test's small widths)."""
+    """The two runs and the verdict line, under `deterministic_cudnn`;
+    returns True on PASS.  `device` defaults to the first CUDA device; `k`
+    steps a chunk; `overrides` go to get_config (a test's small widths)."""
     if steps < k:
         raise ValueError(f"steps ({steps}) must be at least one chunk of {k}")
+    with deterministic_cudnn():
+        return _run(steps, batch, tol_psnr, tol_ssim, device, k, overrides)
+
+
+def _run(steps, batch, tol_psnr, tol_ssim, device, k, overrides):
     device = torch.device(device) if device is not None else pick_device()
     src = SyntheticImages(fine_size=64, nc=1, seed=11)
     batches = torch.from_numpy(np.stack(

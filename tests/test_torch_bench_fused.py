@@ -47,7 +47,8 @@ def test_bench_fused_prints_the_jax_tools_keys(kernel):
     assert all(v == 0 for v in counts.values())      # CPU: plain versions
     assert lines[-3].startswith("implementation launches: ")
     by_impl = json.loads(lines[-3][len("implementation launches: "):])
-    assert by_impl == {"bulge": {"mma": 0, "fma": 0, "mma_bf16": 0},
+    assert by_impl == {"bulge": {"mma": 0, "fma": 0, "mma_bf16": 0,
+                                 "wgmma_bf16": 0},
                        "fused_nhwc": {"mma": 0, "fma": 0, "mma_bf16": 0}}
 
 

@@ -194,7 +194,9 @@ def test_bf16_operands_unpack_to_the_jax_packers(kind, ci, cm, co):
 
 def test_bf16_takes_the_tensor_core_kernel_or_raises():
     t = _tensors(_inputs(1, 16, 8, 16, 8, 8))
-    assert K._impl_for(None, t["x"], t["wT"], t["wC"]) == "mma"
+    assert K._impl_for(None, t["x"], t["wT"], t["wC"]) == "wgmma"
+    t13 = _tensors(_inputs(1, 16, 8, 16, 8, 13))     # W % 8 != 0
+    assert K._impl_for(None, t13["x"], t13["wT"], t13["wC"]) == "mma"
     with pytest.raises(ValueError, match="float32 only"):
         K._impl_for("fma", t["x"], t["wT"], t["wC"])
     odd = _tensors(_inputs(1, 5, 4, 8, 8, 8))

@@ -258,12 +258,14 @@ def test_choose_impl_is_a_static_rule_on_the_shapes():
 def test_impl_argument_is_checked():
     t = _tensors(_inputs(1, 5, 4, 8, 8, 8))
     with pytest.raises(ValueError, match="impl must be one of"):
+        K._impl_for("auto", t["x"], t["wT"], t["wC"])
+    with pytest.raises(ValueError, match="bfloat16 only"):
         K._impl_for("wgmma", t["x"], t["wT"], t["wC"])
     with pytest.raises(ValueError, match="no instantiation"):
         K._impl_for("mma", t["x"], t["wT"], t["wC"])
     assert K._impl_for(None, t["x"], t["wT"], t["wC"]) == "fma"
     assert K._impl_for("fma", t["x"], t["wT"], t["wC"]) == "fma"
-    assert set(K.impl_launches) == set(K.IMPLS) | {"mma_bf16"}
+    assert set(K.impl_launches) == set(K.IMPLS) | {"mma_bf16", "wgmma_bf16"}
 
 
 def test_network_hands_its_bulge_impl_to_the_pair():

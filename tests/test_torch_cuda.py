@@ -122,7 +122,8 @@ def test_default_implementation_is_the_static_rule(cuda):
     K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
     assert K.choose_impl(16, 8, 16, 16, 20) == "mma"
     assert K.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"],
-                               "mma_bf16": i0["mma_bf16"]}
+                               "mma_bf16": i0["mma_bf16"],
+                               "wgmma_bf16": i0["wgmma_bf16"]}
     with pytest.raises(ValueError, match="impl must be one of"):
         K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"], impl="auto")
 
@@ -390,11 +391,51 @@ def test_bf16_kernel_matches_plain(cuda, geom, stats):
     assert K.launches["bulge_stats_bf16"] == \
         n0["bulge_stats_bf16"] + (stats != "running")
     assert K.launches["bulge_main"] == n0["bulge_main"]
-    assert K.impl_launches["mma_bf16"] == \
-        i0["mma_bf16"] + 1 + (stats != "running")
+    chosen = K.choose_impl(*geom[1:], torch.bfloat16)
+    assert chosen == ("wgmma" if geom[-1] % 8 == 0 and geom[1] > 8 else "mma")
+    assert K.impl_launches[chosen + "_bf16"] == \
+        i0[chosen + "_bf16"] + 1 + (stats != "running")
     np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
     _hold_bf16(y, yp)
+
+
+@pytest.mark.parametrize("impl", K.BF16_IMPLS)
+@pytest.mark.parametrize("stats", K.STATS_MODES)
+@pytest.mark.parametrize("geom", [(2, 16, 8, 16, 37, 40), (1, 32, 16, 32, 24, 40),
+                                  (3, 16, 8, 16, 1, 8), (2, 32, 16, 32, 13, 24),
+                                  (2, 16, 8, 16, 64, 96)])
+def test_each_bf16_implementation_matches_plain(cuda, geom, stats, impl):
+    """The wgmma kernel and the mma.sync kernel, each asked for by name, at
+    ragged shapes both take (W % 8 == 0; rows and columns beyond the image
+    in the last band and chunk), against the plain bf16 version; the launch
+    counts move by implementation."""
+    t = _inputs(*geom, cuda)
+    x = t["x"].to(torch.bfloat16)
+    run = (t["rmean"], t["rvar"]) if stats == "running" else None
+    n0, i0 = dict(K.launches), dict(K.impl_launches)
+    y, (m, v) = K.bulge(x, t["wT"], t["scale"], t["bias"], t["wC"],
+                        stats=stats, running=run, impl=impl)
+    yp, (mp, vp) = K.bulge_plain(x, t["wT"], t["scale"], t["bias"], t["wC"],
+                                 stats=stats, running=run)
+    torch.cuda.synchronize()
+    moved = 1 + (stats != "running")
+    assert K.launches["bulge_main_bf16"] == n0["bulge_main_bf16"] + 1
+    assert K.impl_launches[impl + "_bf16"] == i0[impl + "_bf16"] + moved
+    other = [i for i in K.BF16_IMPLS if i != impl][0] + "_bf16"
+    assert K.impl_launches[other] == i0[other]
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    _hold_bf16(y, yp)
+
+
+def test_wgmma_stats_slots_match_the_packed_version(cuda):
+    from dcgan_sr_tpu_torch.ops import bulge_mma as M
+    t = _inputs(2, 16, 8, 16, 20, 72, cuda, seed=5)
+    x = t["x"].to(torch.bfloat16)
+    got = K.launch_stats(x, t["wT"].contiguous(), impl="wgmma")
+    want = M.packed_stats(x.cpu(), t["wT"].cpu())
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("bsz,groups", [(225, None), (450, 2)])
@@ -446,7 +487,7 @@ def test_bf16_fused_generator_runs_the_bf16_kernel(cuda, bn_eval):
                                  compute_dtype=torch.bfloat16)(x)
                  for net in (fused, plain))
     torch.cuda.synchronize()
-    assert K.impl_launches["mma_bf16"] > i0["mma_bf16"]
+    assert K.impl_launches["wgmma_bf16"] > i0["wgmma_bf16"]
     assert K.impl_launches["mma"] == i0["mma"]
     d = (torch.round(got * 255) - torch.round(want * 255)).abs()
     assert got.dtype == torch.float32 and (d > 2).float().mean() <= 0.05

@@ -188,6 +188,44 @@ def test_validate_bf16_starts_both_dtypes_from_one_set_of_weights(
     assert out[1].startswith("bfloat16 : G-PSNR ")
 
 
+@pytest.mark.parametrize("before", [(False, True), (True, False)])
+def test_validate_bf16_runs_under_deterministic_cudnn(monkeypatch, before):
+    """Both runs and both scores use cuDNN's deterministic algorithms with
+    autotuning off (two card runs then give the same verdict), and the
+    caller's two settings come back afterwards, also when the run raises."""
+    cudnn = torch.backends.cudnn
+    seen = []
+    build, score = validate_bf16.build_multi_step, validate_bf16.evaluate_slice
+
+    def spy_build(cfg):
+        seen.append(("build", cfg.compute_dtype, cudnn.deterministic,
+                     cudnn.benchmark))
+        return build(cfg)
+
+    def spy_score(*a, **kw):
+        seen.append(("eval", None, cudnn.deterministic, cudnn.benchmark))
+        return score(*a, **kw)
+
+    monkeypatch.setattr(validate_bf16, "build_multi_step", spy_build)
+    monkeypatch.setattr(validate_bf16, "evaluate_slice", spy_score)
+    monkeypatch.setattr(cudnn, "deterministic", before[0])
+    monkeypatch.setattr(cudnn, "benchmark", before[1])
+    with contextlib.redirect_stdout(io.StringIO()):
+        validate_bf16.run(steps=2, batch=4, device="cpu", k=2, ngf=4, ndf=8)
+    assert [s[:2] for s in seen] == [("build", "float32"), ("eval", None),
+                                     ("build", "bfloat16"), ("eval", None)]
+    assert all(s[2:] == (True, False) for s in seen)
+    assert (cudnn.deterministic, cudnn.benchmark) == before
+
+    def fail(cfg):
+        raise RuntimeError("runner refused")
+
+    monkeypatch.setattr(validate_bf16, "build_multi_step", fail)
+    with pytest.raises(RuntimeError, match="runner refused"):
+        validate_bf16.run(steps=2, batch=4, device="cpu", k=2, ngf=4, ndf=8)
+    assert (cudnn.deterministic, cudnn.benchmark) == before
+
+
 # ---- quality_protocol -------------------------------------------------------
 
 def _baseline_npz(path, jcfg, key):
