@@ -8,18 +8,24 @@ Phases, each fatal on failure:
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
      bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu — started together),
      timed, with the `-Xptxas -v` resource lines.
-  2. kernels: the fused bulge kernel (ops/bulge.py, csrc/bulge.cu), both its
-     implementations (the tensor-core one the paths run, and the earlier
-     fp32 FMA one), against its plain PyTorch version on the card
+  2. kernels: first the fp32 wgmma kernels' layout probe (two k-steps of
+     wgmma .tf32 on raw fp32 words: the result must be the product of the
+     words truncated to TF32, which pins the core-matrix layout and shows
+     how the tensor cores read an fp32 word).  Then the fused bulge kernel
+     (ops/bulge.py), each fp32 implementation that takes the shape (the
+     wgmma kernel of csrc/bulge_wgmma.cu the paths run, the mma.sync kernel
+     and the earlier FMA kernel of csrc/bulge.cu), against its plain
+     PyTorch version on the card
      (cuDNN with TF32 off), at the gray-3 serve shapes x (1,16,256,256),
      (4,16,1024,1024) and (1,16,2048,2048) (the pair's input at LR 32, 128
      and 256) and the eval batch (100,16,256,256), in all three BN
      statistics modes, with the fixture's
      layer-3/4 weights; then at the ragged and small geometries of
-     tests/test_torch_cuda.py and at 70,000 images.  Times per call for each
-     launch of each implementation, taken in turns (old, new, new, old), the
+     tests/test_torch_cuda.py, at ragged shapes the wgmma kernel takes (W
+     % 4 == 0) and at 70,000 images.  Times per call for each launch of each
+     implementation, taken in turns (fma, mma, wgmma, wgmma, mma, fma), the
      plain version and the cuDNN unfused composition; it is an error if
-     `bulge()`'s choice is the slower one.
+     `bulge()`'s choice is not the fastest.
   3. where a request's time goes: device time of one generator forward at
      LR 256x256, step by step (each layer, and the fused pair), fused and
      unfused, in both BN modes.
@@ -74,12 +80,13 @@ Phases, each fatal on failure:
  10. kernel: the bulge kernel at the overlap pipeline's shapes, with the
      overlap fixture's layer-3/4 weights (Ci 32, Cm 16, Co 32): x
      (225,32,32,32) pooled, (14400,32,32,32) running and grouped by 225;
-     both implementations, timed in turns.
+     all three fp32 implementations, timed in turns.
  11. path: `python -m dcgan_sr_tpu_torch.bench_fused --kernel nhwc` and
      `--kernel bulge` as subprocesses at the default batch 100, hw 256,
      fp32; the JSON line parsed, max_abs_diff held to the y tolerance, the
      launch counts on the line before it moved from 0, every launch by the
-     tensor-core implementation (the line before that).
+     tensor-core implementation the shape gets (K3: mma.sync; K2: wgmma;
+     the line before that).
  12. path: the overlap pipeline (infer/tiled.py make_overlap_sr_fn) for
      gray-patch-batch-overlap at full width from its fixture, 64 images of
      64x64 from a seed, per-image-tile BN and running-stats BN, fused
@@ -87,15 +94,19 @@ Phases, each fatal on failure:
      the device seam stitch equal to the host replay on the fused tiles bit
      for bit in both seam modes; lr_input on the degraded images giving the
      same input tiles bit for bit and the same output tiles to 1e-5; where the pipeline's time goes, stage by stage, at this
-     batch and at one LR 256x256 image; MP/s of both BN modes from
-     bench_infer.measure (random-init weights from a seed); the patch
-     generator's forward at 14,400 tiles, layer by layer.
+     batch and at one LR 256x256 image, and the pipeline with the pair by
+     each fp32 kernel in turns; MP/s of both BN modes from
+     bench_infer.measure (random-init weights from a seed; every fp32
+     launch by the wgmma kernel), then with the pair by the mma.sync and
+     wgmma kernels in turns; the patch generator's forward at 14,400 tiles,
+     layer by layer.
  13. path: `python -m dcgan_sr_tpu_torch.serve --config
      gray-patch-batch-overlap --ckpt fixtures/overlap_textured_net_G.npz`,
      with --parity-bn and default: 2x requests at LR 32x32, 100x72 and
      256x256, one restore request, one 8-way burst, then timed requests at
      LR 64x64 and 256x256.  Every response is held against the fuse=False
-     pipeline on the card; /healthz must show bulge_main moved from 0.
+     pipeline on the card; /healthz must show bulge_main moved from 0, every
+     launch by the fp32 wgmma kernel (as in phase 4).
      `python -m dcgan_sr_tpu_torch.upscale --mode overlap` and `--mode
      grid` (graypatch fixture) each write one image.
  14. kernel: K2 in bf16 (x, weights, h fed to the second product and y in
@@ -158,7 +169,8 @@ Phases, each fatal on failure:
      overlap fixture (evaluate_overlap_slice, 100 images, running
      statistics; per-image tiles on the card only), PSNR within 1e-3 dB and
      SSIM within 1e-4 of the CPU's plain path, seam > naive > bilinear on
-     the card, eval images/s, K2's launches.
+     the card, eval images/s, K2's launches (every one by the fp32 wgmma
+     kernel).
  21. kernel: the channels-last pair's bf16 instantiation (x, the packed
      weights, the planes fed to the second product and y in bf16) against
      its plain bf16 version at the three channel triples, ragged shapes and
@@ -256,9 +268,11 @@ Phases, each fatal on failure:
      twin trained 3 epochs of 2000 images).  Each tool's K1 and K2
      launches go into the kernels line.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
-     modes, K2 stats, K2 main (with their eval launches and times at the
-     eval shape), K2 stats bf16, K2 main bf16 (the wgmma kernel the paths
-     run, with the mma.sync kernel's times in turns), K3 stats, K3 main, K3
+     modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
+     the mma.sync and FMA kernels' times in turns, their eval launches and
+     times at the eval shape), K2 stats bf16, K2 main bf16 (the wgmma kernel
+     the paths run, with the mma.sync kernel's times in turns), K3 stats,
+     K3 main, K3
      stats bf16, K3 main bf16), then the contract line {"ok": true,
      "device": {...}}.
 
@@ -412,12 +426,13 @@ def bound(flops, nbytes, peak=PEAK_FP32):
 
 
 def in_turns(fns, iters):
-    """Times of {name: fn} taken in turns inside this process: first, second,
-    second, first.  Returns ({name: mean ms of its two turns}, {name: the
-    better of the two})."""
-    (a, fa), (b, fb) = fns.items()
-    got = {a: [], b: []}
-    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+    """Times of {name: fn} taken in turns inside this process: in order,
+    then in reverse (first, second, second, first; or first, second, third,
+    third, second, first).  Returns ({name: mean ms of its two turns},
+    {name: the better of the two})."""
+    order = list(fns.items())
+    got = {name: [] for name, _ in order}
+    for name, fn in order + order[::-1]:
         got[name].append(time_ms(fn, iters))
     return ({k: sum(v) / 2 for k, v in got.items()},
             {k: min(v) for k, v in got.items()})
@@ -427,19 +442,30 @@ def _close(a, b, tol):
     return bool(((a - b).abs() <= tol + tol * b.abs()).all())
 
 
+def takes(K, impl, x, wT, wC):
+    """Does implementation `impl` take these inputs (ops/bulge.py's static
+    checks: its triples, and the wgmma kernel's tensor map)?"""
+    try:
+        K._impl_for(impl, x, wT, wC)
+    except ValueError:
+        return False
+    return True
+
+
 def hold_pair(K, args, mode, run, groups, label, step=None):
-    """bulge() with each implementation against the plain version on the
-    same inputs (in slices of `step` images where the unfused hidden tensor
-    of the whole batch would not fit), within the y and statistics
-    tolerances.  Returns {impl: (max |dy|, max |dstats|)}."""
+    """bulge() with each implementation that takes the shape against the
+    plain version on the same inputs (in slices of `step` images where the
+    unfused hidden tensor of the whole batch would not fit), within the y
+    and statistics tolerances.  Returns {impl: (max |dy|, max |dstats|)}."""
     import torch
     x = args[0]
     bsz = x.shape[0]
     step = step or bsz
+    impls = [i for i in K.IMPLS if takes(K, i, x, args[1], args[4])]
     got = {impl: K.bulge(*args, stats=mode, running=run, groups=groups,
-                         impl=impl) for impl in K.IMPLS}
+                         impl=impl) for impl in impls}
     torch.cuda.synchronize()
-    err = {impl: [0.0, 0.0] for impl in K.IMPLS}
+    err = {impl: [0.0, 0.0] for impl in impls}
     per = bsz // groups if groups else None
     for i in range(0, bsz, step):
         sl = slice(i, min(i + step, bsz))
@@ -481,14 +507,19 @@ def hold_pair(K, args, mode, run, groups, label, step=None):
 # beyond 65,535 images: (B, Ci, Cm, Co, H, W)
 RAGGED = [(2, 16, 8, 16, 37, 45), (1, 8, 4, 8, 16, 20),
           (1, 32, 16, 32, 24, 40), (3, 16, 8, 16, 1, 3),
-          (70000, 8, 4, 8, 16, 16)]
+          (70000, 8, 4, 8, 16, 16),
+          # shapes the fp32 wgmma kernel takes (W % 4 == 0), cut by the
+          # image's edge at both its band heights, and 70,000 images
+          (2, 16, 8, 16, 37, 44), (3, 16, 8, 16, 1, 4),
+          (2, 32, 16, 32, 21, 36), (70000, 16, 8, 16, 8, 16)]
 
 
 def pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar, iters,
                per_image=True):
-    """ms per call at one shape: each launch of each implementation taken in
-    turns (old, new, new, old), the pair through `bulge()`, the plain version
-    and the stock-PyTorch composition, with both bounds."""
+    """ms per call at one shape: each launch of each implementation that
+    takes the shape, in turns (fma, mma, wgmma, wgmma, mma, fma), the pair
+    through `bulge()`, the plain version and the stock-PyTorch composition,
+    with both bounds."""
     import torch
     import torch.nn.functional as F
 
@@ -504,19 +535,20 @@ def pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar, iters,
         lib_pair_run = lambda: F.conv2d(F.relu(F.batch_norm(  # noqa: E731
             F.conv_transpose2d(x, wT, stride=2, padding=1), rmean, rvar,
             scale, bias, training=False)), wC, stride=2, padding=1)
+        impls = [i for i in K.IMPLS[::-1] if takes(K, i, x, wT, wC)]
         st, st_best = in_turns(
             {impl: (lambda impl=impl: K.launch_stats(x, wT, impl))
-             for impl in ("fma", "mma")}, iters)
+             for impl in impls}, iters)
         mn, mn_best = in_turns(
             {impl: (lambda impl=impl: K.launch_main(
-                x, wT, wC, mu, gain, bias, impl)) for impl in ("fma", "mma")},
+                x, wT, wC, mu, gain, bias, impl)) for impl in impls},
             iters)
         chosen = K.choose_impl(ci, cm, co, h, w)
         r = {
             "impl": chosen,
             "stats_ms": st[chosen], "main_ms": mn[chosen],
-            "stats_fma_ms": st["fma"], "stats_mma_ms": st["mma"],
-            "main_fma_ms": mn["fma"], "main_mma_ms": mn["mma"],
+            **{f"stats_{i}_ms": st[i] for i in impls},
+            **{f"main_{i}_ms": mn[i] for i in impls},
             "pair_run_ms": time_ms(lambda: K.bulge(
                 x, wT, scale, bias, wC, stats="running",
                 running=(rmean, rvar)), iters),
@@ -544,7 +576,7 @@ def pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar, iters,
                   + 2 * b * cm + cm)
     # the kernel's own rate (three TF32 products per fp32 product), and the
     # fp32 FMA rate the FMA kernel's rows were held to
-    peak = PEAK_3XTF32 if chosen == "mma" else PEAK_FP32
+    peak = PEAK_3XTF32 if chosen in ("wgmma", "mma") else PEAK_FP32
     r["stats_bound"] = bound(f_stats, b_stats, peak)
     r["main_bound"] = bound(f_main, b_main, peak)
     r["stats_bound_fp32_fma"] = bound(f_stats, b_stats)
@@ -581,9 +613,10 @@ def kernel_phase(params, state):
     rmean, rvar = t(state[3]["bn"]["mean"]), t(state[3]["bn"]["var"])
     gen = torch.Generator(device=dev).manual_seed(0)
     err = {"bulge_stats": 0.0, "bulge_main": 0.0}
+    tf32_probe_phase()
 
-    def note(e):
-        chosen = e[K.choose_impl(*pair, 0, 0)]
+    def note(e, hw):
+        chosen = e[K.choose_impl(*pair, *hw)]
         err["bulge_main"] = max(err["bulge_main"], chosen[0])
         err["bulge_stats"] = max(err["bulge_stats"], chosen[1])
 
@@ -594,7 +627,7 @@ def kernel_phase(params, state):
         for mode in K.STATS_MODES:
             run = (rmean, rvar) if mode == "running" else None
             note(hold_pair(K, (x, wT, scale, bias, wC), mode, run, None,
-                           str(shape)))
+                           str(shape)), shape[2:])
         r = pair_times(K, N, x, wT, wC, scale, bias, rmean, rvar,
                        50 if shape[0] * shape[2] <= 256 else 5)
         print(f"times {shape}: " + _fmt(r), flush=True)
@@ -613,10 +646,46 @@ def kernel_phase(params, state):
         for mode in (("running",) if bsz > 65535 else K.STATS_MODES):
             note(hold_pair(K, a, mode, run if mode == "running" else None,
                            None, str((bsz, ci, cm, co, h, w)),
-                           step=35000 if bsz > 65535 else None))
+                           step=35000 if bsz > 65535 else None), (h, w))
         del a
         torch.cuda.empty_cache()
     return err, rows
+
+
+def tf32_probe_phase():
+    """The fp32 wgmma kernels' layout test on the card (ops/bulge.py
+    tf32_probe): two k-steps of m64n32k8 .tf32 on raw fp32 words, A from
+    registers, B in to_wgmma_tf32's layout.  The result must be the product
+    of the operands truncated to TF32 (a & 0xffffe000) to fp32 accuracy:
+    that pins the core-matrix layout and k-step offset the kernels use, and
+    answers how the tensor cores read an fp32 word (truncation, not
+    rounding to nearest; the kernels store hi truncated either way)."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import bulge_mma as M
+
+    rng = np.random.RandomState(13)
+    a = torch.tensor(rng.randn(64, 16), dtype=torch.float32)
+    b = torch.tensor(rng.randn(16, 32), dtype=torch.float32)
+    packed = torch.from_numpy(M.to_wgmma_tf32(b.numpy()).copy())
+    d = K.tf32_probe(a.cuda(), packed.cuda()).cpu().double()
+
+    def rounded(v):
+        u = v.numpy().view(np.uint32).astype(np.int64)
+        u = ((u + 0x1000) & ~0x1FFF) & 0xFFFFFFFF
+        return torch.from_numpy(u.astype(np.uint32).view(np.float32)).double()
+    dt = (d - M.trunc_tf32(a).double() @ M.trunc_tf32(b).double()).abs().max()
+    dn = (d - rounded(a) @ rounded(b)).abs().max()
+    dx = (d - a.double() @ b.double()).abs().max()
+    print(f"tf32 layout probe: max |d - truncated product| {dt.item():.3e}, "
+          f"|d - rounded product| {dn.item():.3e}, |d - fp64 product| "
+          f"{dx.item():.3e}: wgmma reads an fp32 word as "
+          f"{'its truncation' if dt < 1e-5 else 'something else'}",
+          flush=True)
+    check(dt < 1e-5 and dn > 1e-3, "the tf32 wgmma layout probe disagrees "
+          "with the layout or the truncation the fp32 kernels assume")
 
 
 # ---------------------------------------------------------------------------
@@ -867,7 +936,7 @@ def serve_phase(cfg, parity, ref_service, server, timed=((256, 256),),
               f"pixels off by more than {levels}, launches after the first "
               f"/healthz {counts}, by implementation {by_impl}, batch_ms "
               f"p50 {hz['batch_ms_p50']}", flush=True)
-        mine = "wgmma_bf16" if bf16 else "mma"
+        mine = "wgmma_bf16" if bf16 else "wgmma"
         check(by_impl[mine] > 0 and all(v == 0 for k, v in by_impl.items()
                                         if k != mine),
               f"the served path ran {by_impl}")
@@ -1463,10 +1532,12 @@ def bench_fused_phase():
         for n in names:
             check(counts[n] > 0, f"bench_fused --kernel {kernel} did not "
                   f"launch {n}: {counts}")
-        # at Ci 16 / Cm 8 / Co 16 both pairs run on the tensor cores
+        # at Ci 16 / Cm 8 / Co 16 both pairs run on the tensor cores: K3 by
+        # its mma.sync kernel, K2 by its wgmma kernel
         mine = by_impl["fused_nhwc" if kernel == "nhwc" else "bulge"]
-        check(mine["mma"] == counts[names[0]] + counts[names[1]]
-              and mine["fma"] == 0,
+        want = "mma" if kernel == "nhwc" else "wgmma"
+        check(mine[want] == counts[names[0]] + counts[names[1]]
+              and sum(mine.values()) == mine[want],
               f"bench_fused --kernel {kernel} launched {by_impl}")
         print(f"bench_fused --kernel {kernel}: " + json.dumps(rec)
               + " launches " + json.dumps(counts) + " by implementation "
@@ -1524,7 +1595,7 @@ def overlap_breakdown(cfg, net, images, bn_eval, lr_input):
     return {k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()}
 
 
-def overlap_phase(cfg, fused, plain, smi, fused_fma):
+def overlap_phase(cfg, fused, plain, smi, fused_fma, fused_mma):
     import numpy as np
     import torch
 
@@ -1617,12 +1688,16 @@ def overlap_phase(cfg, fused, plain, smi, fused_fma):
                 fine_hw = tuple(d * (2 if lr_in else 1) for d in batch.shape[-2:])
                 fns = {impl: make_overlap_sr_fn(cfg, net, fine=fine_hw,
                                                 bn_eval=bn_eval, lr_input=lr_in)
-                       for impl, net in (("fma", fused_fma), ("mma", fused))}
+                       for impl, net in (("fma", fused_fma),
+                                         ("mma", fused_mma),
+                                         ("wgmma", fused))}
                 t, _ = in_turns({k: (lambda f=f: f(batch))
                                  for k, f in fns.items()}, 5)
                 print(f"overlap pipeline, {label}, {name}, pair by the FMA "
-                      f"kernel {t['fma']:.4f} ms, by the tensor-core kernel "
-                      f"{t['mma']:.4f} ms (in turns), on {smi}", flush=True)
+                      f"kernel {t['fma']:.4f} ms, by the mma.sync kernel "
+                      f"{t['mma']:.4f} ms, by the wgmma kernel (the "
+                      f"default) {t['wgmma']:.4f} ms (in turns), on {smi}",
+                      flush=True)
         one = torch.rand((1, 256, 256), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(6))
         print(f"overlap breakdown, one LR 256x256 image, {name} (ms) on {smi}: "
@@ -1637,8 +1712,13 @@ def overlap_phase(cfg, fused, plain, smi, fused_fma):
             K.impl_launches[k] = 0
         rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda",
                                          steps=10, dtype="fp32")
-        check(rec["value"] > 0 and K.launches["bulge_main"] > 0,
-              f"bench_infer: {rec}, launches {K.launches}")
+        fp32 = K.launches["bulge_stats"] + K.launches["bulge_main"]
+        check(rec["value"] > 0 and K.launches["bulge_main"] > 0
+              and K.impl_launches["wgmma"] == fp32
+              and sum(K.impl_launches.values()) == fp32,
+              f"bench_infer: {rec}, launches {K.launches}, by "
+              f"implementation {K.impl_launches} (every fp32 launch by the "
+              f"wgmma kernel)")
         for k in counts:
             counts[k] += K.launches[k]
         print(f"bench_infer on {smi}: " + json.dumps(rec) + " launches "
@@ -1646,6 +1726,18 @@ def overlap_phase(cfg, fused, plain, smi, fused_fma):
               + json.dumps(K.impl_launches) + "; before the tensor-core "
               f"kernel: {EARLIER['bench_infer_mp_s'][bn_eval]} MP/s",
               flush=True)
+    # the same measurement with the pair by each fp32 tensor-core kernel by
+    # name, in turns (mma, wgmma, wgmma, mma): comparison runs, not counted
+    for bn_eval in (False, True):
+        got = {"mma": [], "wgmma": []}
+        for impl in ("mma", "wgmma", "wgmma", "mma"):
+            got[impl] += bench_infer.measure(bn_eval=bn_eval, reps=3,
+                                             steps=10, bulge_impl=impl,
+                                             dtype="fp32")
+        print(f"bench_infer fp32 {'bn_eval' if bn_eval else 'parity BN'}, "
+              f"pair by each kernel in turns (MP/s, 2 x 3 repetitions) on "
+              f"{smi}: " + json.dumps({k: [round(v, 3) for v in vs]
+                                       for k, vs in got.items()}), flush=True)
     return counts
 
 
@@ -2153,7 +2245,8 @@ def bf16_bench_phase(smi):
               and K.launches["bulge_main_bf16"] > 0
               and K.impl_launches["wgmma_bf16"] > 0
               and K.impl_launches["mma_bf16"] == 0
-              and K.impl_launches["mma"] == K.impl_launches["fma"] == 0,
+              and K.impl_launches["mma"] == K.impl_launches["fma"] == 0
+              and K.impl_launches["wgmma"] == 0,
               f"bench_infer bf16: {rec}, launches {K.launches}, by "
               f"implementation {K.impl_launches}")
         for k in counts:
@@ -2187,7 +2280,8 @@ def bf16_bench_phase(smi):
           and by_impl["bulge"]["wgmma_bf16"] == fused_counts["bulge_stats_bf16"]
           + fused_counts["bulge_main_bf16"]
           and by_impl["bulge"]["mma_bf16"] == 0
-          and by_impl["bulge"]["mma"] == by_impl["bulge"]["fma"] == 0,
+          and by_impl["bulge"]["mma"] == by_impl["bulge"]["fma"] == 0
+          and by_impl["bulge"]["wgmma"] == 0,
           f"bench_fused bf16 launched {fused_counts}, {by_impl}")
     print(f"bench_fused --kernel bulge --dtype bf16 on {smi}: "
           + json.dumps(rec) + " launches " + json.dumps(fused_counts),
@@ -2523,15 +2617,19 @@ def eval_phase(smi):
     t0 = time.perf_counter()
     r_cpu = evaluate_slice(cfg, cpu, src, sets[:1], batch_size=100)
     cpu_wall = time.perf_counter() - t0
-    for k in K.launches:
-        K.launches[k] = 0
+    for d in (K.launches, K.impl_launches):
+        for k in d:
+            d[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r_all = evaluate_slice(cfg, card, src, sets, batch_size=100)
     wall = time.perf_counter() - t0
     launches = dict(K.launches)
     check(launches["bulge_stats"] == len(sets) and launches["bulge_main"]
-          == len(sets), f"the eval launched K2 {launches}")
+          == len(sets) and K.impl_launches["wgmma"] == 2 * len(sets)
+          and sum(K.impl_launches.values()) == 2 * len(sets),
+          f"the eval launched K2 {launches}, by implementation "
+          f"{K.impl_launches} (every one by the fp32 wgmma kernel)")
     total = dict(launches)
     fields = ("psnr_bilinear", "psnr_generator", "ssim_bilinear",
               "ssim_generator")
@@ -2560,16 +2658,21 @@ def eval_phase(smi):
     for bn_eval in (True, False):       # the CPU holds the claim's mode
         evaluate_overlap_slice(ocfg, card, src, sets, batch_size=100,
                                bn_eval=bn_eval)                # warm
-        for k in K.launches:
-            K.launches[k] = 0
+        for d in (K.launches, K.impl_launches):
+            for k in d:
+                d[k] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = evaluate_overlap_slice(ocfg, card, src, sets, batch_size=100,
                                     bn_eval=bn_eval)
         wall = time.perf_counter() - t0
         ol = dict(K.launches)
-        check(ol["bulge_main"] > 0 and (ol["bulge_stats"] > 0) != bn_eval,
-              f"the overlap eval launched K2 {ol}")
+        fp32 = ol["bulge_stats"] + ol["bulge_main"]
+        check(ol["bulge_main"] > 0 and (ol["bulge_stats"] > 0) != bn_eval
+              and K.impl_launches["wgmma"] == fp32
+              and sum(K.impl_launches.values()) == fp32,
+              f"the overlap eval launched K2 {ol}, by implementation "
+              f"{K.impl_launches}")
         for k in ("bulge_stats", "bulge_main"):
             total[k] += ol[k]
         d = None
@@ -4439,7 +4542,8 @@ def main():
     oplain = Network(ospec, oparams, ostate, device="cuda", fuse=False)
     pipe_counts = overlap_phase(
         ocfg, ofused, oplain, smi,
-        Network(ospec, oparams, ostate, device="cuda", bulge_impl="fma"))
+        Network(ospec, oparams, ostate, device="cuda", bulge_impl="fma"),
+        Network(ospec, oparams, ostate, device="cuda", bulge_impl="mma"))
     for k in launches:
         launches[k] += pipe_counts[k]
     # where the patch generator's time goes at the bulk batch, layer by layer
@@ -4582,31 +4686,38 @@ def main():
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
     kernels = []
+    # K2 in fp32: the paths run the wgmma kernel (phases 4, 11, 12, 13 and
+    # 19 hold every fp32 launch of theirs to it); the mma.sync and FMA
+    # kernels' times in turns beside it
     for name, line, key, plain_key, lib_key in (
             ("bulge_stats", 159, "stats", "plain_stats_ms", "lib_stats_ms"),
             ("bulge_main", 206, "main", "plain_main_ms", "lib_main_ms")):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "dcgan_sr_tpu_torch/csrc/bulge.cu",
+            "source": "dcgan_sr_tpu_torch/csrc/bulge_wgmma.cu",
             "replaces": f"dcgan_sr_tpu/ops/pallas_bulge.py:{line}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": r[f"{key}_ms"], "plain_ms": r[plain_key],
             "bound_ms": r[f"{key}_bound"][0],
             "bound_by": r[f"{key}_bound"][1],
             "library_ms": r[lib_key], "shape": list(shape),
-            "impl": r["impl"], "fma_ms": r[f"{key}_fma_ms"],
+            "impl": r["impl"], "mma_ms": r[f"{key}_mma_ms"],
+            "mma_source": "dcgan_sr_tpu_torch/csrc/bulge.cu",
+            "fma_ms": r[f"{key}_fma_ms"],
             "bound_fp32_fma_ms": r[f"{key}_bound_fp32_fma"][0],
             "eval_launches": eval_launches[name],
             "tools_launches": {t: c[name] for t, c in tool_launches.items()
                                if c[name]},
             "at_eval_shape": {
                 "shape": list(EVAL_SHAPE), "ms": eval_row[f"{key}_ms"],
+                "mma_ms": eval_row[f"{key}_mma_ms"],
                 "bound_ms": eval_row[f"{key}_bound"][0],
                 "bound_by": eval_row[f"{key}_bound"][1],
                 "plain_ms": eval_row[plain_key],
                 "library_ms": eval_row[lib_key]},
             "at_overlap_shapes": [
                 {"shape": list(sh), "ms": ro[f"{key}_ms"],
+                 "mma_ms": ro[f"{key}_mma_ms"],
                  "fma_ms": ro[f"{key}_fma_ms"],
                  "bound_ms": ro[f"{key}_bound"][0],
                  "bound_by": ro[f"{key}_bound"][1],

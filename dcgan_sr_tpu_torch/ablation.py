@@ -4,6 +4,7 @@ launches.
 
   python -m dcgan_sr_tpu_torch.ablation --kernel bulge [--iters 10]
   python -m dcgan_sr_tpu_torch.ablation --kernel bulge_wgmma [--iters 10]
+  python -m dcgan_sr_tpu_torch.ablation --kernel bulge_wgmma_f32 [--iters 10]
   python -m dcgan_sr_tpu_torch.ablation --kernel nhwc [--batch 100]
          [--hw 256] [--tm 32] [--iters 10]
 
@@ -37,6 +38,27 @@ run).
                   address math remain
     skeleton_no_tma  skeleton without the TMA load: the producer arrives
                   on the full barrier itself
+
+  --kernel bulge_wgmma_f32: csrc/bulge_wgmma.cu's fp32 kernel (namespace
+  wgf, 3xTF32 on wgmma; the fp32 paths run it), at x (1,16,2048,2048),
+  (100,16,256,256) and (14400,32,32,32).  It has no K-major copy of x (the
+  lanes load A from the TMA box into registers), so `no_a_loads` is the
+  variant that takes x's way to the tensor cores out.
+    base          the source as it is
+    one_pass      one TF32 product a product (hi*hi) instead of three: no
+                  split (the result is off by about 1e-3)
+    no_wgmma      no wgmma.mma_async (A is still loaded and split)
+    no_a_loads    A's shared-memory loads left out (its split and the
+                  products stay)
+    no_hp_store   main: stage 1's epilogue stores no hidden plane
+    no_y_store    main: no y store to device memory
+    no_stage2     main: stage 2 left out (stage 1, its epilogue and the
+                  barriers stay)
+    skeleton      no_wgmma, no_a_loads, no_hp_store and no_y_store together:
+                  the TMA loads, the barriers, the split and the epilogues'
+                  arithmetic remain
+    skeleton_no_tma  skeleton without the TMA load: the issuing thread
+                  arrives on the full barrier itself
 
   --kernel nhwc: csrc/fused_nhwc.cu's fp32 kernel (namespace tc), at
   bench_fused's shape (--batch, 16, --hw, --hw), row bands of --tm
@@ -92,11 +114,12 @@ _K2_VARIANTS = {
 }
 
 
-def _k2_cases(args, torch, rng, dev, impl="mma"):
+def _k2_cases(args, torch, rng, dev, impl="mma", dtype=None,
+              shapes=((1, 16, 2048, 2048), (14400, 32, 32, 32))):
     cases = {}
-    for b, ci, h, w in ((1, 16, 2048, 2048), (14400, 32, 32, 32)):
+    for b, ci, h, w in shapes:
         cm = ci // 2
-        x = torch.rand((b, ci, h, w), device=dev).to(torch.bfloat16)
+        x = torch.rand((b, ci, h, w), device=dev).to(dtype or torch.bfloat16)
         wT, wC = (torch.tensor(0.05 * rng.randn(ci, cm, 4, 4),
                                dtype=torch.float32, device=dev)
                   for _ in range(2))
@@ -117,6 +140,12 @@ def _k2_mma_cases(args, torch, rng, dev):
 
 def _k2_wgmma_cases(args, torch, rng, dev):
     return _k2_cases(args, torch, rng, dev, "wgmma")
+
+
+def _k2_wgmma_f32_cases(args, torch, rng, dev):
+    return _k2_cases(args, torch, rng, dev, "wgmma", torch.float32,
+                     ((1, 16, 2048, 2048), (100, 16, 256, 256),
+                      (14400, 32, 32, 32)))
 
 
 # ---- K2 in bf16 on Hopper's units (csrc/bulge_wgmma.cu) ---------------------
@@ -162,6 +191,44 @@ _WG_VARIANTS["skeleton_no_tma"] = _WG_VARIANTS["skeleton"] + [(
     tma_load_box(smem + o_ring + slot * al128(BOX), map, &full[slot],
                  m.c0 - XO - 1, m.r0 - 1, m.b);""", """    mbar_arrive(&full[slot]);
     (void)m; (void)map;""")]
+
+
+# ---- K2 in fp32 on Hopper's units (csrc/bulge_wgmma.cu namespace wgf) -------
+
+_WF_PRODUCTS = """      Tf32<N>::run(d[u], al[s][kk], bh);
+      Tf32<N>::run(d[u], ah[s][kk], bl);
+      Tf32<N>::run(d[u], ah[s][kk], bh);"""
+_WF_VARIANTS = {
+    "base": [],
+    "one_pass": [(_WF_PRODUCTS, _WF_PRODUCTS.split("\n")[2])],
+    "no_wgmma": [(_WF_PRODUCTS, "      d[u][kk % (N / 2)] += __uint_as_float("
+                  "al[s][kk][0] ^ al[s][kk][1] ^ al[s][kk][2] ^ "
+                  "al[s][kk][3] ^ ah[s][kk][0] ^ ah[s][kk][1] ^ "
+                  "ah[s][kk][2] ^ ah[s][kk][3] ^ (uint32_t)(bh ^ bl));")],
+    "no_a_loads": [("      load(u, (c % CPU) * KC + kk, v);",
+                    "      v[0] = v[1] = v[2] = v[3] = __int_as_float("
+                    "0x3f800000 + c * KC + kk);")],
+    "no_hp_store": [("""          *reinterpret_cast<float2*>(
+              hp + ((par * CG + cg) * Gm::NPOS + q) * 8 + 2 * t) = o;""",
+                     "          if (o.x == 123.f && o.y == 77.f) "
+                     "hp[0] = 1.f;")],
+    "no_y_store": [("""                  yp[(size_t)(8 * j2 + 2 * t + c) * H * W] =
+                      d[4 * j2 + 2 * i + c];""",
+                    "                  if (d[4 * j2 + 2 * i + c] == 123.f) "
+                    "yp[0] = 1.f;")],
+    "no_stage2": [("    chain<N2, K2S, KC, U2, LBO2, (uint32_t)S::W2P>(",
+                   "    if (n_items < 0) chain<N2, K2S, KC, U2, LBO2, "
+                   "(uint32_t)S::W2P>(")],
+    "skeleton": None, "skeleton_no_tma": None,
+}
+_WF_VARIANTS["skeleton"] = [
+    sub for name in ("no_wgmma", "no_a_loads", "no_hp_store", "no_y_store")
+    for sub in _WF_VARIANTS[name]]
+_WF_VARIANTS["skeleton_no_tma"] = _WF_VARIANTS["skeleton"] + [(
+    """  wg::mbar_expect_tx(bar, bytes);
+  wg::tma_load_box(dst, map, bar, m.c0 - XO - 1, m.r0 - 1, m.b);""",
+    """  wg::mbar_arrive(bar);
+  (void)m; (void)map; (void)dst; (void)bytes;""")]
 
 
 # ---- K3 (csrc/fused_nhwc.cu), the fp32 tensor-core kernel -----------------
@@ -254,6 +321,11 @@ KERNELS = {
                           "_ZN2wg", _WG_VARIANTS,
                           ("HGMMA", "LDSM", "STSM", "UTMALDG", "SYNCS",
                            "BAR", "STG.E.128", "F2FP"), _k2_wgmma_cases),
+    "bulge_wgmma_f32": Kernel("bulge_wgmma.cu", K2, "_wlib", "build_wgmma",
+                              "_ZN3wgf", _WF_VARIANTS,
+                              ("HGMMA", "LDS.64", "LDS ", "STS.64",
+                               "UTMALDG", "SYNCS", "BAR", "STG.E ", "LOP3",
+                               "FADD"), _k2_wgmma_f32_cases),
     "nhwc": Kernel("fused_nhwc.cu", K3, "_lib", "build", "_ZN2tc",
                    _K3_VARIANTS, ("HMMA", "LDS.64", "LDS ", "STS.64", "LOP3",
                                   "FADD", "LDGSTS", "STG.E.64", "BAR"),

@@ -1,6 +1,7 @@
-// Fused convT(k4s2p1) + BatchNorm + ReLU + conv(k4s2p1) in bf16, built on
-// Hopper's own units (sm_90a): TMA under mbarrier rings, wgmma.mma_async,
-// ldmatrix/stmatrix.
+// Fused convT(k4s2p1) + BatchNorm + ReLU + conv(k4s2p1) in bf16 (namespace
+// wg, this header) and in fp32 (namespace wgf, its own header further
+// down), built on Hopper's own units (sm_90a): TMA under mbarrier rings,
+// wgmma.mma_async, ldmatrix/stmatrix.
 //
 // Replaces the TPU kernel dcgan_sr_tpu/ops/pallas_bulge.py fused_bulge_fwd
 // with bf16 x (_stats_kernel :159, _main_kernel :206): the generators'
@@ -96,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace wg {
 
@@ -1112,6 +1115,820 @@ int launch_stats(const void* x, const uint16_t* w1, float* partial, int B,
 
 }  // namespace wg
 
+// ============================================================================
+// fp32: the same pair at fp32 accuracy, 3xTF32 on wgmma (namespace wgf)
+// ============================================================================
+//
+// Replaces the TPU kernel dcgan_sr_tpu/ops/pallas_bulge.py fused_bulge_fwd
+// with fp32 x (_stats_kernel :159, _main_kernel :206), which the JAX package
+// runs at Precision.HIGHEST (pallas_bulge.py:93-97).  It computes what the
+// mma.sync kernel of csrc/bulge.cu (namespace tc) computes: every product
+// is three TF32 products, lo*hi + hi*lo + hi*hi with hi = a & 0xffffe000
+// and lo = a - hi, accumulated in fp32; statistics, BN and ReLU run in fp32
+// on the accumulators; one fp32 (sum, sum of squares) slot per stats work
+// item (band of 8 y rows, 32 y columns), no atomics, reduced by the host in
+// fp64 in a fixed order.  Any batch; ragged H and W are masked.
+//
+// Bounds on an H100 SXM (TF32 495 TFLOP/s dense, so 165 for 3xTF32; HBM
+// 3.35 TB/s): at x (14400,32,32,32) the stats launch is 241.6 GFLOP, 1.46
+// ms, the main launch 483 GFLOP, 2.93 ms, against 1.13 ms of bytes: both are
+// bound by the tensor cores' operations.  At x (1,16,2048,2048): 0.107 /
+// 0.211 ms.
+//
+// What the design does about it:
+// 1. Both products are wgmma.mma_async m64nNk8 .tf32 (on this card only
+//    wgmma reaches the TF32 peak; mma.sync issued 3.5 instructions a
+//    product).  tf32 takes no transpose, so B (the weights) is K-major in
+//    shared memory: core matrices of 8 n-rows x 4 k-values (16 bytes),
+//    leading byte offset N/8 * 128 (k), stride 128 (n) (ops/bulge_mma.py
+//    to_wgmma_tf32).  The host packs each weight as two planes, hi =
+//    tf32(w) (stored truncated, so how the tensor cores read an fp32 word
+//    does not matter to hi; the layout test tf32_probe pins it) and lo = w -
+//    hi.  W2's rows are permuted within each k-step, logical k (t, t+4) ->
+//    channels (2t, 2t+1), so stage 2 reads a lane's A pair as one 8-byte
+//    load.
+// 2. A comes from registers: each lane loads its four fp32 A values of a
+//    k-step from shared memory and splits them there (one AND and one
+//    subtraction a value), once per k-step of a 64-row tile, for the three
+//    products of N columns that follow.  There is no K-major copy of x: the
+//    lanes read the TMA box (NCHW) directly.  The box is 44 columns wide,
+//    from c0-4 (16 bytes, the innermost coordinate's alignment) to c0+39,
+//    so that a channel plane is 440 (R 8) or 264 (R 4) floats, 24 or 8 mod
+//    32: the four channels of a fragment load fall in disjoint banks (40
+//    columns, the least that covers c0-1 .. c0+32, would give 400 / 240,
+//    16 mod 32, and two-way conflicts).
+// 3. x arrives by TMA: one 4-D fp32 tensor map over NCHW x, one box an item,
+//    the halo and the image's edges zero-filled by the hardware, completing
+//    on a full mbarrier.  One consumer thread issues each load as soon as
+//    the box's last reader is done (an empty mbarrier in the stats kernel,
+//    the barrier after stage 1 in the main kernel), so no producer warp
+//    takes registers: ptxas allots registers by whole warpgroups, and a
+//    ninth warp cost a third of the consumers' registers (168 a thread,
+//    spills, serialized wgmma in the first design).
+// 4. Warpgroups that all consume: two in the stats kernel and at Ci 16,
+//    three in the main kernel at Ci 32.  A warpgroup's products are chains
+//    of chunks of KC k-steps with two A register sets alternating: chunk
+//    c+1 is loaded and issued before chunk c is waited for, and a finished
+//    tile's epilogue runs while the next tile's chunks run.
+//    Stats (R = 8): each warpgroup takes every other item of the block,
+//    stage 1 only, 5 m64 tiles of N = 4 Cm, one box each (a ring of 2).
+//    Main (R = 4 at Ci 32, 8 at Ci 16): all warpgroups work on every item,
+//    on one box and one set of hidden planes.  At Ci 32 three warpgroups
+//    take one stage-1 m64 tile each, whole (N = 4 Cm), and two of them one
+//    stage-2 tile each; the third starts its tile of the next item as soon
+//    as that item's box is in, while the other two run stage 2.  At Ci 16
+//    (two blocks share an SM) two warpgroups take 3 and 2 stage-1 tiles and
+//    2 stage-2 tiles each (bands of 16 rows with three warpgroups, or one
+//    block an SM with longer chunks, measured no faster or slower).  Whole
+//    tiles matter: a tile's A loads, splits and descriptors are the same
+//    whatever its N, and with column halves (the first design) they, not
+//    the tensor cores, bounded the kernel.  The hidden planes
+//    hp[par][cm/8][position][8] (fp32, normalised, rectified, zero outside
+//    the image) are written after a named barrier that all warpgroups pass
+//    when the last item's stage 2 has read them, and read after another;
+//    the item's BN gain and shift a column sit in a small table.  y leaves
+//    the registers as 32-byte runs (8 pixels of one channel a quarter
+//    warp).
+//
+// Band height and shared memory, bytes (Ci 32 / Cm 16 / Co 32; Ci 16 / Cm 8
+// / Co 16).  The hi and lo planes of W1 (4 Ci x 4 Cm) and W2 (16 Cm x Co)
+// take 65,536 + 65,536 / 16,384 + 16,384.  At R = 8 in the main kernel,
+// one box (10 x 44 x 32 floats, 56,320) and one set of hidden planes (4 x 16
+// x 297 floats, 76,032) do not fit beside them at Ci 32 (263,680 of
+// 232,448), so the main kernel takes bands of R = 4 there: 3 stage-1 m64
+// tiles for 165 positions (1.5x stage 1's useful work against 1.25x at
+// R = 8) and 2 stage-2 tiles.  (A cluster of two blocks, one a stage, was
+// the alternative; it would send the hidden planes through distributed
+// shared memory.)
+//   main, Ci 32, R 4:  W 131,072 + box 6 x 44 x 32 x 4 = 33,792 + hidden
+//                      planes 4 x 16 x 165 x 4 = 42,240 + BN table 512 +
+//                      barrier 8 = 207,624: one block of 12 warps an SM.
+//   main, Ci 16, R 8:  32,768 + 28,160 + 38,016 + 256 + 8 = 99,208: two
+//                      blocks.
+//   stats, R 8:        W1 65,536 / 16,384 + ring 2 x 56,320 / 2 x 28,160 +
+//                      per-warp sums 8,192 / 4,096 + barriers 32 = 186,400
+//                      (one block) / 76,800 (two blocks).
+//
+// The tensor map needs W a multiple of 4 (16-byte row strides) and x's base
+// 16-byte aligned; ops/bulge.py sends every other fp32 call to bulge.cu.
+
+namespace wgf {
+
+constexpr int TW = 32;            // y columns of a work item
+constexpr int XC = 44;            // box columns: x columns c0-4 .. c0+39
+constexpr int XO = 3;             // box column of x column c0-1
+constexpr int SR = 8;             // the stats kernel's band rows
+constexpr int NTH = 256;          // the stats kernel's two warpgroups
+static_assert((XC * 4) % 16 == 0 && (XO + 1) * 4 == 16 && XO + TW + 2 <= XC,
+              "box geometry: origin c0 - 4, a multiple of 4 columns");
+
+// The main kernel's band rows: 4 at Ci 32, where 8 rows' buffers do not fit.
+template <int CI>
+__host__ __device__ constexpr int main_rows() { return CI >= 32 ? 4 : 8; }
+// k-steps an A register set holds (two sets alternate): as many as the
+// registers take (ptxas -v: the stats kernel at Ci 32 uses all 255 at 4)
+template <int CI>
+__host__ __device__ constexpr int kchunk() { return CI >= 32 ? 4 : 2; }
+template <int CI>
+__host__ __device__ constexpr int main_kchunk() { return CI >= 32 ? 4 : 2; }
+// the main kernel's warpgroups: three at Ci 32 (one a stage-1 tile), two at
+// Ci 16 (two blocks an SM)
+template <int CI>
+__host__ __device__ constexpr int main_wgs() { return CI >= 32 ? 3 : 2; }
+
+template <int R>
+struct Geo {
+  static constexpr int XR = R + 2;              // box rows: r0-1 .. r0+R
+  static constexpr int PLANE = XR * XC;         // box floats a channel
+  static constexpr int PC = TW + 1;             // position columns
+  static constexpr int NPOS = (R + 1) * PC;     // positions of an item
+  static constexpr int M1T = (NPOS + 63) / 64;  // stage-1 m64 tiles
+  static constexpr int M2T = R * TW / 64;       // stage-2 m64 tiles
+  static_assert(PLANE % 32 == 8 || PLANE % 32 == 24,
+                "a fragment load's four channels in disjoint banks");
+};
+
+// Item idx -> (image, band of R rows, chunk), chunk fastest (ops/bulge_mma.py
+// Schedule(rows=R).item is the same map).  Every thread decodes every item
+// of its block, so the divisions are 32-bit where the index allows (a
+// 64-bit division is a long emulated sequence).
+template <int R>
+__device__ __forceinline__ wg::Item decode(long long idx, int nbands,
+                                           int nchunks) {
+  wg::Item it;
+  if (idx < 0x100000000LL) {
+    const uint32_t i = (uint32_t)idx, rest = i / (uint32_t)nchunks;
+    const uint32_t b = rest / (uint32_t)nbands;
+    it.c0 = (int)(i - rest * (uint32_t)nchunks) * TW;
+    it.b = (int)b;
+    it.r0 = (int)(rest - b * (uint32_t)nbands) * R;
+    return it;
+  }
+  const long long rest = idx / nchunks;
+  it.c0 = (int)(idx - rest * nchunks) * TW;
+  it.b = (int)(rest / nbands);
+  it.r0 = (int)(rest - (long long)it.b * nbands) * R;
+  return it;
+}
+
+// a = hi + lo exactly: hi keeps a's upper 19 bits (a TF32 value), lo is the
+// fp32 remainder, of which the tensor cores read a TF32 value in turn.
+__device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(a) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+// d (m64 x N, fp32) += a (m64 x k8, tf32, registers) * B (k8 x N, tf32,
+// shared memory at `b`, K-major).  Thread (warp w of the warpgroup, lane
+// g*4 + t) holds A[16w + g][t], A[16w+g+8][t], A[16w+g][t+4],
+// A[16w+g+8][t+4], as mma.m16n8k8 does for its warp.
+template <int N>
+struct Tf32;
+
+template <>
+struct Tf32<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Tf32<32> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Tf32<16> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "
+        "1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// Keeps a set of A registers live (and unmoved) up to this point: wgmma
+// reads them asynchronously until its group has completed.
+template <int KC>
+__device__ __forceinline__ void keep(uint32_t (&h)[KC][4],
+                                     uint32_t (&l)[KC][4]) {
+#pragma unroll
+  for (int ks = 0; ks < KC; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      asm volatile("" : "+r"(h[ks][e]), "+r"(l[ks][e])::"memory");
+}
+
+// U m64 x N products of this warpgroup, one after another: unit u is
+// d_u = A_u (m64 x 8 KS) @ B_u, each k-step three TF32 products (lo*hi,
+// hi*lo, hi*hi) into fp32 accumulators.  A comes from registers in chunks
+// of KC k-steps; two register sets alternate, so chunk c+1 is loaded and
+// issued before chunk c is waited for (two wgmma groups in flight), and
+// unit u's epilogue runs while the chunks after its last one run.
+// load(u, ks, v): the thread's four fp32 A values of k-step ks of unit u
+// (A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4] of its warp's 16 rows);
+// bstart(u): shared address of unit u's k-step 0 in B's hi plane (k-step ks
+// 2 * LBO bytes on, leading byte offset LBO, stride 128), whose lo plane
+// lies LO_OFF bytes on; epi(u, d): unit u's finished tile; loaded(): right
+// after the last A load (what A was read from may then be overwritten).
+// A k-step's descriptors are one integer add from the unit's.
+template <int N, int KS, int KC, int U, uint32_t LBO, uint32_t LO_OFF,
+          class Load, class BStart, class Epi, class Loaded>
+__device__ __forceinline__ void chain(Load load, BStart bstart, Epi epi,
+                                      Loaded loaded) {
+  static_assert(KS % KC == 0, "whole chunks");
+  constexpr int CPU = KS / KC, C = U * CPU;
+  float d[U][N / 2];
+  uint32_t ah[2][KC][4], al[2][KC][4];
+  auto fill = [&](int c) {
+    const int u = c / CPU, s = c & 1;
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      float v[4];
+      load(u, (c % CPU) * KC + kk, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(v[e], ah[s][kk][e], al[s][kk][e]);
+    }
+  };
+  auto issue = [&](int c) {
+    const int u = c / CPU, s = c & 1;
+    if (c % CPU == 0) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) d[u][i] = 0.f;
+    }
+    wg::fence_acc<N>(d[u]);
+    wg::wg_fence();
+    // the low word of the descriptor of k-step 0 (start address, leading
+    // byte offset); its high word is the stride, 128 bytes
+    const uint32_t d0 = wg::launder(
+        (uint32_t)wg::desc(bstart(u), LBO, 128));
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const uint32_t dh = d0 + (((c % CPU) * KC + kk) * 2 * LBO >> 4);
+      const uint64_t bh = (uint64_t)(128 >> 4) << 32 | dh;
+      const uint64_t bl = (uint64_t)(128 >> 4) << 32 | (dh + (LO_OFF >> 4));
+      Tf32<N>::run(d[u], al[s][kk], bh);
+      Tf32<N>::run(d[u], ah[s][kk], bl);
+      Tf32<N>::run(d[u], ah[s][kk], bh);
+    }
+    wg::wg_commit();
+  };
+  auto finish = [&](int c) {      // the epilogue of the unit chunk c ends
+    if (c % CPU == CPU - 1) {
+      wg::fence_acc<N>(d[c / CPU]);
+      epi(c / CPU, d[c / CPU]);
+    }
+  };
+  fill(0);
+  if (C == 1) loaded();
+  issue(0);
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    if (c >= 2) {
+      wg::wg_wait1();               // chunk c-2 complete: its set is free
+      keep<KC>(ah[c & 1], al[c & 1]);
+    }
+    fill(c);
+    if (c == C - 1) loaded();
+    issue(c);
+    if (c >= 2) finish(c - 2);
+  }
+  wg::wg_wait0();
+  keep<KC>(ah[0], al[0]);
+  keep<KC>(ah[1], al[1]);
+#pragma unroll
+  for (int c = C >= 2 ? C - 2 : 0; c < C; ++c) finish(c);
+}
+
+// Stage 1's A: row q of tile mt is position q = pi * PC + pj (the rows from
+// NPOS on are computed on position NPOS-1 and never used); k = tap*CI + ci,
+// tap = ti*2 + tj reads box[ci][pi + ti][XO + pj + tj].
+template <int CI, int R>
+__device__ __forceinline__ void load_x(const float* box, int mt, int ks,
+                                       int w, int g, int t, float (&a)[4]) {
+  using Gm = Geo<R>;
+  const int q0 = min(mt * 64 + 16 * w + g, Gm::NPOS - 1);
+  const int q1 = min(mt * 64 + 16 * w + g + 8, Gm::NPOS - 1);
+  const int b0 = (q0 / Gm::PC) * XC + q0 % Gm::PC + XO + t * Gm::PLANE;
+  const int b1 = (q1 / Gm::PC) * XC + q1 % Gm::PC + XO + t * Gm::PLANE;
+  const int kb = ks * 8, tap = kb / CI, ci0 = kb % CI;
+  const int off = ci0 * Gm::PLANE + (tap >> 1) * XC + (tap & 1);
+  a[0] = box[b0 + off];
+  a[1] = box[b1 + off];
+  a[2] = box[b0 + off + 4 * Gm::PLANE];
+  a[3] = box[b1 + off + 4 * Gm::PLANE];
+}
+
+// The x box of item idx into dst, completing on bar: one thread issues it,
+// once the box's last reader has released dst.
+template <int R>
+__device__ __forceinline__ void load_box(const CUtensorMap* map, void* dst,
+                                         uint64_t* bar, uint32_t bytes,
+                                         long long idx, int nbands,
+                                         int nchunks) {
+  const wg::Item m = decode<R>(idx, nbands, nchunks);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  wg::mbar_expect_tx(bar, bytes);
+  wg::tma_load_box(dst, map, bar, m.c0 - XO - 1, m.r0 - 1, m.b);
+}
+
+// ---- the stats kernel ----------------------------------------------------------
+
+template <int CI, int CM>
+struct StatsSmem {
+  static constexpr int STAGES = 2;
+  static constexpr size_t W1P = (size_t)16 * CI * CM * 4;  // a plane of W1
+  static constexpr size_t BOX = (size_t)CI * Geo<SR>::PLANE * 4;
+  // per warpgroup, two items: [warp][column][sum, sum of squares]
+  static constexpr size_t RED = (size_t)2 * 2 * 4 * 4 * CM * 2 * 4;
+  static constexpr size_t o_ring = wg::al128(2 * W1P);
+  static constexpr size_t o_red = o_ring + STAGES * wg::al128(BOX);
+  static constexpr size_t o_bar = o_red + wg::al128(RED);
+  static constexpr size_t bytes = o_bar + 8 * 2 * STAGES;
+};
+
+// partial[idx][0][cm] = sum, partial[idx][1][cm] = sum of squares of the
+// hidden cells item idx owns (even parities at local positions [0, 8) x
+// [0, 32), odd ones at [1, 8] x [1, 32], clipped to the image), in fp32 from
+// the fp32 accumulators.
+template <int CI, int CM>
+__global__ void __launch_bounds__(NTH, (CI <= 16 ? 2 : 1))
+stats_kernel(const __grid_constant__ CUtensorMap xmap,
+             const float* __restrict__ w1, float* __restrict__ partial, int H,
+             int W, int nbands, int nchunks, long long n_items) {
+  using S = StatsSmem<CI, CM>;
+  using Gs = Geo<SR>;
+  constexpr int N1 = 4 * CM, K1S = CI / 2, NJ = N1 / 8, KC = kchunk<CI>();
+  static_assert(CM % 8 == 0 && CI % 8 == 0, "channels");
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + S::o_red);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::o_bar);
+  uint64_t* empty = full + S::STAGES;
+
+  // the warp index through a shuffle, so that the compiler knows the role
+  // branches below to be warp-uniform
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  wg::stage_weights(smem, w1, (int)(2 * S::W1P), tid, NTH);
+  if (tid == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  // the first item of each warpgroup; warpgroup v refills its slot
+  if (tid == 0)
+    for (int s = 0; s < S::STAGES; ++s) {
+      const long long idx = blockIdx.x + (long long)s * gridDim.x;
+      if (idx < n_items)
+        load_box<SR>(&xmap, smem + S::o_ring + s * wg::al128(S::BOX), &full[s],
+                     (uint32_t)S::BOX, idx, nbands, nchunks);
+    }
+
+  const int g = lane >> 2, t = lane & 3;
+  const int v = warp >> 2, w = warp & 3, wt = tid & 127;
+  const uint32_t w1_s = wg::smem_u32(smem);
+  // red[v][buf][warp][column][sum, squares]
+  auto slot = [&](int buf, int ww, int col, int k) {
+    return ((((v * 2 + buf) * 4 + ww) * N1 + col) * 2) + k;
+  };
+  int k = 0;
+  for (long long idx = blockIdx.x + (long long)v * gridDim.x; idx < n_items;
+       idx += 2 * (long long)gridDim.x, ++k) {
+    const wg::Item m = decode<SR>(idx, nbands, nchunks);
+    const int it = 2 * k + v, sl = it % S::STAGES, buf = k & 1;
+    const float* box =
+        reinterpret_cast<const float*>(smem + S::o_ring + sl * wg::al128(S::BOX));
+    float s[NJ][2][2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) s[j][c][0] = s[j][c][1] = 0.f;
+    wg::mbar_wait(&full[sl], (it / S::STAGES) & 1);
+    chain<N1, K1S, KC, Gs::M1T, N1 / 8 * 128, (uint32_t)S::W1P>(
+        [&](int mt, int ks, float (&a)[4]) {
+          load_x<CI, SR>(box, mt, ks, w, g, t, a);
+        },
+        [&](int) { return w1_s; },
+        [&](int mt, float (&d)[N1 / 2]) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int q = mt * 64 + 16 * w + g + 8 * i;
+            const int pi = q / Gs::PC, pj = q - pi * Gs::PC;
+            // does this item own the cell of parity (di, dj) here
+            bool row_own[2], col_own[2];
+#pragma unroll
+            for (int dd = 0; dd < 2; ++dd) {
+              row_own[dd] = q < Gs::NPOS && pi - dd >= 0 && pi - dd < SR &&
+                            m.r0 + pi - dd < H;
+              col_own[dd] = pj - dd >= 0 && pj - dd < TW &&
+                            m.c0 + pj - dd < W;
+            }
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              const int par = (8 * j) / CM;
+              const bool own = row_own[par >> 1] && col_own[par & 1];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const float x = own ? d[4 * j + 2 * i + c] : 0.f;
+                s[j][c][0] += x;
+                s[j][c][1] = fmaf(x, x, s[j][c][1]);
+              }
+            }
+          }
+        },
+        [&] {
+          // the box is read: the warpgroup's next item goes into its slot
+          wg::mbar_arrive(&empty[sl]);
+          const long long next = idx + 2 * (long long)gridDim.x;
+          if (wt == 0 && next < n_items) {
+            wg::mbar_wait(&empty[sl], k & 1);
+            load_box<SR>(&xmap, smem + S::o_ring + sl * wg::al128(S::BOX),
+                         &full[sl], (uint32_t)S::BOX, next, nbands, nchunks);
+          }
+        });
+    // over the 8 row lanes of a column (lanes with equal t)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          float x = s[j][c][kk];
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 8);
+          x += __shfl_xor_sync(0xffffffffu, x, 16);
+          if (g == 0) red[slot(buf, w, 8 * j + 2 * t + c, kk)] = x;
+        }
+    wg::named_sync(1 + v, 128);   // this warpgroup's sums of the item are in
+    // channel cm sums its four parity columns n = par*CM + cm over the
+    // warpgroup's warps, in a fixed order
+    if (wt < 2 * CM) {
+      const int kk = wt / CM, cm = wt - kk * CM;
+      float sum = 0.f;
+#pragma unroll
+      for (int par = 0; par < 4; ++par)
+#pragma unroll
+        for (int ww = 0; ww < 4; ++ww)
+          sum += red[slot(buf, ww, par * CM + cm, kk)];
+      partial[((size_t)idx * 2 + kk) * CM + cm] = sum;
+    }
+  }
+}
+
+// ---- the main kernel -----------------------------------------------------------
+
+template <int CI, int CM, int CO>
+struct MainSmem {
+  using Gm = Geo<main_rows<CI>()>;
+  static constexpr size_t W1P = (size_t)16 * CI * CM * 4;  // a plane of W1
+  static constexpr size_t W2P = (size_t)16 * CM * CO * 4;  // a plane of W2
+  static constexpr size_t BOX = (size_t)CI * Gm::PLANE * 4;
+  static constexpr size_t HP = (size_t)4 * CM * Gm::NPOS * 4;
+  static constexpr size_t BN = (size_t)4 * CM * 2 * 4;     // [n][gain, shift]
+  static constexpr size_t o_w2 = wg::al128(2 * W1P);
+  static constexpr size_t o_box = o_w2 + wg::al128(2 * W2P);
+  static constexpr size_t o_hp = o_box + wg::al128(BOX);
+  static constexpr size_t o_bn = o_hp + wg::al128(HP);
+  static constexpr size_t o_bar = o_bn + wg::al128(BN);
+  static constexpr size_t bytes = o_bar + 8;
+};
+
+template <int CI, int CM, int CO>
+__global__ void __launch_bounds__(128 * main_wgs<CI>(), (CI <= 16 ? 2 : 1))
+main_kernel(const __grid_constant__ CUtensorMap xmap,
+            const float* __restrict__ w1, const float* __restrict__ w2,
+            const float* __restrict__ mu, const float* __restrict__ gain,
+            const float* __restrict__ beta, float* __restrict__ y, int H,
+            int W, int nbands, int nchunks, long long n_items) {
+  constexpr int R = main_rows<CI>();
+  using Gm = Geo<R>;
+  using S = MainSmem<CI, CM, CO>;
+  constexpr int N1 = 4 * CM, K1S = CI / 2;        // stage 1: n, k-steps
+  constexpr int N2 = CO, K2S = 2 * CM;            // stage 2: 16 CM / 8
+  constexpr int KC = main_kchunk<CI>(), CG = CM / 8;
+  constexpr int NWG = main_wgs<CI>(), NT = 128 * NWG;
+  // stage-1 tiles: warpgroup v takes tiles v, v + NWG, ...: at Ci 32 one
+  // each, at Ci 16 (5 tiles) 3 and 2; stage 2: warpgroups 0 and 1 take
+  // tiles v, v + 2, ...
+  constexpr int FT0 = (Gm::M1T + NWG - 1) / NWG, FT1 = Gm::M1T / NWG;
+  constexpr int U2 = Gm::M2T / 2;
+  constexpr uint32_t LBO1 = N1 / 8 * 128, LBO2 = N2 / 8 * 128;
+  static_assert(CM % 8 == 0 && CO % 16 == 0 && CI % 8 == 0 &&
+                Gm::M2T % 2 == 0 && FT1 >= 1 && Gm::M1T % NWG < 2 &&
+                N1 % 32 == 0, "shapes");
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::o_bar);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  wg::stage_weights(smem, w1, (int)(2 * S::W1P), tid, NT);
+  wg::stage_weights(smem + S::o_w2, w2, (int)(2 * S::W2P), tid, NT);
+  if (tid == 0) {
+    wg::mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (tid == 0)
+    load_box<R>(&xmap, smem + S::o_box, full, (uint32_t)S::BOX, blockIdx.x,
+                nbands, nchunks);
+
+  const int g = lane >> 2, t = lane & 3;
+  const int v = warp >> 2, w = warp & 3;
+  const uint32_t w1_s = wg::smem_u32(smem);
+  const uint32_t w2_s = wg::smem_u32(smem + S::o_w2);
+  const float* box = reinterpret_cast<const float*>(smem + S::o_box);
+  float* hp = reinterpret_cast<float*>(smem + S::o_hp);
+  float* bn = reinterpret_cast<float*>(smem + S::o_bn);
+  const size_t y_img = (size_t)CO * H * W;
+  // stage 1's column n = tid < N1 (cm = n % CM): h = acc * gain + shift,
+  // shift = beta - mu * gain.  Thread n reads an item's gain and mean one
+  // item ahead, so that no warpgroup waits on the loads.
+  const float beta_n = tid < N1 ? beta[tid % CM] : 0.f;
+  float gain_n = 0.f, mu_n = 0.f;
+  if (tid < N1) {
+    const size_t at = (size_t)decode<R>(blockIdx.x, nbands, nchunks).b * CM;
+    gain_n = gain[at + tid % CM];
+    mu_n = mu[at + tid % CM];
+  }
+
+  int it = 0;
+  for (long long idx = blockIdx.x; idx < n_items; idx += gridDim.x, ++it) {
+    const wg::Item m = decode<R>(idx, nbands, nchunks);
+    // the item's BN table (read after the barrier in the first epilogue;
+    // the last item's epilogues passed the barrier after stage 1)
+    if (tid < N1) {
+      bn[2 * tid] = gain_n;
+      bn[2 * tid + 1] = fmaf(-mu_n, gain_n, beta_n);
+      if (idx + gridDim.x < n_items) {
+        const size_t at =
+            (size_t)decode<R>(idx + gridDim.x, nbands, nchunks).b * CM;
+        gain_n = gain[at + tid % CM];
+        mu_n = mu[at + tid % CM];
+      }
+    }
+    wg::mbar_wait(full, it & 1);
+
+    // normalise, rectify, zero outside the image and store stage-1 tile
+    // mt's columns n0 .. n0 + (N of d)
+    auto store = [&](int mt, int n0, auto& d) {
+      constexpr int NJ =
+          std::extent<std::remove_reference_t<decltype(d)>>::value / 4;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = mt * 64 + 16 * w + g + 8 * i;
+        if (q >= Gm::NPOS) continue;
+        const int pi = q / Gm::PC, pj = q - pi * Gm::PC;
+        bool row_in[2], col_in[2];
+#pragma unroll
+        for (int dd = 0; dd < 2; ++dd) {
+          row_in[dd] = (unsigned)(m.r0 - dd + pi) < (unsigned)H;
+          col_in[dd] = (unsigned)(m.c0 - dd + pj) < (unsigned)W;
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < NJ; ++j2) {
+          const int n = n0 + 8 * j2;
+          const int par = n / CM, cg = (n % CM) / 8;
+          const bool in = row_in[par >> 1] && col_in[par & 1];
+          const float4 gs =
+              *reinterpret_cast<const float4*>(bn + 2 * (n + 2 * t));
+          float2 o;
+          o.x = in ? fmaxf(fmaf(d[4 * j2 + 2 * i], gs.x, gs.y), 0.f) : 0.f;
+          o.y = in ? fmaxf(fmaf(d[4 * j2 + 2 * i + 1], gs.z, gs.w), 0.f)
+                   : 0.f;
+          *reinterpret_cast<float2*>(
+              hp + ((par * CG + cg) * Gm::NPOS + q) * 8 + 2 * t) = o;
+        }
+      }
+    };
+    // ---- stage 1: tiles v, v + NWG, ... into the hidden planes ----
+    auto stage1 = [&](auto units) {
+      chain<N1, K1S, KC, decltype(units)::value, LBO1, (uint32_t)S::W1P>(
+          [&](int j, int ks, float (&a)[4]) {
+            load_x<CI, R>(box, v + NWG * j, ks, w, g, t, a);
+          },
+          [&](int) { return w1_s; },
+          [&](int j, float (&d)[N1 / 2]) {
+            // the last item's stage 2 has read the hidden planes
+            if (j == 0) wg::named_sync(1, NT);
+            store(v + NWG * j, 0, d);
+          },
+          [] {});
+    };
+    if constexpr (FT0 == FT1) {
+      stage1(std::integral_constant<int, FT0>());
+    } else {
+      if (v < Gm::M1T % NWG)
+        stage1(std::integral_constant<int, FT0>());
+      else
+        stage1(std::integral_constant<int, FT1>());
+    }
+    wg::named_sync(2, NT);        // the hidden planes are complete
+    // and the box is read: the next item's box loads during stage 2 (and a
+    // third warpgroup starts its next stage-1 tile as soon as it is in)
+    if (tid == 0 && idx + gridDim.x < n_items)
+      load_box<R>(&xmap, smem + S::o_box, full, (uint32_t)S::BOX,
+                  idx + gridDim.x, nbands, nchunks);
+    if (v >= 2) continue;
+
+    // ---- stage 2: tiles v, v+2, ... (two y rows each) from the planes ----
+    chain<N2, K2S, KC, U2, LBO2, (uint32_t)S::W2P>(
+        [&](int j, int ks, float (&a)[4]) {
+          // k = tap*CM + cm, tap = a*4 + c: plane ((a+1)&1, (c+1)&1) at
+          // (ml + a/2, nl + c/2); logical k (t, t+4) = channels (2t, 2t+1)
+          const int p = (v + 2 * j) * 64 + 16 * w + g;
+          const int pos = (p >> 5) * Gm::PC + (p & 31);
+          const int kb = ks * 8, tap = kb / CM, cg = (kb % CM) / 8;
+          const int ta = tap >> 2, tc = tap & 3;
+          const int par = ((ta + 1) & 1) * 2 + ((tc + 1) & 1);
+          const float* src = hp + ((par * CG + cg) * Gm::NPOS + pos +
+                                   (ta >> 1) * Gm::PC + (tc >> 1)) * 8 + 2 * t;
+          const float2 r0 = *reinterpret_cast<const float2*>(src);
+          const float2 r1 = *reinterpret_cast<const float2*>(src + 64);
+          a[0] = r0.x;
+          a[1] = r1.x;
+          a[2] = r0.y;
+          a[3] = r1.y;
+        },
+        [&](int) { return w2_s; },
+        [&](int j, float (&d)[N2 / 2]) {
+          float* yb = y + (size_t)m.b * y_img;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int p = (v + 2 * j) * 64 + 16 * w + g + 8 * i;
+            const int row = m.r0 + (p >> 5), col = m.c0 + (p & 31);
+            if (row < H && col < W) {
+              float* yp = yb + (size_t)row * W + col;
+#pragma unroll
+              for (int j2 = 0; j2 < N2 / 8; ++j2)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+                  yp[(size_t)(8 * j2 + 2 * t + c) * H * W] =
+                      d[4 * j2 + 2 * i + c];
+            }
+          }
+        },
+        [] {});
+  }
+}
+
+// ---- the layout probe ----------------------------------------------------------
+
+// d (64 x 32) = A (64 x 16) @ B (16 x 32) by two k-steps of m64n32k8 .tf32
+// with A from registers as the kernels load it, unsplit, and B staged as
+// given (to_wgmma_tf32's layout, k-step ks at ks * 2 * leading bytes): what
+// the card computes from raw fp32 words pins the core-matrix layout and
+// how the tensor cores read an fp32 word as TF32.  One warpgroup.
+__global__ void tf32_probe_kernel(const float* __restrict__ a,
+                                  const float* __restrict__ b,
+                                  float* __restrict__ d) {
+  __shared__ __align__(128) float bs[16 * 32];
+  const int tid = threadIdx.x;
+  for (int k = tid; k < 16 * 32; k += 128) bs[k] = b[k];
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * w + g, r1 = r0 + 8;
+  uint32_t av[2][4];
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    av[ks][0] = __float_as_uint(a[r0 * 16 + ks * 8 + t]);
+    av[ks][1] = __float_as_uint(a[r1 * 16 + ks * 8 + t]);
+    av[ks][2] = __float_as_uint(a[r0 * 16 + ks * 8 + t + 4]);
+    av[ks][3] = __float_as_uint(a[r1 * 16 + ks * 8 + t + 4]);
+  }
+  float acc[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  const uint32_t lbo = 32 / 8 * 128, b_s = wg::smem_u32(bs);
+  wg::fence_acc<32>(acc);
+  wg::wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+    Tf32<32>::run(acc, av[ks], wg::desc(b_s + ks * 2 * lbo, lbo, 128));
+  wg::wg_commit();
+  wg::wg_wait0();
+  wg::fence_acc<32>(acc);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        d[(16 * w + g + 8 * i) * 32 + 8 * j + 2 * t + c] = acc[4 * j + 2 * i + c];
+}
+
+// ---- launch -------------------------------------------------------------------------
+
+inline bool takes(const void* x, int W) {
+  return W % 4 == 0 && ((uintptr_t)x & 15) == 0;
+}
+
+// The 4-D map over x (B, CI, H, W) fp32, innermost first: box XC x rows x
+// CI x 1; out-of-image elements read as zero.  Returns 0 or a negative code.
+inline int encode_x(CUtensorMap* map, const void* x, int B, int ci, int H,
+                    int W, int rows) {
+  const wg::EncodeTiled fn = wg::encoder();
+  if (fn == nullptr) return wg::kNoEntryPoint;
+  const cuuint64_t dims[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)ci,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 4, (cuuint64_t)H * W * 4,
+                                 (cuuint64_t)ci * H * W * 4};
+  const cuuint32_t box[4] = {XC, (cuuint32_t)rows, (cuuint32_t)ci, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                        const_cast<void*>(x), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1 - (int)r;
+}
+
+template <int CI, int CM, int CO>
+int launch_main(const void* x, const float* w1, const float* w2,
+                const float* mu, const float* gain, const float* beta,
+                float* y, int B, int H, int W, int n_sm, cudaStream_t stream) {
+  constexpr int R = main_rows<CI>();
+  const int nbands = (H + R - 1) / R, nchunks = (W + TW - 1) / TW;
+  const long long n_items = (long long)B * nbands * nchunks;
+  if (n_items == 0) return (int)cudaSuccess;
+  if (!takes(x, W)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int enc = encode_x(&map, x, B, CI, H, W, R + 2);
+  if (enc != 0) return enc;
+  const size_t smem = MainSmem<CI, CM, CO>::bytes;
+  int grid = 0;
+  constexpr int nt = 128 * main_wgs<CI>();
+  cudaError_t e = wg::persistent_grid(main_kernel<CI, CM, CO>, nt, smem,
+                                      n_sm, n_items, &grid);
+  if (e != cudaSuccess) return (int)e;
+  main_kernel<CI, CM, CO><<<grid, nt, smem, stream>>>(
+      map, w1, w2, mu, gain, beta, y, H, W, nbands, nchunks, n_items);
+  return (int)cudaGetLastError();
+}
+
+template <int CI, int CM>
+int launch_stats(const void* x, const float* w1, float* partial, int B,
+                 int H, int W, int n_sm, cudaStream_t stream) {
+  const int nbands = (H + SR - 1) / SR, nchunks = (W + TW - 1) / TW;
+  const long long n_items = (long long)B * nbands * nchunks;
+  if (n_items == 0) return (int)cudaSuccess;
+  if (!takes(x, W)) return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  const int enc = encode_x(&map, x, B, CI, H, W, SR + 2);
+  if (enc != 0) return enc;
+  const size_t smem = StatsSmem<CI, CM>::bytes;
+  int grid = 0;
+  cudaError_t e = wg::persistent_grid(stats_kernel<CI, CM>, NTH, smem, n_sm,
+                                      n_items, &grid);
+  if (e != cudaSuccess) return (int)e;
+  stats_kernel<CI, CM><<<grid, NTH, smem, stream>>>(
+      map, w1, partial, H, W, nbands, nchunks, n_items);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgf
+
 extern "C" {
 
 // Work-item geometry (must equal bulge.cu's: the statistics slots are the
@@ -1168,6 +1985,59 @@ int bulge_wgmma_main_bf16(const void* x, const void* w1, const void* w2,
     case 16: return wg::launch_main<32, 16, 32>(x, a, b, mu, gain, beta, yb, B, H, W, n_sm, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// ---- fp32 (namespace wgf) ----
+
+// Band rows of the fp32 main kernel's work items at Ci (its stats kernel's
+// are bulge_wgmma_band_rows'), and the fp32 box's columns and the box
+// column of x column c0-1.
+int bulge_wgmma_f32_main_rows(int ci) {
+  return ci >= 32 ? wgf::main_rows<32>() : wgf::main_rows<16>();
+}
+int bulge_wgmma_f32_box_cols() { return wgf::XC; }
+int bulge_wgmma_f32_box_col0() { return wgf::XO; }
+
+// x fp32 (B, ci, H, W); w1: W1 (4 ci x 4 cm) as two fp32 planes (hi, lo) in
+// wgmma's K-major core-matrix order (ops/bulge_mma.py to_wgmma_tf32).
+int bulge_wgmma_stats_f32(const void* x, const void* w1, float* partial,
+                          int B, int ci, int cm, int H, int W, int n_sm,
+                          void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* w = (const float*)w1;
+  if (!bulge_wgmma_supported(ci, cm, 2 * cm)) return (int)cudaErrorInvalidValue;
+  switch (cm) {
+    case 8: return wgf::launch_stats<16, 8>(x, w, partial, B, H, W, n_sm, s);
+    case 16: return wgf::launch_stats<32, 16>(x, w, partial, B, H, W, n_sm, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// w2: W2 (16 cm x co), its rows permuted within each k-step of 8, as two
+// planes in the same order; mu, gain (B, cm), beta (cm) fp32; y fp32
+// (B, co, H, W).
+int bulge_wgmma_main_f32(const void* x, const void* w1, const void* w2,
+                         const float* mu, const float* gain,
+                         const float* beta, void* y, int B, int ci, int cm,
+                         int co, int H, int W, int n_sm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* a = (const float*)w1;
+  const float* b = (const float*)w2;
+  float* yf = (float*)y;
+  if (!bulge_wgmma_supported(ci, cm, co)) return (int)cudaErrorInvalidValue;
+  switch (cm) {
+    case 8: return wgf::launch_main<16, 8, 16>(x, a, b, mu, gain, beta, yf, B, H, W, n_sm, s);
+    case 16: return wgf::launch_main<32, 16, 32>(x, a, b, mu, gain, beta, yf, B, H, W, n_sm, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// d (64 x 32) = a (64 x 16) @ b (to_wgmma_tf32 of a 16 x 32 matrix) on the
+// tensor cores, the fp32 words passed unsplit (wgf::tf32_probe_kernel).
+int bulge_wgmma_tf32_probe(const float* a, const float* b, float* d,
+                           void* stream) {
+  wgf::tf32_probe_kernel<<<1, 128, 0, (cudaStream_t)stream>>>(a, b, d);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

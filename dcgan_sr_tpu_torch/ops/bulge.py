@@ -11,11 +11,16 @@ kernel and nothing else (no fallback).  The kernel's shared library is built
 from csrc/bulge.cu with nvcc for sm_90a at first use, into _build/ beside
 the package, and loaded with ctypes.
 
-csrc/bulge.cu holds two implementations (`impl=`): "mma", both stages on the
-tensor cores as error-compensated TF32 products in a persistent grid (host
-side: ops/bulge_mma.py), and "fma", the earlier fp32 FMA kernel.
-`choose_impl` picks one from the shapes alone; an explicit `impl=` is for
-measurements and tests.  Neither is ever a fallback for the other.
+fp32 x has three implementations (`impl=`): "wgmma" (csrc/bulge_wgmma.cu
+namespace wgf: TMA, both stages as error-compensated TF32 products, three
+TF32 products a product, on wgmma, built for Hopper), "mma"
+(csrc/bulge.cu: the same products on mma.sync in a persistent grid; host
+side of both: ops/bulge_mma.py) and "fma", the earlier fp32 FMA kernel.
+`choose_impl` gives an fp32 call to "wgmma" where its tensor map can take x
+(W a multiple of 4, x's base 16-byte aligned) at a triple it was built for,
+to "mma" at the other triples "mma" was built for, and to "fma" elsewhere;
+an explicit `impl=` is for measurements and tests.  None is ever a fallback
+for another.
 
 bf16 (x in bfloat16, JAX fused_bulge_fwd with bf16 x): the tensor-core
 kernel's bf16 instantiation, one bf16 mma (m16n8k16, fp32 accumulators) a
@@ -55,17 +60,19 @@ from . import nn as N
 from ._build import compile_and_load, raw_stream, sm_count
 
 STATS_MODES = ("pooled", "per_image", "running")
-IMPLS = ("mma", "fma")          # float32 x
-BF16_IMPLS = ("wgmma", "mma")   # bfloat16 x
+IMPLS = ("wgmma", "mma", "fma")  # float32 x
+BF16_IMPLS = ("wgmma", "mma")    # bfloat16 x
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
 launches = {"bulge_stats": 0, "bulge_main": 0, "bulge_stats_bf16": 0,
             "bulge_main_bf16": 0}
 # The same launches by the implementation that ran (both kernels of a pair
-# counted): which one `choose_impl` sent a path through; bf16 launches
-# under "wgmma_bf16" (bulge_wgmma.cu) and "mma_bf16" (bulge.cu).
-impl_launches = {"mma": 0, "fma": 0, "mma_bf16": 0, "wgmma_bf16": 0}
+# counted): which one `choose_impl` sent a path through; fp32 launches under
+# "wgmma" (bulge_wgmma.cu), "mma" and "fma" (bulge.cu), bf16 launches under
+# "wgmma_bf16" (bulge_wgmma.cu) and "mma_bf16" (bulge.cu).
+impl_launches = {"wgmma": 0, "mma": 0, "fma": 0, "mma_bf16": 0,
+                 "wgmma_bf16": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -135,10 +142,26 @@ def build_wgmma():
         lib.bulge_wgmma_stats_bf16.restype = i
         lib.bulge_wgmma_main_bf16.argtypes = [p] * 7 + [i] * 7 + [p]
         lib.bulge_wgmma_main_bf16.restype = i
+        for name in ("f32_box_cols", "f32_box_col0"):
+            fn = getattr(lib, "bulge_wgmma_" + name)
+            fn.argtypes, fn.restype = [], i
+        lib.bulge_wgmma_f32_main_rows.argtypes = [i]
+        lib.bulge_wgmma_f32_main_rows.restype = i
+        lib.bulge_wgmma_stats_f32.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.bulge_wgmma_stats_f32.restype = i
+        lib.bulge_wgmma_main_f32.argtypes = [p] * 7 + [i] * 7 + [p]
+        lib.bulge_wgmma_main_f32.restype = i
+        lib.bulge_wgmma_tf32_probe.argtypes = [p, p, p, p]
+        lib.bulge_wgmma_tf32_probe.restype = i
         if (lib.bulge_wgmma_band_rows(), lib.bulge_wgmma_chunk_cols(),
-                lib.bulge_wgmma_box_rows(), lib.bulge_wgmma_box_cols()) != (
-                M.BAND_ROWS, M.CHUNK_COLS, M.BOX_ROWS, M.BOX_COLS) or not all(
-                    lib.bulge_wgmma_supported(*t) for t in M.WGMMA_TRIPLES):
+                lib.bulge_wgmma_box_rows(), lib.bulge_wgmma_box_cols(),
+                lib.bulge_wgmma_f32_box_cols(),
+                lib.bulge_wgmma_f32_box_col0()) != (
+                M.BAND_ROWS, M.CHUNK_COLS, M.BOX_ROWS, M.BOX_COLS,
+                M.F32_BOX_COLS, M.F32_BOX_COL0) or not all(
+                    lib.bulge_wgmma_supported(*t)
+                    and lib.bulge_wgmma_f32_main_rows(t[0])
+                    == M.f32_main_rows(t[0]) for t in M.WGMMA_TRIPLES):
             raise RuntimeError("csrc/bulge_wgmma.cu and ops/bulge_mma.py "
                                "disagree on the work item, the box or the "
                                "channel triples built")
@@ -146,21 +169,25 @@ def build_wgmma():
         return lib
 
 
-def wgmma_takes(ci, cm, co, w, aligned):
-    """Can the wgmma kernel take bf16 x of Ci channels and width w at this
-    triple: an instantiation, and a tensor map (16-byte row strides, so
-    w % 8 == 0, and a 16-byte aligned base)."""
-    return (ci, cm, co) in M.WGMMA_TRIPLES and w % 8 == 0 and aligned
+def wgmma_takes(ci, cm, co, w, aligned, dtype=torch.bfloat16):
+    """Can the wgmma kernel take x of `dtype`, Ci channels and width w at
+    this triple: an instantiation, and a tensor map (16-byte row strides, so
+    w % 8 == 0 in bf16 and w % 4 == 0 in fp32, and a 16-byte aligned
+    base)."""
+    per16 = 8 if dtype == torch.bfloat16 else 4
+    return (ci, cm, co) in M.WGMMA_TRIPLES and w % per16 == 0 and aligned
 
 
 def choose_impl(ci, cm, co, h, w, dtype=torch.float32, aligned=True):
     """The implementation `bulge()` runs at these shapes, from dtype, shape
-    and alignment alone.  float32: the tensor-core kernel wherever it has an
-    instantiation (it was the faster of the two at every path shape
-    measured, PERF.md section 6), else the FMA kernel.  bfloat16: "wgmma"
-    wherever `wgmma_takes`, else "mma"."""
+    and alignment alone.  Either dtype: "wgmma" wherever `wgmma_takes`.
+    Else float32 runs the mma.sync kernel where it has an instantiation (it
+    was faster than the FMA kernel at every path shape measured, PERF.md
+    section 6) and the FMA kernel elsewhere; bfloat16 runs "mma"."""
+    if wgmma_takes(ci, cm, co, w, aligned, dtype):
+        return "wgmma"
     if dtype == torch.bfloat16:
-        return "wgmma" if wgmma_takes(ci, cm, co, w, aligned) else "mma"
+        return "mma"
     return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
 
 
@@ -235,8 +262,8 @@ def _impl_for(impl, x, wT, wC=None):
     """The implementation a launch runs: `impl` if given (checked), else
     `choose_impl`'s for x as it is (its dtype, shape and base address).  The
     stats launch has no wC: it takes the choice of the pair it belongs to on
-    the paths, Co = 2 Cm.  A bf16 x runs "wgmma" or "mma" or raises: the FMA
-    kernel is fp32 only, the wgmma kernel bf16 only."""
+    the paths, Co = 2 Cm.  A bf16 x runs "wgmma" or "mma" or raises (the
+    FMA kernel is fp32 only); each dtype has its own wgmma kernel."""
     ci, cm = x.shape[1], wT.shape[1]
     co = 2 * cm if wC is None else wC.shape[0]
     bf16 = x.dtype == torch.bfloat16
@@ -244,21 +271,18 @@ def _impl_for(impl, x, wT, wC=None):
     if impl is None:
         impl = choose_impl(ci, cm, co, x.shape[2], x.shape[3], x.dtype,
                            aligned)
-    if impl not in IMPLS + BF16_IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS + BF16_IMPLS[:1]}, "
-                         f"got {impl!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "fma" and bf16:
         raise ValueError("the FMA bulge kernel takes float32 only; bf16 runs "
                          "impl='wgmma' or 'mma'")
-    if impl == "wgmma":
-        if not bf16:
-            raise ValueError("the wgmma bulge kernel takes bfloat16 only")
-        if not wgmma_takes(ci, cm, co, x.shape[3], aligned):
-            raise ValueError(f"the wgmma bulge kernel takes Ci/Cm/Co in "
-                             f"{M.WGMMA_TRIPLES}, W a multiple of 8 and a "
-                             f"16-byte aligned x; got Ci={ci}, Cm={cm}, "
-                             f"Co={co}, W={x.shape[3]}, x at "
-                             f"{x.data_ptr() % 16} mod 16")
+    if impl == "wgmma" and not wgmma_takes(ci, cm, co, x.shape[3], aligned,
+                                           x.dtype):
+        raise ValueError(f"the wgmma bulge kernel takes Ci/Cm/Co in "
+                         f"{M.WGMMA_TRIPLES}, W a multiple of "
+                         f"{8 if bf16 else 4} ({x.dtype}) and a 16-byte "
+                         f"aligned x; got Ci={ci}, Cm={cm}, Co={co}, "
+                         f"W={x.shape[3]}, x at {x.data_ptr() % 16} mod 16")
     if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
         raise ValueError(f"the tensor-core bulge kernel has no "
                          f"{'bf16 ' if bf16 else ''}instantiation for "
@@ -294,7 +318,9 @@ def launch_stats(x, wT, impl=None):
         partial = torch.empty((bsz, M.slots_per_image(h, w), 2, cm),
                               device=x.device, dtype=torch.float32)
         w1 = M.packed_operand("wT", wT, x.dtype, "wgmma")
-        err = lib.bulge_wgmma_stats_bf16(
+        entry = lib.bulge_wgmma_stats_bf16 if x.dtype == torch.bfloat16 \
+            else lib.bulge_wgmma_stats_f32
+        err = entry(
             x.data_ptr(), w1.data_ptr(), partial.data_ptr(), bsz, ci, cm, h,
             w, sm_count(x.device), raw_stream(x.get_device()))
         if err:
@@ -338,7 +364,9 @@ def launch_main(x, wT, wC, mu, gain, beta, impl=None):
         lib = _wlib or build_wgmma()
         w1 = M.packed_operand("wT", wT, x.dtype, "wgmma")
         w2 = M.packed_operand("wC", wC, x.dtype, "wgmma")
-        err = lib.bulge_wgmma_main_bf16(
+        entry = lib.bulge_wgmma_main_bf16 if x.dtype == torch.bfloat16 \
+            else lib.bulge_wgmma_main_f32
+        err = entry(
             x.data_ptr(), w1.data_ptr(), w2.data_ptr(), mu.data_ptr(),
             gain.data_ptr(), beta.data_ptr(), y.data_ptr(), bsz, ci, cm, co, h,
             w, sm_count(x.device), raw_stream(x.get_device()))
@@ -426,3 +454,24 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
         y = launch_main(x, wT, wC, mu.contiguous(), gain.contiguous(),
                         bias.float().contiguous(), impl)
     return y, (mean, var)
+
+
+def tf32_probe(a, b):
+    """d (64, 32) = a (64, 16) @ B by csrc/bulge_wgmma.cu's layout probe:
+    two k-steps of wgmma m64n32k8 .tf32 with A from registers, a's fp32
+    words passed unsplit, and b the flat `to_wgmma_tf32` layout of B
+    (16, 32) in shared memory as given.  What the card returns shows how
+    wgmma reads an fp32 word as TF32 and pins the core-matrix layout the
+    fp32 kernels use (chip_smoke.py, tests/test_torch_cuda.py).  Counts no
+    launch: it is no kernel of a path."""
+    if a.device.type != "cuda" or a.shape != (64, 16) or b.numel() != 512:
+        raise ValueError("tf32_probe takes a (64, 16) and b (512,) fp32 on "
+                         "the card")
+    a, b = a.float().contiguous(), b.float().contiguous()
+    d = torch.empty((64, 32), device=a.device, dtype=torch.float32)
+    lib = _wlib or build_wgmma()
+    err = lib.bulge_wgmma_tf32_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(),
+                                     raw_stream(a.get_device()))
+    if err:
+        raise RuntimeError(f"tf32_probe launch failed: cudaError {err}")
+    return d

@@ -44,6 +44,20 @@ zero outside the image (the innermost box coordinate must be a multiple of
 16 bytes, so the box starts at column c0-8), of which stage 1 reads the
 window `staged_window`, from box column BOX_COL0, that the mma.sync kernel
 stages by hand.
+
+wgmma in fp32 (csrc/bulge_wgmma.cu namespace wgf, 3xTF32): the same W1 and
+W2 as wgmma's tf32 B operand, K-major without swizzle (`to_wgmma_tf32`):
+core matrices of 8 n-rows x 4 k-values (16 bytes), with the same
+descriptor offsets (`wgmma_offsets`; `wgmma_read_tf32`).  Each goes to the
+card as two fp32 planes, hi = tf32(w) and lo = w - hi (`packed_operand(...,
+torch.float32, "wgmma")`), and W2's rows are permuted within each k-step
+of 8 (KPERM8: logical k t and t+4 are channels 2t and 2t+1, one 8-byte load
+of the hidden planes a lane).  Its stats kernel walks the items above; its
+main kernel bands of `f32_main_rows(Ci)` rows (4 at Ci 32, where 8 rows'
+buffers do not fit in shared memory), `Schedule(rows=)`.  x arrives as one
+box an item, F32_BOX_COLS columns from c0-4 (`tma_box_origin(..., dtype)`),
+x column c0-1 at box column F32_BOX_COL0.  `bulge_wgmma_f32` emulates its
+arithmetic item by item.
 """
 
 from __future__ import annotations
@@ -67,6 +81,22 @@ WGMMA_TRIPLES = ((16, 8, 16), (32, 16, 32))
 BOX_ROWS = BAND_ROWS + 2
 BOX_COLS = 48
 BOX_COL0 = 7
+# the fp32 wgmma kernel's box (csrc/bulge_wgmma.cu wgf::XC, XO): rows r0-1
+# .. r0+R, columns c0-4 .. c0+39 (16 bytes of fp32 from c0-1's left, and a
+# channel plane 24 or 8 floats mod 32, so a fragment load meets no bank
+# conflict); x column c0-1 is box column F32_BOX_COL0
+F32_BOX_COLS = 44
+F32_BOX_COL0 = 3
+# stage 2's k order within a k-step of 8 in the fp32 wgmma kernel: logical k
+# t and t+4 read channels 2t and 2t+1 of the hidden planes
+KPERM8 = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def f32_main_rows(ci):
+    """Band rows of the fp32 wgmma main kernel's work items at Ci
+    (csrc/bulge_wgmma.cu wgf::main_rows); its stats kernel's are
+    BAND_ROWS."""
+    return 4 if ci >= 32 else 8
 
 
 def padded_cm(cm):
@@ -165,6 +195,16 @@ def to_wgmma_bf16(mat):
     return blocks.transpose(0, 2, 3, 1).reshape(-1)  # kb, nb, r, e
 
 
+def to_wgmma_tf32(mat):
+    """A (K, N) B operand in wgmma's canonical K-major tf32 layout without
+    swizzle, flat: element [((kb*(N/8) + nb)*8 + r)*4 + e] = mat[kb*4 + e]
+    [nb*8 + r]: core matrix (kb, nb) is 8 n-rows of 4 k-values, 128
+    contiguous bytes in fp32, core matrices k-block major."""
+    k, n = mat.shape
+    blocks = mat.reshape(k // 4, 4, n // 8, 8)      # kb, e, nb, r
+    return blocks.transpose(0, 2, 3, 1).reshape(-1)  # kb, nb, r, e
+
+
 def wgmma_offsets(n):
     """(leading, stride) byte offsets of the wgmma descriptor for an operand
     of N = n columns in `to_wgmma_bf16`'s layout: between core matrices
@@ -181,6 +221,17 @@ def wgmma_read(flat, k, n, n_cols, ks=0):
     byte = (ks * 2 * lead + (k // 8) * lead + (n // 8) * stride
             + (n % 8) * 16 + (k % 8) * 2)
     return flat[byte // 2]
+
+
+def wgmma_read_tf32(flat, k, n, n_cols, ks=0):
+    """Element (k, n) of the 8-row k-step `ks` of a `to_wgmma_tf32` plane
+    with n_cols columns, read as the descriptor addresses it: start =
+    ks * 2 * leading, then (k // 4) * leading + (n // 8) * stride
+    + (n % 8) * 16 + (k % 4) * 4 bytes."""
+    lead, stride = wgmma_offsets(n_cols)
+    byte = (ks * 2 * lead + (k // 4) * lead + (n // 8) * stride
+            + (n % 8) * 16 + (k % 4) * 4)
+    return flat[byte // 4]
 
 
 def _gather(w, idx):
@@ -211,8 +262,16 @@ def _fragment_index(kind, shape, device, dtype=torch.float32, layout="mma"):
     if key not in _index_cache:
         idx = _w1_index(*shape[:2]) if kind == "wT" else \
             _w2_index(shape[1], shape[0])
-        order = to_wgmma_bf16 if layout == "wgmma" else \
-            to_fragments_bf16 if dtype == torch.bfloat16 else to_fragments
+        if layout == "wgmma" and dtype == torch.float32:
+            if kind == "wC":
+                rows = idx.reshape(-1, 8, idx.shape[1])
+                idx = rows[:, list(KPERM8)].reshape(idx.shape)
+            order = to_wgmma_tf32
+        elif layout == "wgmma":
+            order = to_wgmma_bf16
+        else:
+            order = to_fragments_bf16 if dtype == torch.bfloat16 else \
+                to_fragments
         _index_cache[key] = torch.from_numpy(
             np.ascontiguousarray(order(idx))).to(device)
     return _index_cache[key]
@@ -228,7 +287,9 @@ _PACKED_MAX = 16
 def packed_operand(kind, w, dtype=torch.float32, layout="mma"):
     """W1 of wT (kind "wT") or W2 of wC (kind "wC") in the fragment order of
     `dtype`'s mma (fp32: m16n8k8 TF32, bf16: m16n8k16), or with layout
-    "wgmma" in `to_wgmma_bf16`'s order, flat, in `dtype` on w's device."""
+    "wgmma" in `to_wgmma_bf16`'s order (bf16) or as the planes (hi, lo) of
+    `to_wgmma_tf32`'s order, W2 with its rows in KPERM8 order (fp32), flat,
+    in `dtype` on w's device."""
     key = (kind, id(w), dtype, layout)
     hit = _packed.get(key)
     if hit is not None and hit[0] is w and hit[1] == w._version:
@@ -236,6 +297,9 @@ def packed_operand(kind, w, dtype=torch.float32, layout="mma"):
         return hit[2]
     op = _gather(w.detach().float(), _fragment_index(
         kind, w.shape, w.device, dtype, layout)).to(dtype)
+    if layout == "wgmma" and dtype == torch.float32:
+        hi = trunc_tf32(op)
+        op = torch.cat([hi, op - hi])
     _packed[key] = (w, w._version, op)
     while len(_packed) > _PACKED_MAX:
         _packed.popitem(last=False)
@@ -246,25 +310,29 @@ def packed_operand(kind, w, dtype=torch.float32, layout="mma"):
 # the schedule of work items
 # ---------------------------------------------------------------------------
 
-def slots_per_image(h, w):
-    """Work items, and so statistics slots, of one (h, w) image."""
-    return -(-h // BAND_ROWS) * -(-w // CHUNK_COLS)
+def slots_per_image(h, w, rows=BAND_ROWS):
+    """Work items, and so statistics slots, of one (h, w) image, in bands
+    of `rows` y rows."""
+    return -(-h // rows) * -(-w // CHUNK_COLS)
 
 
 @dataclasses.dataclass(frozen=True)
 class Schedule:
     """Work items of one launch on x (B, Ci, H, W): item idx is (image,
-    band of BAND_ROWS y rows, chunk of CHUNK_COLS y columns), chunk fastest;
+    band of `rows` y rows, chunk of CHUNK_COLS y columns), chunk fastest;
     block k of a persistent grid of G blocks takes items k, k+G, ...  Item
     idx writes its statistics to slot idx of `partial`, so the slots of image
-    b are [b*per_image, (b+1)*per_image)."""
+    b are [b*per_image, (b+1)*per_image).  Every stats launch, and the main
+    launches but the fp32 wgmma kernel's at Ci 32 (`f32_main_rows`), walk
+    bands of BAND_ROWS."""
     batch: int
     h: int
     w: int
+    rows: int = BAND_ROWS
 
     @property
     def bands(self):
-        return -(-self.h // BAND_ROWS)
+        return -(-self.h // self.rows)
 
     @property
     def chunks(self):
@@ -272,7 +340,7 @@ class Schedule:
 
     @property
     def per_image(self):
-        return slots_per_image(self.h, self.w)
+        return slots_per_image(self.h, self.w, self.rows)
 
     @property
     def n_items(self):
@@ -282,7 +350,7 @@ class Schedule:
         """(image, first y row, first y column) of item idx."""
         rest, chunk = divmod(idx, self.chunks)
         b, band = divmod(rest, self.bands)
-        return b, band * BAND_ROWS, chunk * CHUNK_COLS
+        return b, band * self.rows, chunk * CHUNK_COLS
 
     def owned(self, idx):
         """The hidden cells whose statistics item idx counts, as
@@ -293,10 +361,10 @@ class Schedule:
         rows, cols = [], []
         for di in range(2):
             for dj in range(2):
-                for pi in range(BAND_ROWS + 1):
+                for pi in range(self.rows + 1):
                     for pj in range(CHUNK_COLS + 1):
                         li, lj = pi - di, pj - dj
-                        if 0 <= li < BAND_ROWS and 0 <= lj < CHUNK_COLS \
+                        if 0 <= li < self.rows and 0 <= lj < CHUNK_COLS \
                                 and r0 + li < self.h and c0 + lj < self.w:
                             rows.append(2 * (r0 + li) + di)
                             cols.append(2 * (c0 + lj) + dj)
@@ -340,20 +408,23 @@ def staged_window(x_img, r0, c0):
     return _window(x_img, r0, c0, BAND_ROWS + 2, CHUNK_COLS + 2)
 
 
-def tma_box_origin(r0, c0):
+def tma_box_origin(r0, c0, dtype=torch.bfloat16):
     """(column, row) of the wgmma kernel's box for item (r0, c0), innermost
     first, as the tensor-map coordinates it issues; may be negative, and the
-    column is a multiple of 8 (16 bytes of bf16), which the hardware
-    requires of the innermost coordinate."""
-    return c0 - BOX_COL0 - 1, r0 - 1
+    column is a multiple of 16 bytes (8 bf16 or 4 fp32 columns), which the
+    hardware requires of the innermost coordinate."""
+    col0 = F32_BOX_COL0 if dtype == torch.float32 else BOX_COL0
+    return c0 - col0 - 1, r0 - 1
 
 
-def tma_box(x_img, r0, c0):
-    """The (Ci, BOX_ROWS, BOX_COLS) box the wgmma kernel's TMA load writes
-    for item (r0, c0): the image from `tma_box_origin`, the elements outside
-    the image zero-filled by the hardware."""
-    c, r = tma_box_origin(r0, c0)
-    return _window(x_img, r + 1, c + 1, BOX_ROWS, BOX_COLS)
+def tma_box(x_img, r0, c0, dtype=torch.bfloat16, rows=BAND_ROWS):
+    """The (Ci, rows + 2, columns) box the wgmma kernel's TMA load writes
+    for item (r0, c0) of a band of `rows` (BOX_COLS columns for bf16 x,
+    F32_BOX_COLS for fp32): the image from `tma_box_origin`, the elements
+    outside the image zero-filled by the hardware."""
+    c, r = tma_box_origin(r0, c0, dtype)
+    cols = F32_BOX_COLS if dtype == torch.float32 else BOX_COLS
+    return _window(x_img, r + 1, c + 1, rows + 2, cols)
 
 
 def _stage1_item(x_img, w1, r0, c0):
@@ -467,3 +538,139 @@ def bulge_packed(x, wT, scale, bias, wC, *, stats="pooled", running=None,
             mean, var = mean[0], var[0]
     gain = torch.rsqrt(v + eps) * scale.float()
     return packed_main(x, wT, wC, mu, gain, bias.float()), (mean, var)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 wgmma kernel's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def _plane_steps(plane, k, n):
+    """A `to_wgmma_tf32` plane read back k-step by k-step through the
+    descriptor's addressing: (k // 8, 8, n)."""
+    kk, nn = np.meshgrid(np.arange(8), np.arange(n), indexing="ij")
+    kk, nn = torch.from_numpy(kk), torch.from_numpy(nn)
+    return torch.stack([wgmma_read_tf32(plane, kk, nn, n, ks)
+                        for ks in range(k // 8)])
+
+
+def _tf32x3(a_steps, op, k, n):
+    """sum over k-steps of A (M, 8) @ B (8, n) as the kernel issues it: A
+    split (hi = tf32(a), lo = a - hi), B's packed planes (hi, lo), three
+    TF32 products a step (lo*hi, hi*lo, hi*hi) added to an fp32
+    accumulator in that order; the tensor cores read an operand's upper 19
+    bits."""
+    hi, lo = _plane_steps(op[:k * n], k, n), _plane_steps(op[k * n:], k, n)
+    acc = None
+    for ks, a in enumerate(a_steps):
+        ah = trunc_tf32(a)
+        al = trunc_tf32(a - ah)
+        for p in (al @ hi[ks], ah @ trunc_tf32(lo[ks]), ah @ hi[ks]):
+            acc = p if acc is None else acc + p
+    return acc
+
+
+def _stage1_tf32(x_img, w1, r0, c0, rows):
+    """HP (rows+1, TW+1, 4 Cm) of one item from its TMA box: A read from
+    the box as the kernel's lanes read it (k = tap*Ci + ci, k-steps of 8),
+    against the packed W1 planes."""
+    ci = x_img.shape[0]
+    pc, npos = CHUNK_COLS + 1, (rows + 1) * (CHUNK_COLS + 1)
+    box = tma_box(x_img, r0, c0, torch.float32, rows)
+    q = torch.arange(npos)
+    pi, pj = q // pc, q % pc
+    taps = [box[:, pi + ti, F32_BOX_COL0 + pj + tj].T
+            for ti in range(2) for tj in range(2)]     # each (npos, Ci)
+    a1 = torch.cat(taps, dim=1)                          # k = tap*Ci + ci
+    steps = [a1[:, 8 * ks:8 * ks + 8] for ks in range(ci // 2)]
+    n = w1.numel() // (2 * 4 * ci)
+    return _tf32x3(steps, w1, 4 * ci, n).reshape(rows + 1, pc, n)
+
+
+def wgmma_f32_stats(x, wT):
+    """What the fp32 wgmma stats launch writes: (B, slots, 2, Cm) sums and
+    sums of squares of the hidden cells each item owns, items of BAND_ROWS
+    rows."""
+    bsz, ci, h, w = x.shape
+    cm = wT.shape[1]
+    w1 = packed_operand("wT", wT, torch.float32, "wgmma")
+    sched = Schedule(bsz, h, w)
+    li = torch.arange(BAND_ROWS + 1)[:, None]
+    lj = torch.arange(CHUNK_COLS + 1)[None, :]
+    out = x.new_zeros((sched.n_items, 2, cm))
+    for idx in range(sched.n_items):
+        b, r0, c0 = sched.item(idx)
+        hp = _stage1_tf32(x[b], w1, r0, c0, BAND_ROWS).reshape(
+            BAND_ROWS + 1, CHUNK_COLS + 1, 4, cm)
+        for par in range(4):
+            di, dj = par >> 1, par & 1
+            own = ((li - di >= 0) & (li - di < BAND_ROWS) & (lj - dj >= 0)
+                   & (lj - dj < CHUNK_COLS) & (r0 + li - di < h)
+                   & (c0 + lj - dj < w))
+            v = hp[:, :, par] * own[:, :, None]
+            out[idx, 0] += v.sum(dim=(0, 1))
+            out[idx, 1] += (v * v).sum(dim=(0, 1))
+    return out.reshape(bsz, sched.per_image, 2, cm)
+
+
+def wgmma_f32_main(x, wT, wC, mu, gain, beta):
+    """What the fp32 wgmma main launch writes: y (B, Co, H, W), items of
+    `f32_main_rows(Ci)` rows; stage 2 reads the hidden planes in KPERM8's
+    k order against the packed W2 planes."""
+    bsz, ci, h, w = x.shape
+    cm, co = wT.shape[1], wC.shape[0]
+    rows = f32_main_rows(ci)
+    w1 = packed_operand("wT", wT, torch.float32, "wgmma")
+    w2 = packed_operand("wC", wC, torch.float32, "wgmma")
+    sched = Schedule(bsz, h, w, rows)
+    pc = CHUNK_COLS + 1
+    ml = torch.arange(rows * CHUNK_COLS) // CHUNK_COLS
+    nl = torch.arange(rows * CHUNK_COLS) % CHUNK_COLS
+    y = x.new_zeros((bsz, co, h, w))
+    for idx in range(sched.n_items):
+        b, r0, c0 = sched.item(idx)
+        hp = _stage1_tf32(x[b], w1, r0, c0, rows).reshape(
+            rows + 1, pc, 4, cm)
+        hp = torch.relu(hp * gain[b] + (beta - mu[b] * gain[b]))
+        pos = torch.arange((rows + 1) * pc)
+        mask = []
+        for par in range(4):
+            di, dj = par >> 1, par & 1
+            i, j = r0 - di + pos // pc, c0 - dj + pos % pc
+            mask.append((i >= 0) & (i < h) & (j >= 0) & (j < w))
+        hp = hp.reshape(-1, 4, cm) * torch.stack(mask, 1)[:, :, None]
+        steps = []
+        for ks in range(2 * cm):
+            cols = []
+            for kk in KPERM8:
+                k = ks * 8 + kk
+                tap, c = divmod(k, cm)
+                a, cc = divmod(tap, 4)
+                par = ((a + 1) & 1) * 2 + ((cc + 1) & 1)
+                cols.append(hp[(ml + a // 2) * pc + nl + cc // 2, par, c])
+            steps.append(torch.stack(cols, 1))
+        tile = _tf32x3(steps, w2, 16 * cm, co).reshape(
+            rows, CHUNK_COLS, co)
+        nr, nc = min(rows, h - r0), min(CHUNK_COLS, w - c0)
+        y[b, :, r0:r0 + nr, c0:c0 + nc] = tile[:nr, :nc].permute(2, 0, 1)
+    return y
+
+
+def bulge_wgmma_f32(x, wT, scale, bias, wC, *, stats="pooled", running=None,
+                    groups=None, eps=1e-5):
+    """The pair through `wgmma_f32_stats` and `wgmma_f32_main` with the
+    wrapper's own reduction: the signature and results of ops/bulge.py
+    bulge_plain, for fp32 x at a triple the kernel was built for."""
+    bsz, _, h, w = x.shape
+    cm = wT.shape[1]
+    if stats == "running":
+        mean, var = running
+        mu, v = mean.expand(bsz, cm), var.expand(bsz, cm)
+    else:
+        g = bsz if stats == "per_image" else (groups or 1)
+        mean, var = reduce_partials(wgmma_f32_stats(x, wT), 4 * h * w, g)
+        mu = mean.repeat_interleave(bsz // g, dim=0)
+        v = var.repeat_interleave(bsz // g, dim=0)
+        if stats == "pooled" and groups is None:
+            mean, var = mean[0], var[0]
+    gain = torch.rsqrt(v + eps) * scale.float()
+    return wgmma_f32_main(x, wT, wC, mu, gain, bias.float()), (mean, var)

@@ -248,9 +248,15 @@ def test_packed_stats_slots_are_the_schedule_items():
 # ---- the static choice -------------------------------------------------------
 
 def test_choose_impl_is_a_static_rule_on_the_shapes():
+    """fp32: the wgmma kernel where its tensor map takes x (a triple it was
+    built for, W % 4 == 0, an aligned base), the mma.sync kernel at the
+    other triples it was built for, the FMA kernel elsewhere."""
     for ci, cm, co in M.MMA_TRIPLES:
         for h, w in ((1, 3), (32, 32), (2048, 2048)):
-            assert K.choose_impl(ci, cm, co, h, w) == "mma"
+            wgmma = (ci, cm, co) in M.WGMMA_TRIPLES and w % 4 == 0
+            assert K.choose_impl(ci, cm, co, h, w) == \
+                ("wgmma" if wgmma else "mma")
+            assert K.choose_impl(ci, cm, co, h, w, aligned=False) == "mma"
     assert K.choose_impl(5, 4, 8, 16, 16) == "fma"      # Ci != 2 Cm
     assert K.choose_impl(16, 16, 32, 16, 16) == "fma"
 
@@ -259,7 +265,7 @@ def test_impl_argument_is_checked():
     t = _tensors(_inputs(1, 5, 4, 8, 8, 8))
     with pytest.raises(ValueError, match="impl must be one of"):
         K._impl_for("auto", t["x"], t["wT"], t["wC"])
-    with pytest.raises(ValueError, match="bfloat16 only"):
+    with pytest.raises(ValueError, match="wgmma bulge kernel takes Ci/Cm/Co"):
         K._impl_for("wgmma", t["x"], t["wT"], t["wC"])
     with pytest.raises(ValueError, match="no instantiation"):
         K._impl_for("mma", t["x"], t["wT"], t["wC"])

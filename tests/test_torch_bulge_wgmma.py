@@ -180,15 +180,18 @@ def test_mma_takes_what_the_tensor_map_cannot():
     assert (8, 4, 8) not in M.WGMMA_TRIPLES
     assert K._impl_for(None, _x(1, 8, 16, 32), torch.zeros(8, 4, 4, 4),
                        torch.zeros(8, 4, 4, 4)) == "mma"
-    # float32 keeps its own rule
-    assert K.choose_impl(16, 8, 16, 8, 32) == "mma"
+    # float32 has its own wgmma kernel, whose map needs only W % 4 == 0
+    assert K.choose_impl(16, 8, 16, 8, 32) == "wgmma"
+    assert K.choose_impl(16, 8, 16, 8, 20) == "wgmma"
+    assert K.choose_impl(16, 8, 16, 8, 30) == "mma"
 
 
 def test_wgmma_refuses_what_it_does_not_take():
     wT, wC = torch.zeros(16, 8, 4, 4), torch.zeros(16, 8, 4, 4)
-    x32 = torch.zeros(1, 16, 8, 32)
-    with pytest.raises(ValueError, match="bfloat16 only"):
-        K._impl_for("wgmma", x32, wT, wC)
+    # fp32 x goes to the fp32 wgmma kernel, whose map needs W % 4 == 0
+    assert K._impl_for("wgmma", torch.zeros(1, 16, 8, 32), wT, wC) == "wgmma"
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K._impl_for("wgmma", torch.zeros(1, 16, 8, 30), wT, wC)
     with pytest.raises(ValueError, match="multiple of 8"):
         K._impl_for("wgmma", _x(1, 16, 16, 20), wT, wC)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -197,7 +200,8 @@ def test_wgmma_refuses_what_it_does_not_take():
         K._impl_for("wgmma", _x(1, 8, 8, 32), torch.zeros(8, 4, 4, 4),
                     torch.zeros(8, 4, 4, 4))
     assert K._impl_for("mma", _x(1, 16, 8, 32), wT, wC) == "mma"
-    assert set(K.impl_launches) == {"mma", "fma", "mma_bf16", "wgmma_bf16"}
+    assert set(K.impl_launches) == {"wgmma", "mma", "fma", "mma_bf16",
+                                    "wgmma_bf16"}
 
 
 @pytest.mark.parametrize("stats", K.STATS_MODES)

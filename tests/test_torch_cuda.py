@@ -95,22 +95,30 @@ def test_kernel_matches_plain(cuda, geom, stats):
 @pytest.mark.parametrize("geom", [(2, 16, 8, 16, 37, 45), (1, 8, 4, 8, 16, 20),
                                   (1, 32, 16, 32, 24, 40), (3, 16, 8, 16, 1, 3)])
 def test_each_implementation_matches_plain(cuda, geom, stats, impl):
-    """The tensor-core kernel ("mma") and the fp32 FMA kernel ("fma"), each
-    asked for by name, against the plain version; the launch counts move by
-    implementation."""
+    """The wgmma kernel ("wgmma", where its tensor map takes x), the
+    mma.sync kernel ("mma") and the fp32 FMA kernel ("fma"), each asked for
+    by name, against the plain version; the launch counts move by
+    implementation.  Where the wgmma kernel does not take x (W % 4 != 0,
+    an unbuilt triple) asking for it raises and launches nothing."""
     t = _inputs(*geom, cuda)
     run = (t["rmean"], t["rvar"]) if stats == "running" else None
     n0, i0 = dict(K.launches), dict(K.impl_launches)
-    y, (m, v) = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
-                        stats=stats, running=run, impl=impl)
-    yp, (mp, vp) = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"],
-                                 t["wC"], stats=stats, running=run)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    if impl == "wgmma" and not K.wgmma_takes(*geom[1:4], geom[5], True,
+                                             torch.float32):
+        with pytest.raises(ValueError, match="wgmma bulge kernel takes"):
+            K.bulge(*args, stats=stats, running=run, impl=impl)
+        assert K.launches == n0 and K.impl_launches == i0
+        return
+    y, (m, v) = K.bulge(*args, stats=stats, running=run, impl=impl)
+    yp, (mp, vp) = K.bulge_plain(*args, stats=stats, running=run)
     torch.cuda.synchronize()
     moved = 1 + (stats != "running")
     assert K.launches["bulge_main"] == n0["bulge_main"] + 1
     assert K.impl_launches[impl] == i0[impl] + moved
-    other = K.IMPLS[1 - K.IMPLS.index(impl)]
-    assert K.impl_launches[other] == i0[other]
+    for other in K.impl_launches:
+        if other != impl:
+            assert K.impl_launches[other] == i0[other]
     np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
@@ -120,10 +128,13 @@ def test_default_implementation_is_the_static_rule(cuda):
     t = _inputs(1, 16, 8, 16, 16, 20, cuda)
     i0 = dict(K.impl_launches)
     K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
-    assert K.choose_impl(16, 8, 16, 16, 20) == "mma"
-    assert K.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"],
-                               "mma_bf16": i0["mma_bf16"],
+    assert K.choose_impl(16, 8, 16, 16, 20) == "wgmma"
+    assert K.impl_launches == {"wgmma": i0["wgmma"] + 2, "mma": i0["mma"],
+                               "fma": i0["fma"], "mma_bf16": i0["mma_bf16"],
                                "wgmma_bf16": i0["wgmma_bf16"]}
+    t = _inputs(1, 16, 8, 16, 16, 22, cuda)       # W % 4 != 0: mma.sync
+    K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    assert K.impl_launches["mma"] == i0["mma"] + 2
     with pytest.raises(ValueError, match="impl must be one of"):
         K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"], impl="auto")
 
@@ -168,9 +179,10 @@ def test_network_runs_the_implementation_it_was_given(cuda, impl):
                    generator=torch.Generator(device=cuda).manual_seed(3))
     i0 = dict(K.impl_launches)
     got = named(x, bn_stats="per_image")
-    other = K.IMPLS[1 - K.IMPLS.index(impl)]
     assert K.impl_launches[impl] == i0[impl] + 2
-    assert K.impl_launches[other] == i0[other]
+    for other in K.impl_launches:
+        if other != impl:
+            assert K.impl_launches[other] == i0[other]
     np.testing.assert_allclose(got.cpu(), fused(x, bn_stats="per_image").cpu(),
                                rtol=1e-4, atol=1e-4)
 
@@ -195,8 +207,16 @@ def test_each_implementation_at_ci32_with_grouped_statistics(cuda, bsz, groups,
 @pytest.mark.parametrize("impl", K.IMPLS)
 def test_each_implementation_takes_more_images_than_a_grid_dimension(cuda,
                                                                      impl):
+    """70,000 images; the wgmma kernel, built for Ci 16 and 32 only, at Ci
+    16 and 16x8 (and it refuses Ci 8)."""
     t = _inputs(70000, 8, 4, 8, 16, 16, cuda, seed=3)
     run = (t["rmean"], t["rvar"])
+    if impl == "wgmma":
+        with pytest.raises(ValueError, match="wgmma bulge kernel takes"):
+            K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                    stats="running", running=run, impl=impl)
+        t = _inputs(70000, 16, 8, 16, 16, 8, cuda, seed=3)
+        run = (t["rmean"], t["rvar"])
     y, _ = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
                    stats="running", running=run, impl=impl)
     yp, _ = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
@@ -259,6 +279,79 @@ def test_overlap_pipeline_fused_matches_unfused_on_card(cuda, bn_eval):
     np.testing.assert_allclose(got["naive"].cpu(), want["naive"].cpu(), **Y_TOL)
     for g, t in zip(got["seam"].cpu().numpy(), got["tiles"].cpu().numpy()):
         np.testing.assert_array_equal(g, seam_stitch(t, 64, 8, 4))
+
+
+# ---- K2 in fp32 on wgmma (csrc/bulge_wgmma.cu namespace wgf) ----------------
+
+def test_tf32_probe_pins_the_layout_and_the_truncation(cuda):
+    """One wgmma m64n32k8 .tf32 product of raw fp32 words, A from registers
+    as the kernels load it and B in to_wgmma_tf32's layout, two k-steps:
+    the card's result equals the product of the operands truncated to TF32
+    (a & 0xffffe000) to fp32 accuracy, and not the product of them rounded
+    to nearest TF32 (1e-3 apart here) - so the core-matrix layout and the
+    k-step offset are the kernels', and the tensor cores read an fp32 word
+    as its truncation (the kernels store hi truncated all the same)."""
+    from dcgan_sr_tpu_torch.ops import bulge_mma as M
+    rng = np.random.RandomState(13)
+    a = torch.tensor(rng.randn(64, 16), dtype=torch.float32)
+    b = torch.tensor(rng.randn(16, 32), dtype=torch.float32)
+    packed = torch.from_numpy(M.to_wgmma_tf32(b.numpy()).copy())
+    n0, i0 = dict(K.launches), dict(K.impl_launches)
+    d = K.tf32_probe(a.to(cuda), packed.to(cuda)).cpu().double()
+    assert K.launches == n0 and K.impl_launches == i0
+
+    def rounded(v):
+        u = v.numpy().view(np.uint32).astype(np.int64)
+        u = ((u + 0x1000) & ~0x1FFF) & 0xFFFFFFFF
+        return torch.from_numpy(u.astype(np.uint32).view(np.float32)).double()
+    trunc = M.trunc_tf32(a).double() @ M.trunc_tf32(b).double()
+    near = rounded(a) @ rounded(b)
+    assert (d - trunc).abs().max().item() < 1e-5
+    assert (d - near).abs().max().item() > 1e-3
+
+
+RAGGED_F32 = [(2, 16, 8, 16, 37, 44), (3, 16, 8, 16, 1, 4),
+              (1, 32, 16, 32, 24, 40), (2, 32, 16, 32, 21, 36),
+              (1, 32, 16, 32, 3, 8)]
+
+
+@pytest.mark.parametrize("stats", K.STATS_MODES)
+@pytest.mark.parametrize("geom", RAGGED_F32)
+def test_fp32_wgmma_kernel_at_ragged_shapes(cuda, geom, stats):
+    """bulge()'s own choice at ragged shapes the fp32 wgmma kernel takes
+    (W % 4 == 0; bands and chunks cut by the image's edge, at both band
+    heights) is the wgmma kernel, within the pair's tolerances of the plain
+    version."""
+    t = _inputs(*geom, cuda, seed=8)
+    run = (t["rmean"], t["rvar"]) if stats == "running" else None
+    i0 = dict(K.impl_launches)
+    assert K.choose_impl(*geom[1:]) == "wgmma"
+    y, (m, v) = K.bulge(t["x"], t["wT"], t["scale"], t["bias"], t["wC"],
+                        stats=stats, running=run)
+    yp, (mp, vp) = K.bulge_plain(t["x"], t["wT"], t["scale"], t["bias"],
+                                 t["wC"], stats=stats, running=run)
+    torch.cuda.synchronize()
+    assert K.impl_launches["wgmma"] == i0["wgmma"] + 1 + (stats != "running")
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+@pytest.mark.parametrize("geom", [(2, 16, 8, 16, 20, 72),
+                                  (1, 32, 16, 32, 13, 40)])
+def test_fp32_wgmma_matches_its_emulation(cuda, geom):
+    """The stats launch slot by slot, and y, against ops/bulge_mma.py's
+    emulation of the kernel's arithmetic (the same three TF32 products a
+    k-step; only the order of fp32 sums inside a k-step differs)."""
+    from dcgan_sr_tpu_torch.ops import bulge_mma as M
+    t = _inputs(*geom, cuda, seed=5)
+    got = K.launch_stats(t["x"], t["wT"].contiguous(), impl="wgmma")
+    want = M.wgmma_f32_stats(t["x"].cpu(), t["wT"].cpu())
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-5, atol=1e-4)
+    args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
+    y, _ = K.bulge(*args, impl="wgmma")
+    ye, _ = M.bulge_wgmma_f32(*(a.cpu() for a in args))
+    np.testing.assert_allclose(y.cpu(), ye, rtol=1e-5, atol=1e-5)
 
 
 # ---- K3: the channels-last fused pair ---------------------------------------
