@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build of every kernel of every
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
-     bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu — started together),
+     bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu, fused_nhwc_wgmma.cu —
+     started together),
      timed, with the `-Xptxas -v` resource lines.
   2. kernels: first the fp32 wgmma kernels' layout probe (two k-steps of
      wgmma .tf32 on raw fp32 words: the result must be the product of the
@@ -65,18 +66,21 @@ Phases, each fatal on failure:
      step in ms and images/s, the host's time to queue a step, peak
      device memory, the same with torch.backends.cudnn.benchmark on, and
      the training generator's forward layer by layer.
-  9. kernel: the channels-last fused pair (ops/fused_nhwc.py,
-     csrc/fused_nhwc.cu), each implementation it has at a shape (the
-     tensor-core one at Ci 16 / Cm 8 / Co 16, the FMA one everywhere),
-     against its plain PyTorch version on the card at (B, Ci, Cm, Co, H, W)
-     = (2,5,4,6,16,16) tm 8, (1,16,8,16,32,32) tm 16, (3,3,2,3,8,8) tm 8 (the
-     shapes of tests/test_pallas_fused.py), (1,16,8,16,256,256) and
-     (100,16,8,16,256,256) tm 32, and (70000,16,8,16,8,8) tm 8 (more images
-     than a grid dimension takes); the chosen one also against the bulge
-     kernel on the same inputs.  At (100,16,8,16,256,256): each launch of
-     each implementation and the whole call (`pair_ms`, transposes included)
-     timed in turns (fma, mma, mma, fma), an error if the chosen one is the
-     slower; the plain version's two phases and the cuDNN composition.
+  9. kernel: the channels-last fused pair (ops/fused_nhwc.py), each
+     implementation it has at a shape (the TMA and wgmma kernel of
+     csrc/fused_nhwc_wgmma.cu and the mma.sync kernel of csrc/fused_nhwc.cu
+     at their triples, the FMA kernel everywhere), against its plain
+     PyTorch version on the card at (B, Ci, Cm, Co, H, W) = (2,5,4,6,16,16)
+     tm 8, (1,16,8,16,32,32) tm 16, (3,3,2,3,8,8) tm 8 (the shapes of
+     tests/test_pallas_fused.py), (2,32,16,32,32,37) tm 16,
+     (1,16,8,16,256,256) and (100,16,8,16,256,256) tm 32, and
+     (70000,16,8,16,8,8) tm 8 (more images than a grid dimension takes);
+     the chosen one also against the bulge kernel on the same inputs.  At
+     (100,16,8,16,256,256): each launch of the two tensor-core kernels and
+     the whole call (`pair_ms`, transposes included) timed in turns (mma,
+     wgmma, wgmma, mma), an error if the chosen one is the slower; the FMA
+     kernel once, the plain version's two phases, the cuDNN composition
+     and K2's kernel on the same x.
  10. kernel: the bulge kernel at the overlap pipeline's shapes, with the
      overlap fixture's layer-3/4 weights (Ci 32, Cm 16, Co 32): x
      (225,32,32,32) pooled, (14400,32,32,32) running and grouped by 225;
@@ -85,8 +89,8 @@ Phases, each fatal on failure:
      `--kernel bulge` as subprocesses at the default batch 100, hw 256,
      fp32; the JSON line parsed, max_abs_diff held to the y tolerance, the
      launch counts on the line before it moved from 0, every launch by the
-     tensor-core implementation the shape gets (K3: mma.sync; K2: wgmma;
-     the line before that).
+     implementation the shape gets (wgmma, both kernels; the line before
+     that).
  12. path: the overlap pipeline (infer/tiled.py make_overlap_sr_fn) for
      gray-patch-batch-overlap at full width from its fixture, 64 images of
      64x64 from a seed, per-image-tile BN and running-stats BN, fused
@@ -171,16 +175,17 @@ Phases, each fatal on failure:
      SSIM within 1e-4 of the CPU's plain path, seam > naive > bilinear on
      the card, eval images/s, K2's launches (every one by the fp32 wgmma
      kernel).
- 21. kernel: the channels-last pair's bf16 instantiation (x, the packed
-     weights, the planes fed to the second product and y in bf16) against
-     its plain bf16 version at the three channel triples, ragged shapes and
-     bench_fused's (100,16,8,16,256,256) tm 32: y within two bf16 steps of
-     max |y| with at most 1% of y's elements different at all, moments to
-     1e-5; at bench_fused's shape each launch timed in turns against the
-     fp32 tensor-core kernel on the same values, the whole call in turns,
+ 21. kernel: the channels-last pair in bf16 (x, the packed weights, the
+     planes fed to the second product and y in bf16), by the wgmma kernel
+     and the mma.sync kernel at the triples each was built for, against its
+     plain bf16 version at the three channel triples, ragged shapes, 70,000
+     images and bench_fused's (100,16,8,16,256,256) tm 32: y within two
+     bf16 steps of max |y| with at most 1% of y's elements different at
+     all, moments to 1e-5; at bench_fused's shape each launch of the two
+     timed in turns (mma, wgmma, wgmma, mma), the whole call in turns,
      beside the plain version, the cuDNN bf16 composition and the bound at
      the bf16 rate; `python -m dcgan_sr_tpu_torch.bench_fused --kernel
-     nhwc` (bf16 by default) as a subprocess.
+     nhwc` (bf16 by default) as a subprocess, every launch by wgmma.
  22. the trainer's K-step chunk as one CUDA graph (train/multi_step.py),
      bf16 at bench.py's geometry, K = 20: for gray-3, rgb-full and
      gray-patch-batch, the eager loop and the graph in turns (eager, graph,
@@ -1308,17 +1313,20 @@ def step_breakdown(cfg, state, smi, warm=2, iters=10, batches=None,
 # ---------------------------------------------------------------------------
 
 # ((B, Ci, Cm, Co, H, W), tm): the shapes of tests/test_pallas_fused.py,
-# bench_fused's, and more images than a grid dimension takes
+# the wider triple at a ragged width, bench_fused's, and more images than a
+# grid dimension takes
 NHWC_CASES = [((2, 5, 4, 6, 16, 16), 8), ((1, 16, 8, 16, 32, 32), 16),
-              ((3, 3, 2, 3, 8, 8), 8), ((1, 16, 8, 16, 256, 256), 32),
+              ((3, 3, 2, 3, 8, 8), 8), ((2, 32, 16, 32, 32, 37), 16),
+              ((1, 16, 8, 16, 256, 256), 32),
               ((100, 16, 8, 16, 256, 256), 32), ((70000, 16, 8, 16, 8, 8), 8)]
 
 
 def nhwc_phase():
     """K3 by each implementation it has at each case against its plain
     version, the chosen one also against K2 (or the unfused pair); at
-    bench_fused's shape both implementations timed in turns.  Returns the
-    chosen implementation's worst errors and the timing row."""
+    bench_fused's shape the two tensor-core implementations timed in turns,
+    the FMA kernel once.  Returns the chosen implementation's worst errors
+    and the timing row."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1346,8 +1354,7 @@ def nhwc_phase():
                               for k, c in n0.items()},
               "K3's fp32 launch counts did not move by one each")
         for impl in F3.IMPLS:
-            if impl not in got and (impl == "fma"
-                                    or (ci, cm, co) in F3.M.MMA_TRIPLES):
+            if impl not in got and F3.built_for(impl, ci, cm, co):
                 got[impl] = F3.fused_convT_bn_relu_conv(*args, tm=tm,
                                                         impl=impl)
         yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
@@ -1387,33 +1394,42 @@ def nhwc_phase():
             torch.cuda.empty_cache()
             continue
 
-        # times per launch at bench_fused's geometry: each launch of each
-        # implementation in turns (fma, mma, mma, fma), and the whole call
+        # times per launch at bench_fused's geometry: each launch of the two
+        # tensor-core implementations in turns (mma, wgmma, wgmma, mma), and
+        # the whole call; the FMA kernel once
         xn = x.permute(0, 2, 3, 1).contiguous()
         xl = F3._pad_nhwc(x).contiguous()
         wtall, wcall = F3._pack_wT(wT), F3._pack_wC(wC)
         ops = {impl: F3.operands(wT, wC, impl) for impl in F3.IMPLS}
         gain = torch.rsqrt(v + 1e-5) * scale
         bn = F3._bn_rows(m, v, scale, bias, 1e-5)
-        st, st_best = in_turns(
-            {impl: (lambda impl=impl: F3.launch_stats(
-                xn, ops[impl][0], cm, tm, impl)) for impl in ("fma", "mma")},
-            10)
-        mn, mn_best = in_turns(
-            {impl: (lambda impl=impl: F3.launch_main(
-                xn, *ops[impl], bn, cm, co, tm, impl))
-             for impl in ("fma", "mma")}, 10)
-        pair, _ = in_turns(
-            {impl: (lambda impl=impl: F3.fused_convT_bn_relu_conv(
-                *args, tm=tm, impl=impl)) for impl in ("fma", "mma")}, 5)
+        tc = ("mma", "wgmma")
+
+        def stats(impl):
+            return lambda: F3.launch_stats(xn, ops[impl][0], cm, tm, impl)
+
+        def main_(impl):
+            return lambda: F3.launch_main(xn, *ops[impl], bn, cm, co, tm,
+                                          impl)
+
+        def whole(impl):
+            return lambda: F3.fused_convT_bn_relu_conv(*args, tm=tm,
+                                                       impl=impl)
+        st, st_best = in_turns({i: stats(i) for i in tc}, 10)
+        mn, mn_best = in_turns({i: main_(i) for i in tc}, 10)
+        pair, _ = in_turns({i: whole(i) for i in tc}, 5)
+        k2_gain = gain.expand(b, cm).contiguous()
         with N.fp32_convs():
             row = {
                 "shape": [b, ci, h, w], "tm": tm, "impl": chosen,
                 "stats_ms": st[chosen], "main_ms": mn[chosen],
                 "pair_ms": pair[chosen],
-                "stats_fma_ms": st["fma"], "stats_mma_ms": st["mma"],
-                "main_fma_ms": mn["fma"], "main_mma_ms": mn["mma"],
-                "pair_fma_ms": pair["fma"], "pair_mma_ms": pair["mma"],
+                "stats_wgmma_ms": st["wgmma"], "stats_mma_ms": st["mma"],
+                "main_wgmma_ms": mn["wgmma"], "main_mma_ms": mn["mma"],
+                "pair_wgmma_ms": pair["wgmma"], "pair_mma_ms": pair["mma"],
+                "stats_fma_ms": time_ms(stats("fma"), 3),
+                "main_fma_ms": time_ms(main_("fma"), 3),
+                "pair_fma_ms": time_ms(whole("fma"), 2),
                 "plain_stats_ms": time_ms(lambda: F3.plain_stats(xl, wtall, tm), 3),
                 "plain_main_ms": time_ms(lambda: F3.plain_main(
                     xl, wtall, wcall, m, gain, bias, tm), 3),
@@ -1424,6 +1440,9 @@ def nhwc_phase():
                     F.conv_transpose2d(x, wT, stride=2, padding=1), m, v,
                     scale, bias, training=False)), wC, stride=2, padding=1), 3),
                 "K2_stats_ms": time_ms(lambda: K.launch_stats(x, wT), 10),
+                "K2_main_ms": time_ms(lambda: K.launch_main(
+                    x, wT, wC, m.expand(b, cm).contiguous(), k2_gain,
+                    bias), 10),
                 "K2_pair_ms": time_ms(lambda: K.bulge(*args), 5),
             }
         # the better turn of each, with 5% of slack
@@ -1442,7 +1461,7 @@ def nhwc_phase():
                       + 12 * cm)
         # the kernel's own rate (three TF32 products per fp32 product), and
         # the fp32 FMA rate the FMA kernel is held to
-        peak = PEAK_3XTF32 if chosen == "mma" else PEAK_FP32
+        peak = PEAK_3XTF32 if chosen in tc else PEAK_FP32
         row["stats_bound"] = bound(f_stats, b_stats, peak)
         row["main_bound"] = bound(f_main, b_main, peak)
         row["stats_bound_fp32_fma"] = bound(f_stats, b_stats)
@@ -1532,10 +1551,9 @@ def bench_fused_phase():
         for n in names:
             check(counts[n] > 0, f"bench_fused --kernel {kernel} did not "
                   f"launch {n}: {counts}")
-        # at Ci 16 / Cm 8 / Co 16 both pairs run on the tensor cores: K3 by
-        # its mma.sync kernel, K2 by its wgmma kernel
+        # at Ci 16 / Cm 8 / Co 16 both pairs run on their wgmma kernels
         mine = by_impl["fused_nhwc" if kernel == "nhwc" else "bulge"]
-        want = "mma" if kernel == "nhwc" else "wgmma"
+        want = "wgmma"
         check(mine[want] == counts[names[0]] + counts[names[1]]
               and sum(mine.values()) == mine[want],
               f"bench_fused --kernel {kernel} launched {by_impl}")
@@ -2703,27 +2721,32 @@ def eval_phase(smi):
 # ---------------------------------------------------------------------------
 
 # ((B, Ci, Cm, Co, H, W), tm): the three built triples, ragged widths, a
-# pass clipped at its band's end, and bench_fused's shape (timed)
+# pass clipped at its band's end, more images than a grid dimension takes,
+# and bench_fused's shape (timed)
 K3_BF16_CASES = [((2, 8, 4, 8, 32, 37), 8), ((2, 16, 8, 16, 64, 100), 32),
                  ((2, 32, 16, 32, 32, 33), 16), ((3, 16, 8, 16, 6, 3), 6),
+                 ((70000, 16, 8, 16, 8, 8), 8),
                  ((100, 16, 8, 16, 256, 256), 32)]
 
 
-def hold_k3_bf16(F3, args, tm, label):
-    """K3 on bf16 x against its plain bf16 version on the same inputs: y
-    within TOL_Y_BF16_STEPS bf16 steps of max |y| with at most
+def hold_k3_bf16(F3, args, tm, label, impl):
+    """K3 on bf16 x by `impl` against its plain bf16 version on the same
+    inputs: y within TOL_Y_BF16_STEPS bf16 steps of max |y| with at most
     TOL_Y_BF16_SHARE of its elements different at all, moments within
-    TOL_STATS; only the bf16 launch counts move.  Returns (max |dy|, max
-    |dstats|, share of y that differs, y, mean, var)."""
+    TOL_STATS; only the bf16 launch counts move, by `impl`.  Returns (max
+    |dy|, max |dstats|, share of y that differs, y, mean, var)."""
     import torch
-    n0 = dict(F3.launches)
-    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm)
+    n0, i0 = dict(F3.launches), dict(F3.impl_launches)
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm, impl=impl)
     yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
     torch.cuda.synchronize()
     check(y.dtype == torch.bfloat16 and m.dtype == torch.float32,
           f"K3 bf16 gave y {y.dtype}, moments {m.dtype}")
-    check(F3.launches == {k: c + k.endswith("_bf16") for k, c in n0.items()},
-          f"K3 bf16 launched {F3.launches} (before {n0})")
+    check(F3.launches == {k: c + k.endswith("_bf16") for k, c in n0.items()}
+          and F3.impl_launches == {**i0, impl + "_bf16":
+                                   i0[impl + "_bf16"] + 2},
+          f"K3 bf16 ({impl}) launched {F3.launches}, {F3.impl_launches} "
+          f"(before {n0}, {i0})")
     check(bool(torch.isfinite(y).all()), f"non-finite K3 bf16 y at {label}")
     d = (y.float() - yp.float()).abs()
     ey, share = d.max().item(), (d > 0).float().mean().item()
@@ -2734,18 +2757,18 @@ def hold_k3_bf16(F3, args, tm, label):
     check(_close(m, mp, TOL_STATS) and _close(v, vp, TOL_STATS),
           f"K3 bf16 moments disagree at {label}")
     es = max((m - mp).abs().max().item(), (v - vp).abs().max().item())
-    print(f"K3 bf16 {label} tm {tm}: max|dy| {ey:.3e} (a bf16 step of "
+    print(f"K3 bf16 {label} tm {tm} {impl}: max|dy| {ey:.3e} (a bf16 step of "
           f"max|y|: {bf16_step(yp.float()):.3e}), {share:.4%} of y differs, "
           f"max|dstats| {es:.3e}", flush=True)
     return ey, es, share, y, m, v
 
 
 def k3_bf16_phase(smi):
-    """Phase 21: K3's bf16 instantiation against its plain version, its
-    launches timed in turns against the fp32 tensor-core kernel at
+    """Phase 21: K3 in bf16 by the wgmma and the mma.sync kernel against its
+    plain version, the two kernels' launches timed in turns at
     bench_fused's shape, and bench_fused --kernel nhwc (bf16 by default) as
-    users start it.  Returns ({kernel: worst |diff|}, the timing row,
-    bench_fused's launch counts)."""
+    users start it.  Returns ({kernel: worst |diff| of the chosen
+    implementation}, the timing row, bench_fused's launch counts)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2766,32 +2789,44 @@ def k3_bf16_phase(smi):
         scale, bias = t(1 + 0.1 * rng.randn(cm)), t(0.1 * rng.randn(cm))
         args = (xb, wT, scale, bias, wC)
         geom = (b, ci, cm, co, h, w)
-        ey, es, share, y, m, v = hold_k3_bf16(F3, args, tm, str(geom))
-        err["fused_nhwc_main_bf16"] = max(err["fused_nhwc_main_bf16"], ey)
-        err["fused_nhwc_stats_bf16"] = max(err["fused_nhwc_stats_bf16"], es)
-        del y
+        chosen = F3.choose_impl(ci, cm, co, h, w, torch.bfloat16)
+        for impl in ("wgmma", "mma"):
+            if not F3.built_for(impl, ci, cm, co):
+                continue
+            ey, es, share, y, m, v = hold_k3_bf16(F3, args, tm, str(geom),
+                                                  impl)
+            del y
+            if impl == chosen:
+                err["fused_nhwc_main_bf16"] = max(err["fused_nhwc_main_bf16"],
+                                                  ey)
+                err["fused_nhwc_stats_bf16"] = max(
+                    err["fused_nhwc_stats_bf16"], es)
         if b != 100:
+            del xb
+            torch.cuda.empty_cache()
             continue
-        # times per launch at bench_fused's shape: the bf16 kernel and the
-        # fp32 tensor-core kernel on the same values (x rounded to bf16), in
-        # turns (fp32, bf16, bf16, fp32), and the whole call likewise
+        # times per launch at bench_fused's shape: the wgmma and the
+        # mma.sync kernel on the same bf16 values, in turns (mma, wgmma,
+        # wgmma, mma), and the whole call likewise
         x32 = xb.float()
-        xn = {"bf16": xb.permute(0, 2, 3, 1).contiguous()}
-        xn["fp32"] = xn["bf16"].float()
-        ops = {"bf16": F3.operands(wT, wC, "mma", torch.bfloat16),
-               "fp32": F3.operands(wT, wC, "mma")}
+        xn = xb.permute(0, 2, 3, 1).contiguous()
+        tc = ("mma", "wgmma")
+        ops = {k: F3.operands(wT, wC, k, torch.bfloat16) for k in tc}
         bn = F3._bn_rows(m, v, scale, bias, 1e-5)
         st, st_best = in_turns(
-            {k: (lambda k=k: F3.launch_stats(xn[k], ops[k][0], cm, tm, "mma"))
-             for k in ("fp32", "bf16")}, 10)
+            {k: (lambda k=k: F3.launch_stats(xn, ops[k][0], cm, tm, k))
+             for k in tc}, 10)
         mn, mn_best = in_turns(
-            {k: (lambda k=k: F3.launch_main(xn[k], *ops[k], bn, cm, co, tm,
-                                            "mma"))
-             for k in ("fp32", "bf16")}, 10)
+            {k: (lambda k=k: F3.launch_main(xn, *ops[k], bn, cm, co, tm, k))
+             for k in tc}, 10)
         pair, _ = in_turns(
-            {"fp32": lambda: F3.fused_convT_bn_relu_conv(
-                x32, wT, scale, bias, wC, tm=tm),
-             "bf16": lambda: F3.fused_convT_bn_relu_conv(*args, tm=tm)}, 5)
+            {k: (lambda k=k: F3.fused_convT_bn_relu_conv(*args, tm=tm,
+                                                         impl=k))
+             for k in tc}, 5)
+        check(mn_best[chosen] <= min(mn_best.values()) * 1.05
+              and st_best[chosen] <= min(st_best.values()) * 1.05,
+              f"K3 bf16 runs {chosen} at {geom}, which is the slower "
+              f"implementation in this run: stats {st}, main {mn}")
         as_bf16 = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
         xl = F3._pad_nhwc(x32).contiguous()
         wtall, wcall = (as_bf16(F3._pack_wT(wT)), as_bf16(F3._pack_wC(wC)))
@@ -2800,9 +2835,10 @@ def k3_bf16_phase(smi):
         with N.fp32_convs():
             row = {
                 "shape": [b, ci, h, w], "tm": tm, "dtype": "bf16",
-                "stats_ms": st["bf16"], "main_ms": mn["bf16"],
-                "stats_fp32_ms": st["fp32"], "main_fp32_ms": mn["fp32"],
-                "pair_ms": pair["bf16"], "pair_fp32_ms": pair["fp32"],
+                "impl": chosen,
+                "stats_ms": st[chosen], "main_ms": mn[chosen],
+                "stats_mma_ms": st["mma"], "main_mma_ms": mn["mma"],
+                "pair_ms": pair[chosen], "pair_mma_ms": pair["mma"],
                 "plain_stats_ms": time_ms(
                     lambda: F3.plain_stats(xl, wtall, tm), 3),
                 "plain_main_ms": time_ms(lambda: F3.plain_main(
@@ -2828,8 +2864,8 @@ def k3_bf16_phase(smi):
         row["main_bound"] = bound(f_main, b_main, PEAK_BF16)
         for k in ("stats", "main"):
             row[f"{k}_share_of_bound"] = row[f"{k}_bound"][0] / row[f"{k}_ms"]
-        row["bf16_over_fp32"] = {"stats": st["fp32"] / st["bf16"],
-                                 "main": mn["fp32"] / mn["bf16"]}
+        row["wgmma_over_mma"] = {"stats": st["mma"] / st["wgmma"],
+                                 "main": mn["mma"] / mn["wgmma"]}
         print(f"K3 bf16 times on {smi}: " + _fmt(row), flush=True)
         del x32, xn, xl, xb
         torch.cuda.empty_cache()
@@ -2847,8 +2883,10 @@ def k3_bf16_phase(smi):
     names = ("fused_nhwc_stats_bf16", "fused_nhwc_main_bf16")
     check(all(counts[n] > 0 for n in names)
           and counts["fused_nhwc_stats"] == counts["fused_nhwc_main"] == 0
-          and by_impl["fused_nhwc"]["mma_bf16"] == sum(counts[n]
-                                                        for n in names),
+          and by_impl["fused_nhwc"]["wgmma_bf16"] == sum(counts[n]
+                                                          for n in names)
+          and sum(by_impl["fused_nhwc"].values()) == sum(counts[n]
+                                                         for n in names),
           f"bench_fused --kernel nhwc launched {counts}, {by_impl}")
     print(f"bench_fused --kernel nhwc (bf16 default) on {smi}: "
           + json.dumps(rec) + " launches " + json.dumps(counts), flush=True)
@@ -4408,7 +4446,9 @@ def main():
     sources = (("bulge", K.build, lambda: K.build_log),
                ("bulge_wgmma", K.build_wgmma, lambda: K.wgmma_build_log),
                ("preprocess", P.build, lambda: P.build_log),
-               ("fused_nhwc", F3.build, lambda: F3.build_log))
+               ("fused_nhwc", F3.build, lambda: F3.build_log),
+               ("fused_nhwc_wgmma", F3.build_wgmma,
+                lambda: F3.wgmma_build_log))
     threads = [threading.Thread(target=build, args=(fn, name))
                for name, fn, _ in sources]
     for th in threads:
@@ -4791,11 +4831,14 @@ def main():
             "library_host_queue_us": r["library_host_queue_us"],
             "path": f"folder trainer {trainer}",
             "crop_then_k1_vs_host_hook": folder_row["crop_check"]})
+    # K3: bench_fused --kernel nhwc runs the wgmma kernel in both dtypes
+    # (phases 11 and 21 hold every launch to it); the mma.sync (and in fp32
+    # the FMA) kernel's times beside it
     for name, line, key in (("fused_nhwc_stats", 98, "stats"),
                             ("fused_nhwc_main", 119, "main")):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
+            "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc_wgmma.cu",
             "replaces": f"dcgan_sr_tpu/ops/pallas_fused.py:{line}",
             "launches": nhwc_launches[name], "max_abs_err": nhwc_err[name],
             "ms": nhwc_row[f"{key}_ms"],
@@ -4804,15 +4847,19 @@ def main():
             "bound_by": nhwc_row[f"{key}_bound"][1],
             "library_ms": nhwc_row[f"lib_{key}_ms"],
             "shape": nhwc_row["shape"], "impl": nhwc_row["impl"],
+            "mma_ms": nhwc_row[f"{key}_mma_ms"],
+            "mma_source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
             "fma_ms": nhwc_row[f"{key}_fma_ms"],
             "bound_fp32_fma_ms": nhwc_row[f"{key}_bound_fp32_fma"][0],
+            "K2_wgmma_ms": nhwc_row[f"K2_{key}_ms"],
             "pair_ms": nhwc_row["pair_ms"],
+            "pair_mma_ms": nhwc_row["pair_mma_ms"],
             "pair_fma_ms": nhwc_row["pair_fma_ms"]})
     for name, line, key in (("fused_nhwc_stats_bf16", 98, "stats"),
                             ("fused_nhwc_main_bf16", 119, "main")):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
+            "source": "dcgan_sr_tpu_torch/csrc/fused_nhwc_wgmma.cu",
             "replaces": f"dcgan_sr_tpu/ops/pallas_fused.py:{line}",
             "launches": k3b_launches[name], "max_abs_err": k3b_err[name],
             "ms": k3b_row[f"{key}_ms"],
@@ -4821,9 +4868,11 @@ def main():
             "bound_by": k3b_row[f"{key}_bound"][1],
             "library_ms": k3b_row[f"lib_{key}_ms"],
             "shape": k3b_row["shape"], "dtype": "bf16",
-            "fp32_mma_ms": k3b_row[f"{key}_fp32_ms"],
+            "impl": k3b_row["impl"],
+            "mma_ms": k3b_row[f"{key}_mma_ms"],
+            "mma_source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
             "pair_ms": k3b_row["pair_ms"],
-            "pair_fp32_ms": k3b_row["pair_fp32_ms"]})
+            "pair_mma_ms": k3b_row["pair_mma_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,6 +7,8 @@ launches.
   python -m dcgan_sr_tpu_torch.ablation --kernel bulge_wgmma_f32 [--iters 10]
   python -m dcgan_sr_tpu_torch.ablation --kernel nhwc [--batch 100]
          [--hw 256] [--tm 32] [--iters 10]
+  python -m dcgan_sr_tpu_torch.ablation --kernel nhwc_wgmma[_f32] [--batch
+         100] [--hw 256] [--iters 10]
 
 Each variant is the kernel source with text substitutions (every
 occurrence; a variant whose text no longer matches the source stops the
@@ -74,6 +76,47 @@ run).
                   loads of a half warp meet bank conflicts
     w1_presplit   stage 1 reads W1 as (hi, lo) pairs split on the host, one
                   16-byte load a fragment and no split instructions
+
+  --kernel nhwc_wgmma_f32: csrc/fused_nhwc_wgmma.cu in fp32 (3xTF32 on
+  wgmma, the kernel bench_fused --kernel nhwc --dtype fp32 runs), at
+  bench_fused's shape
+    base          the source as it is: A (hi and lo) from registers
+    a_desc        hi*hi and hi*lo read A by descriptor from the box and the
+                  hidden planes (wgmma truncates the fp32 word to hi); only
+                  lo is loaded
+    one_pass      one TF32 product a k-step (hi*hi) instead of three (the
+                  result is off by about 1e-3)
+    no_a_loads    A's shared-memory loads left out (its split and the
+                  products stay)
+    kc2           main: groups of 2 k-steps of A registers, as in the stats
+                  kernel, instead of 4
+    stats_kc2     stats: groups of 2 k-steps instead of 1 (ptxas then
+                  serializes the wgmma for want of registers)
+    stats_one_block  stats: launch bound 1 (up to 255 registers a thread,
+                  one block an SM) instead of 2 at Ci 16
+    no_wgmma, no_hp_store, no_y_store, no_stage2, no_tma, skeleton,
+    skeleton_no_tma, l2_none, l2_256, three_wgs   as for --kernel
+                  nhwc_wgmma
+
+  --kernel nhwc_wgmma: csrc/fused_nhwc_wgmma.cu in bf16 (the kernel
+  bench_fused --kernel nhwc runs by default), at bench_fused's shape
+    base          the source as it is
+    no_wgmma      no wgmma.mma_async (fp32: A is still loaded and split)
+    no_hp_store   main: stage 1's epilogue stores no hidden plane
+    no_y_store    main: no y store to device memory
+    no_stage2     main: stage 2 left out (stage 1, its epilogue and the
+                  barriers stay)
+    no_tma        the TMA loads left out: the issuing thread arrives on the
+                  box's barrier itself (the products read stale boxes)
+    skeleton      no_wgmma, no_hp_store and no_y_store (fp32: and
+                  no_a_loads) together: the TMA loads, the barriers and the
+                  epilogues' arithmetic remain
+    skeleton_no_tma  skeleton without the TMA loads
+    l2_none, l2_256  the tensor maps' L2 promotion none or 256 bytes
+                  instead of 128
+    three_wgs     main: three warpgroups a block instead of two (each its
+                  own box and hidden planes; one box each where two do not
+                  fit)
 
 Variants change the kernel's arithmetic or skip work, so only their times
 mean anything.  The variants build in parallel; then each times its stats
@@ -301,6 +344,100 @@ def _k3_cases(args, torch, rng, dev):
     return {str(tuple(x.shape)): launches}
 
 
+# ---- K3 on Hopper's units (csrc/fused_nhwc_wgmma.cu), fp32 and bf16 ------
+
+_NW_TMA = """  mbar_expect_tx(bar, (uint32_t)(CIG * PLANE * 16));
+#pragma unroll
+  for (int g = 0; g < CIG; ++g)
+    tma_load(dst + (size_t)g * BP * 16, &maps->m[g], bar, m.c0 - 1,
+             m.r0 - 1, m.b);"""
+_NW_F32_STEP = """    Tf32RS<N>::run(d, lo, bd);
+    if constexpr (kHiByDesc) {
+      Tf32SS<N>::run(d, ad, bd + LO);
+      Tf32SS<N>::run(d, ad, bd);
+    } else {
+      Tf32RS<N>::run(d, hi, bd + LO);
+      Tf32RS<N>::run(d, hi, bd);
+    }"""
+_NW_VARIANTS = {
+    "base": [],
+    "no_wgmma": [("    Bf16SS<N>::run(d, ad, bd);",
+                  "    d[0] += __uint_as_float((uint32_t)(ad ^ bd));"),
+                 (_NW_F32_STEP, "    d[0] += __uint_as_float(hi[0] ^ hi[1] ^ "
+                  "hi[2] ^ hi[3] ^ lo[0] ^ lo[1] ^ lo[2] ^ lo[3] ^ "
+                  "(uint32_t)(ad ^ bd));")],
+    "no_hp_store": [("""              store2<P::F32>(hp + ((size_t)plane * G::PS + pos) * 16 +
+                                 (cm % P::E) * ELEM,
+                             o0, o1);""", """              if (o0 == 123.f && o1 == 77.f) hp[plane] = 1;""")],
+    "no_y_store": [("""              store2<P::F32>(yp + (8 * j + 2 * t) * ELEM, d[4 * j + 2 * i],
+                             d[4 * j + 2 * i + 1]);""",
+                    """              if (d[4 * j + 2 * i] == 123.f) yp[0] = 1;""")],
+    "no_stage2": [("    chain<P::F32, N2, G::K2S, KC2, G::M2T, W2P>(",
+                   "    if (n_items < 0) chain<P::F32, N2, G::K2S, KC2, "
+                   "G::M2T, W2P>(")],
+    "no_tma": [(_NW_TMA, """  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+      smem_u32(bar)) : "memory");
+  (void)m; (void)maps; (void)dst;""")],
+    "skeleton": None, "skeleton_no_tma": None,
+}
+_NW_F32_VARIANTS = {
+    **_NW_VARIANTS,
+    "a_desc": [("constexpr bool kHiByDesc = false;",
+                "constexpr bool kHiByDesc = true;")],
+    "one_pass": [(_NW_F32_STEP, "    Tf32RS<N>::run(d, hi, bd);")],
+    "no_a_loads": [("""  float v[4];
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[0]) : "r"(r0));
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[1]) : "r"(r0 + sbo));
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[2]) : "r"(r0 + lbo));
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v[3]) : "r"(r0 + lbo + sbo));""",
+                    """  float v[4];
+  for (int e = 0; e < 4; ++e) v[e] = __uint_as_float(0x3f800000u + (r0 >> e & 0xff));""")],
+}
+_NW_KNOBS = {
+    "l2_none": [("CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                 "CU_TENSOR_MAP_L2_PROMOTION_NONE")],
+    "l2_256": [("CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
+    "three_wgs": [("  return P::F32 && CI >= 32 ? 1 : 2;\n}",
+                   "  return P::F32 && CI >= 32 ? 1 : 3;\n}")],
+}
+_NW_VARIANTS.update(_NW_KNOBS)
+_NW_F32_VARIANTS.update(_NW_KNOBS)
+_NW_KC = "    return F32 ? (MAIN ? 4 : 1) : KS;"
+_NW_F32_VARIANTS["kc2"] = [(_NW_KC, _NW_KC.replace("MAIN ? 4", "MAIN ? 2"))]
+_NW_F32_VARIANTS["stats_kc2"] = [(_NW_KC, _NW_KC.replace(": 1)", ": 2)"))]
+_NW_F32_VARIANTS["stats_one_block"] = [(
+    "  static constexpr int MINB = bytes <= 113 * 1024 && 4 * CM <= 32 ? 2 : 1;",
+    "  static constexpr int MINB = bytes <= 113 * 1024 && 4 * CM <= 32 && "
+    "!P::F32 ? 2 : 1;")]
+for _v, _extra in ((_NW_VARIANTS, ()), (_NW_F32_VARIANTS, ("no_a_loads",))):
+    _v["skeleton"] = [sub for name in ("no_wgmma", "no_hp_store",
+                                       "no_y_store") + _extra
+                      for sub in _v[name]]
+    _v["skeleton_no_tma"] = _v["skeleton"] + _v["no_tma"]
+
+
+def _k3_wgmma_cases(args, torch, rng, dev, dtype=None):
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    dtype = dtype or torch.bfloat16
+    x = t(rng.rand(args.batch, 16, args.hw, args.hw)).to(dtype)
+    wT, wC = t(0.05 * rng.randn(16, 8, 4, 4)), t(0.05 * rng.randn(16, 8, 4, 4))
+    xn = x.permute(0, 2, 3, 1).contiguous()
+    w1, w2 = K3.operands(wT, wC, "wgmma", dtype)
+    bn = torch.stack([torch.zeros(32), torch.ones(32),
+                      torch.zeros(32)]).to(dev).contiguous()
+
+    def launches(name):
+        return (lambda: K3.launch_stats(xn, w1, 8, args.tm, "wgmma"),
+                lambda: K3.launch_main(xn, w1, w2, bn, 8, 16, args.tm,
+                                       "wgmma"))
+    return {str(tuple(x.shape)): launches}
+
+
+def _k3_wgmma_f32_cases(args, torch, rng, dev):
+    return _k3_wgmma_cases(args, torch, rng, dev, torch.float32)
+
+
 class Kernel(NamedTuple):
     source: str             # in csrc/
     module: object          # its wrapper: compile_and_load and the two below
@@ -330,6 +467,15 @@ KERNELS = {
                    _K3_VARIANTS, ("HMMA", "LDS.64", "LDS ", "STS.64", "LOP3",
                                   "FADD", "LDGSTS", "STG.E.64", "BAR"),
                    _k3_cases),
+    "nhwc_wgmma": Kernel("fused_nhwc_wgmma.cu", K3, "_wlib", "build_wgmma",
+                         "_ZN4nhwc", _NW_VARIANTS,
+                         ("HGMMA", "UTMALDG", "SYNCS", "BAR", "STS ",
+                          "STG.E ", "F2FP"), _k3_wgmma_cases),
+    "nhwc_wgmma_f32": Kernel("fused_nhwc_wgmma.cu", K3, "_wlib",
+                             "build_wgmma", "_ZN4nhwc", _NW_F32_VARIANTS,
+                             ("HGMMA", "LDS ", "STS.64", "UTMALDG", "SYNCS",
+                              "BAR", "STG.E.64", "LOP3", "FADD"),
+                             _k3_wgmma_f32_cases),
 }
 
 
@@ -361,11 +507,16 @@ def _bind(k, path):
 
 def ptxas_lines(log, prefix):
     """The `-Xptxas -v` register, shared-memory and spill lines of the
-    entry functions whose mangled names start with `prefix`."""
+    entry functions whose mangled names start with `prefix`, and its notes
+    that wgmma was serialized in one of them."""
     out, func = [], ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             func = ln.split("'")[1] if "'" in ln else ""
+        elif "serialized" in ln and "'" in ln:
+            name = ln.split("'")[-2]
+            if name.startswith(prefix):
+                out.append(f"wgmma serialized in {name}")
         elif func.startswith(prefix) and ("Used" in ln or "spill" in ln):
             out.append(ln.split("info    :")[-1].strip())
     return out

@@ -6,15 +6,17 @@ composition at the gray-3 bulge geometry (B=100, 16ch 256 -> 8ch 512 -> 16ch
          [--dtype bf16|fp32] [--kernel bulge|nhwc] [--tm 32] [--iters 20]
          [--reps 3] [--cpu]
 
---kernel bulge times ops/bulge.py (csrc/bulge.cu), --kernel nhwc
-ops/fused_nhwc.py (csrc/fused_nhwc.cu); the unfused composition is the
-port's conv_transpose2d, batch statistics, normalize, ReLU and conv2d
-(cuDNN with TF32 off on the card).  A timing is CUDA events around --iters
+--kernel bulge times ops/bulge.py (csrc/bulge_wgmma.cu at this shape),
+--kernel nhwc ops/fused_nhwc.py (csrc/fused_nhwc_wgmma.cu at this shape, in
+either dtype); the unfused composition is the port's conv_transpose2d,
+batch statistics, normalize, ReLU and conv2d (cuDNN with TF32 off on the
+card).  A timing is CUDA events around --iters
 back-to-back calls ending in a synchronize, best of --reps; with --cpu the
 host clock (the CPU run checks the plumbing: its times are not the card's).
-Prints a line with each kernel's launches by implementation ("mma" tensor
-cores, "fma" the FMA kernel, chosen by the shapes), one with the kernels'
-launch counts, then one JSON line with the JAX tool's keys.  `--dtype bf16`,
+Prints a line with each kernel's launches by implementation ("wgmma" TMA
+and wgmma, "mma" mma.sync tensor cores, "fma" the FMA kernel, chosen by the
+shapes; "_bf16" for bf16 x), one with the kernels' launch counts, then
+one JSON line with the JAX tool's keys.  `--dtype bf16`,
 the default as in the JAX tool (tools/bench_fused.py:31), feeds x in bf16
 (the weights stay fp32, as in the JAX tool) to the kernel's bf16
 instantiation (either kernel) and to the unfused composition in bf16 (the

@@ -16,30 +16,40 @@ kernel computes it:
 
 `fused_convT_bn_relu_conv()` is the entry, with the JAX function's signature
 and return.  On a CPU tensor it runs `fused_nhwc_plain()`, the same packed
-formulation in PyTorch; on a CUDA tensor it launches the hand-written kernel
-(csrc/fused_nhwc.cu, a stats launch and a main launch) and nothing else.
+formulation in PyTorch; on a CUDA tensor it launches a hand-written kernel
+(a stats launch and a main launch) and nothing else.
 The NCHW <-> NHWC transposes are torch calls around the launches, as they
 are XLA's around the Pallas calls.  Nothing in the served or trained paths
 calls this module: like its JAX counterpart it is reached from the
 bench_fused tool (--kernel nhwc).
 
-csrc/fused_nhwc.cu holds two implementations (`impl=`): "mma", both packed
-products on the tensor cores as error-compensated TF32 products in a
-persistent grid (host side: ops/fused_nhwc_mma.py), for the channel triples
-it is built for, and "fma", the first fp32 FMA kernel, for every triple.
-`choose_impl` picks one from the shapes alone; an explicit `impl=` is for
-measurements and tests.  Neither is ever a fallback for the other.
-`fused_nhwc_packed()` is the "mma" launches' arithmetic in PyTorch, item by
-item from the same operands.
+Three implementations (`impl=`), none ever a fallback for another; an
+explicit `impl=` is for measurements and tests, `choose_impl` picks one from
+dtype, shapes and alignment alone:
+  "wgmma"  csrc/fused_nhwc_wgmma.cu (host side ops/fused_nhwc_wgmma.py),
+           the pair redesigned for Hopper's units in both dtypes: x by TMA
+           straight into wgmma's K-major layout, both products on wgmma
+           (fp32 as 3xTF32 with A split in registers, bf16 one pass with A
+           by descriptor).  Chosen in both dtypes at (16, 8, 16) and
+           (32, 16, 32) whenever its tensor maps take x (a 16-byte aligned
+           base, which the wrapper's NHWC copy always has).
+  "mma"    csrc/fused_nhwc.cu, both packed products on mma.sync as
+           error-compensated TF32 products in a persistent grid (host side
+           ops/fused_nhwc_mma.py), at the three triples it is built for;
+           chosen at (8, 4, 8).
+  "fma"    csrc/fused_nhwc.cu, the first fp32 FMA kernel, every triple;
+           chosen in fp32 where no tensor-core kernel was built.
+`fused_nhwc_packed(impl=)` is a tensor-core implementation's arithmetic in
+PyTorch, item by item from the same operands.
 
-bf16 (x in bfloat16, the JAX function with bf16 x): the tensor-core
+bf16 (x in bfloat16, the JAX function with bf16 x): the mma.sync
 kernel's bf16 instantiation (namespace tcb), one bf16 mma (m16n8k16, fp32
 accumulators) a product.  The packed weights are rounded to bf16
 (pallas_fused.py:193-194); the statistics, BN, ReLU and the edge mask are
 fp32 (:108-116, :131-152); the planes are rounded to bf16 before the
 consumer product (:153) and y is bf16 (:168, :239); the moments stay fp32.
-Only "mma" has a bf16 instantiation: "fma" and an unbuilt channel triple
-refuse bf16 by name.
+The wgmma kernel's bf16 instantiation keeps the same rounding points.
+"fma" has no bf16 instantiation and refuses bf16 by name.
 """
 
 from __future__ import annotations
@@ -50,21 +60,26 @@ import threading
 import torch
 
 from . import fused_nhwc_mma as M
+from . import fused_nhwc_wgmma as WG
 from ._build import compile_and_load, raw_stream, sm_count
 
-IMPLS = ("mma", "fma")
+IMPLS = ("mma", "fma", "wgmma")
 
 # Launches of each kernel in this process: a wrapper adds one where it
 # launches its kernel, and nowhere else (CPU calls run the plain version).
 launches = {"fused_nhwc_stats": 0, "fused_nhwc_main": 0,
             "fused_nhwc_stats_bf16": 0, "fused_nhwc_main_bf16": 0}
 # The same launches by the implementation that ran (both kernels of a pair
-# counted); bf16 launches of the tensor-core kernel under "mma_bf16".
-impl_launches = {"mma": 0, "fma": 0, "mma_bf16": 0}
+# counted); bf16 launches under "mma_bf16" and "wgmma_bf16".
+impl_launches = {"mma": 0, "fma": 0, "wgmma": 0, "mma_bf16": 0,
+                 "wgmma_bf16": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 build_log = ""
+_wlib = None
+_wlib_lock = threading.Lock()
+wgmma_build_log = ""
 
 
 def build():
@@ -105,28 +120,79 @@ def build():
         return lib
 
 
-def choose_impl(ci, cm, co, h, w):
-    """The implementation `fused_convT_bn_relu_conv` runs at these shapes:
-    the tensor-core kernel wherever it has an instantiation, else the FMA
-    kernel (PERF.md section 6 has both timed in turns)."""
-    return "mma" if (ci, cm, co) in M.MMA_TRIPLES else "fma"
+def build_wgmma():
+    """Compile csrc/fused_nhwc_wgmma.cu (once per source content) and load
+    it."""
+    global _wlib, wgmma_build_log
+    with _wlib_lock:
+        if _wlib is not None:
+            return _wlib
+        lib, wgmma_build_log = compile_and_load("fused_nhwc_wgmma")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name in ("fused_nhwc_wgmma_rows", "fused_nhwc_wgmma_stats_cols"):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = [], i
+        lib.fused_nhwc_wgmma_main_cols.argtypes = [i, i]
+        lib.fused_nhwc_wgmma_main_cols.restype = i
+        lib.fused_nhwc_wgmma_supported.argtypes = [i, i, i]
+        lib.fused_nhwc_wgmma_supported.restype = i
+        for dt in ("f32", "bf16"):
+            stats = getattr(lib, f"fused_nhwc_wgmma_stats_{dt}")
+            stats.argtypes, stats.restype = [p, p, p] + [i] * 6 + [p], i
+            main = getattr(lib, f"fused_nhwc_wgmma_main_{dt}")
+            main.argtypes, main.restype = [p] * 5 + [i] * 7 + [p], i
+        geometry = [(lib.fused_nhwc_wgmma_rows(), WG.ROWS),
+                    (lib.fused_nhwc_wgmma_stats_cols(), WG.STATS_COLS)]
+        for ci, _, _ in WG.TRIPLES:
+            for dtype in (torch.float32, torch.bfloat16):
+                geometry.append((lib.fused_nhwc_wgmma_main_cols(
+                    ci, dtype == torch.float32), WG.main_cols(ci, dtype)))
+        if any(a != b for a, b in geometry) or not all(
+                lib.fused_nhwc_wgmma_supported(*t) for t in WG.TRIPLES):
+            raise RuntimeError("csrc/fused_nhwc_wgmma.cu and "
+                               "ops/fused_nhwc_wgmma.py disagree on the work "
+                               "items or the channel triples built")
+        _wlib = lib
+        return lib
+
+
+def built_for(impl, ci, cm, co):
+    """Does implementation `impl` have an instantiation for (Ci, Cm, Co)?"""
+    if impl == "fma":
+        return True
+    return (ci, cm, co) in (WG.TRIPLES if impl == "wgmma" else M.MMA_TRIPLES)
+
+
+def choose_impl(ci, cm, co, h, w, dtype=torch.float32, aligned=True):
+    """The implementation `fused_convT_bn_relu_conv` runs at these shapes,
+    from dtype, shape and alignment alone: "wgmma" (either dtype) at the
+    triples it was built for when its tensor maps take x (a 16-byte aligned
+    base); else the mma.sync kernel where it has an instantiation, and in
+    fp32 the FMA kernel elsewhere (PERF.md section 6 has all three timed in
+    turns)."""
+    if built_for("wgmma", ci, cm, co) and aligned:
+        return "wgmma"
+    if dtype == torch.bfloat16 or built_for("mma", ci, cm, co):
+        return "mma"
+    return "fma"
 
 
 def _impl_for(impl, ci, cm, co, h, w, bf16=False):
-    """`impl` if given (checked), else `choose_impl`'s.  A bf16 x runs
-    "mma" or raises: the FMA kernel is fp32 only."""
+    """`impl` if given (checked), else `choose_impl`'s for the wrapper's
+    NHWC copy of x, whose base is always 16-byte aligned."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
     if impl is None:
-        impl = "mma" if bf16 else choose_impl(ci, cm, co, h, w)
+        impl = choose_impl(ci, cm, co, h, w, dtype)
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "fma" and bf16:
         raise ValueError("the FMA NHWC kernel takes float32 only; bf16 runs "
-                         "impl='mma'")
-    if impl == "mma" and (ci, cm, co) not in M.MMA_TRIPLES:
-        raise ValueError(f"the tensor-core NHWC kernel has no "
+                         "impl='mma' or 'wgmma'")
+    if not built_for(impl, ci, cm, co):
+        name, built = (("wgmma", WG.TRIPLES) if impl == "wgmma"
+                       else ("tensor-core", M.MMA_TRIPLES))
+        raise ValueError(f"the {name} NHWC kernel has no "
                          f"{'bf16 ' if bf16 else ''}instantiation for "
-                         f"Ci={ci}, Cm={cm}, Co={co} (built: "
-                         f"{M.MMA_TRIPLES})")
+                         f"Ci={ci}, Cm={cm}, Co={co} (built: {built})")
     return impl
 
 
@@ -295,10 +361,14 @@ def operands(wT, wC, impl, dtype=torch.float32):
     """The kernel's two weight operands, contiguous on the weights' device:
     wtall (4Ci, 4Cm) and wcall (16Cm, Co) for "fma"; W1 and W2 in fragment
     order (ops/fused_nhwc_mma.py) for "mma", in `dtype` (fp32, or bf16 for
-    the bf16 instantiation: the fp32 weights rounded once)."""
+    the bf16 instantiation: the fp32 weights rounded once); for "wgmma" W1
+    and W2 in wgmma's K-major layout (ops/fused_nhwc_wgmma.py operands: fp32
+    as (hi, lo) planes, bf16 one plane)."""
     wT, wC = wT.detach().float(), wC.detach().float()
     if impl == "fma":
         return _pack_wT(wT).contiguous(), _pack_wC(wC).contiguous()
+    if impl == "wgmma":
+        return WG.operands(_pack_wT(wT), _pack_wC(wC), dtype)
     ci, cm, co = wT.shape[0], wT.shape[1], wC.shape[0]
     bf16 = dtype == torch.bfloat16
     return tuple(torch.cat([w.reshape(-1), w.new_zeros(1)])[
@@ -321,20 +391,30 @@ def _bn_rows(mean, var, scale, bias, eps):
                         bias.float().repeat(4)]).contiguous()
 
 
-def fused_nhwc_packed(x, wT, scale, bias, wC, *, eps=1e-5, tm=32):
-    """The tensor-core implementation's arithmetic in PyTorch: the wrapper's
-    steps, with ops/fused_nhwc_mma.py's packed_stats and packed_main in place
-    of the two launches, item by item from the fragment-order operands (a
-    bf16 x: the bf16 instantiation's).  Returns (y (B, Co, H, W) in x's
-    dtype, (mean, biased_var)); any channel counts (the operands pad Ci, Cm
-    and Co to multiples of 8)."""
+def fused_nhwc_packed(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
+                      impl="mma"):
+    """A tensor-core implementation's arithmetic in PyTorch: the wrapper's
+    steps, with the two launches emulated item by item from the kernel's
+    own operands (a bf16 x: its bf16 instantiation's).  impl "mma":
+    ops/fused_nhwc_mma.py's packed_stats and packed_main, any channel
+    counts (the operands pad Ci, Cm and Co to multiples of 8); "wgmma":
+    ops/fused_nhwc_wgmma.py's emulate_stats and emulate_main, at the
+    triples it was built for.  Returns (y (B, Co, H, W) in x's dtype, (mean,
+    biased_var))."""
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
     xn = x.permute(0, 2, 3, 1).contiguous()
-    w1, w2 = operands(wT, wC, "mma", x.dtype)
-    mean, var = _moments(M.packed_stats(xn, w1, ci, cm, tm), 4.0 * h * w * bsz)
-    y = M.packed_main(xn, w1, w2, _bn_rows(mean, var, scale, bias, eps), ci,
-                      cm, co, tm)
+    w1, w2 = operands(wT, wC, impl, x.dtype)
+    if impl == "wgmma":
+        partial = WG.emulate_stats(xn, w1, ci, cm)
+    else:
+        partial = M.packed_stats(xn, w1, ci, cm, tm)
+    mean, var = _moments(partial, 4.0 * h * w * bsz)
+    bn = _bn_rows(mean, var, scale, bias, eps)
+    if impl == "wgmma":
+        y = WG.emulate_main(xn, w1, w2, bn, ci, cm, co)
+    else:
+        y = M.packed_main(xn, w1, w2, bn, ci, cm, co, tm)
     return y.permute(0, 3, 1, 2).contiguous(), (mean, var)
 
 
@@ -369,21 +449,32 @@ def _count(kernel, impl, xn):
 def launch_stats(xn, w1, cm, tm, impl):
     """Stats launch: fp32 (sum, sum of squares) of h per (image, slot), shape
     (B, slots, 2, Cm); a slot is a work item of fused_nhwc_mma.Schedule
-    ("mma": H/tm bands x ceil(tm/8) passes x ceil(W/32) chunks) or a block of
-    the FMA kernel ("fma": H/tm bands x ceil(W/32) chunks).  xn (B, H, W, Ci)
-    NHWC and w1 (`operands`' first for `impl`): contiguous CUDA, fp32, or
-    both bf16 for the bf16 instantiation of "mma"."""
-    lib = _lib or build()
+    ("mma": H/tm bands x ceil(tm/8) passes x ceil(W/32) chunks), of
+    fused_nhwc_wgmma.Schedule ("wgmma": ceil(H/8) bands x ceil(W/32)
+    chunks) or a block of the FMA kernel ("fma": H/tm bands x ceil(W/32)
+    chunks).  xn (B, H, W, Ci) NHWC and w1 (`operands`' first for `impl`):
+    contiguous CUDA, fp32, or both bf16 for a bf16 instantiation."""
     bsz, h, w, ci = xn.shape
-    if impl == "mma":
-        slots = M.Schedule(1, h, w, tm).per_image
+    bf16 = xn.dtype == torch.bfloat16
+    if impl == "wgmma":
+        lib = _wlib or build_wgmma()
+        slots = WG.Schedule(1, h, w).per_image
     else:
-        slots = h // tm * -(-w // lib.fused_nhwc_chunk())
+        lib = _lib or build()
+        if impl == "mma":
+            slots = M.Schedule(1, h, w, tm).per_image
+        else:
+            slots = h // tm * -(-w // lib.fused_nhwc_chunk())
     partial = torch.empty((bsz, slots, 2, cm), device=xn.device,
                           dtype=torch.float32)
     stream = raw_stream(xn.get_device())
-    if impl == "mma":
-        entry = lib.fused_nhwc_stats_bf16 if xn.dtype == torch.bfloat16 \
+    if impl == "wgmma":
+        entry = lib.fused_nhwc_wgmma_stats_bf16 if bf16 \
+            else lib.fused_nhwc_wgmma_stats_f32
+        err = entry(xn.data_ptr(), w1.data_ptr(), partial.data_ptr(), bsz, h,
+                    w, ci, cm, sm_count(xn.device), stream)
+    elif impl == "mma":
+        entry = lib.fused_nhwc_stats_bf16 if bf16 \
             else lib.fused_nhwc_stats_f32
         err = entry(xn.data_ptr(), w1.data_ptr(), partial.data_ptr(), bsz, h,
                     w, ci, cm, tm, sm_count(xn.device), stream)
@@ -402,12 +493,19 @@ def launch_main(xn, w1, w2, bn, cm, co, tm, impl):
     """Main launch: y (B, H, W, Co) NHWC in xn's dtype.  bn (3, 4Cm) fp32:
     mean, gain and bias, each tiled over the four parities; w1, w2
     `operands`' for `impl` (bf16 for a bf16 xn); all contiguous CUDA."""
-    lib = _lib or build()
     bsz, h, w, ci = xn.shape
+    bf16 = xn.dtype == torch.bfloat16
+    lib = (_wlib or build_wgmma()) if impl == "wgmma" else (_lib or build())
     y = torch.empty((bsz, h, w, co), device=xn.device, dtype=xn.dtype)
     stream = raw_stream(xn.get_device())
-    if impl == "mma":
-        entry = lib.fused_nhwc_main_bf16 if xn.dtype == torch.bfloat16 \
+    if impl == "wgmma":
+        entry = lib.fused_nhwc_wgmma_main_bf16 if bf16 \
+            else lib.fused_nhwc_wgmma_main_f32
+        err = entry(xn.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                    bn.data_ptr(), y.data_ptr(), bsz, h, w, ci, cm, co,
+                    sm_count(xn.device), stream)
+    elif impl == "mma":
+        entry = lib.fused_nhwc_main_bf16 if bf16 \
             else lib.fused_nhwc_main_f32
         err = entry(xn.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                     bn.data_ptr(), y.data_ptr(), bsz, h, w, ci, cm, co, tm,
@@ -433,8 +531,8 @@ def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
     (Ci, Cm, 4, 4) IOHW; wC: (Co, Cm, 4, 4) OIHW (fp32; packed in x's
     dtype); scale/bias: (Cm,).  Returns (y: (B, Co, H, W), (mean,
     biased_var)) with train-mode batch statistics of the hidden tensor, in
-    fp32.  impl (CUDA only): "mma" or "fma", None = `choose_impl`'s ("mma"
-    for bf16)."""
+    fp32.  impl (CUDA only): "wgmma", "mma" or "fma", None =
+    `choose_impl`'s."""
     _check(x, wT, scale, bias, wC, tm)
     bsz, ci, h, w = x.shape
     cm, co = wT.shape[1], wC.shape[0]
@@ -446,7 +544,7 @@ def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the kernel takes float32 or bfloat16, got "
                          f"{x.dtype}")
-    lib = build()
+    lib = build_wgmma() if impl == "wgmma" else build()
     if impl == "fma":
         if 4 * cm > 256:
             raise ValueError(f"the kernel takes Cm <= 64, got {cm}")
@@ -456,8 +554,9 @@ def fused_convT_bn_relu_conv(x, wT, scale, bias, wC, *, eps=1e-5, tm=32,
                              f"(Ci={ci}, Cm={cm}, Co={co}); the card offers "
                              f"232448")
     with torch.cuda.device(x.device):
+        # the kernels and the tensor maps take x 16 bytes at a time
         xn = x.permute(0, 2, 3, 1).contiguous()
-        if xn.data_ptr() % 16:          # the kernels copy x 16 bytes at a time
+        if xn.data_ptr() % 16:
             xn = xn.clone()
         w1, w2 = operands(wT, wC, impl, x.dtype)
         mean, var = _moments(launch_stats(xn, w1, cm, tm, impl),

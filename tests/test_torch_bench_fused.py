@@ -49,7 +49,8 @@ def test_bench_fused_prints_the_jax_tools_keys(kernel):
     by_impl = json.loads(lines[-3][len("implementation launches: "):])
     assert by_impl == {"bulge": {"wgmma": 0, "mma": 0, "fma": 0,
                                  "mma_bf16": 0, "wgmma_bf16": 0},
-                       "fused_nhwc": {"mma": 0, "fma": 0, "mma_bf16": 0}}
+                       "fused_nhwc": {"mma": 0, "fma": 0, "wgmma": 0,
+                                      "mma_bf16": 0, "wgmma_bf16": 0}}
 
 
 def test_bench_fused_bf16_and_cpu_fallback_refused():

@@ -386,20 +386,19 @@ NHWC_GEOMS = [((1, 16, 8, 16, 32, 32), 16), ((1, 8, 4, 8, 12, 37), 6),
 
 @pytest.mark.parametrize("geom,tm,impl", [
     (g, tm, impl) for g, tm in NHWC_GEOMS for impl in F3.IMPLS
-    if impl == "fma" or g[1:4] in F3.M.MMA_TRIPLES])
+    if F3.built_for(impl, *g[1:4])])
 def test_nhwc_each_implementation_matches_plain(cuda, geom, tm, impl):
-    """The tensor-core kernel ("mma", at the triples it is built for) and the
-    FMA kernel ("fma", every triple), each asked for by name, against the
-    plain version; the counts move by implementation."""
+    """The TMA and wgmma kernel ("wgmma") and the mma.sync kernel ("mma"),
+    each at the triples it is built for, and the FMA kernel ("fma", every
+    triple), each asked for by name, against the plain version; the counts
+    move by implementation."""
     t = _inputs(*geom, cuda, seed=6)
     args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
     i0 = dict(F3.impl_launches)
     y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm, impl=impl)
     yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
     torch.cuda.synchronize()
-    other = F3.IMPLS[1 - F3.IMPLS.index(impl)]
-    assert F3.impl_launches[impl] == i0[impl] + 2
-    assert F3.impl_launches[other] == i0[other]
+    assert F3.impl_launches == {**i0, impl: i0[impl] + 2}
     np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
@@ -410,9 +409,13 @@ def test_nhwc_default_implementation_is_the_static_rule(cuda):
     args = (t["x"], t["wT"], t["scale"], t["bias"], t["wC"])
     i0 = dict(F3.impl_launches)
     F3.fused_convT_bn_relu_conv(*args, tm=8)
-    assert F3.choose_impl(16, 8, 16, 16, 20) == "mma"
-    assert F3.impl_launches == {"mma": i0["mma"] + 2, "fma": i0["fma"],
-                                "mma_bf16": i0["mma_bf16"]}
+    assert F3.choose_impl(16, 8, 16, 16, 20) == "wgmma"
+    assert F3.impl_launches == {**i0, "wgmma": i0["wgmma"] + 2}
+    t = _inputs(1, 8, 4, 8, 16, 20, cuda)
+    F3.fused_convT_bn_relu_conv(t["x"], t["wT"], t["scale"], t["bias"],
+                                t["wC"], tm=8)
+    assert F3.impl_launches == {**i0, "wgmma": i0["wgmma"] + 2,
+                                "mma": i0["mma"] + 2}
 
 
 def test_nhwc_stats_slots_match_the_packed_version(cuda):
@@ -901,7 +904,8 @@ def test_nhwc_bf16_kernel_matches_plain(cuda, geom, tm):
     assert y.dtype == torch.bfloat16 and m.dtype == torch.float32
     assert y.shape == yp.shape and y.is_contiguous()
     assert F3.launches == {k: c + k.endswith("_bf16") for k, c in n0.items()}
-    assert F3.impl_launches == {**i0, "mma_bf16": i0["mma_bf16"] + 2}
+    ran = ("wgmma" if geom[1:4] in F3.WG.TRIPLES else "mma") + "_bf16"
+    assert F3.impl_launches == {**i0, ran: i0[ran] + 2}
     np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
     np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
     _hold_bf16(y, yp)
@@ -925,6 +929,90 @@ def test_nhwc_bf16_launches_match_the_packed_version(cuda):
                           12)
     assert y.dtype == torch.bfloat16 and y.shape == yw.shape
     _hold_bf16(y, yw)
+
+
+# ---- K3 on Hopper's units (csrc/fused_nhwc_wgmma.cu) --------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geom,tm", [
+    ((2, 16, 8, 16, 64, 100), 32), ((1, 32, 16, 32, 24, 37), 12),
+    ((2, 32, 16, 32, 32, 33), 16), ((3, 16, 8, 16, 6, 3), 6),
+    ((1, 16, 8, 16, 9, 37), 9), ((2, 16, 8, 16, 24, 45), 12)])
+def test_nhwc_wgmma_matches_plain(cuda, geom, tm, dtype):
+    """The wgmma kernel in either dtype against the plain version: ragged W
+    (100, 37, 33, 3, 45), a last band of one row (H 9), both triples."""
+    t = _inputs(*geom, cuda, seed=8)
+    args = (t["x"].to(dtype), t["wT"], t["scale"], t["bias"], t["wC"])
+    n0, i0 = dict(F3.launches), dict(F3.impl_launches)
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=tm, impl="wgmma")
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=tm)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    ran = "wgmma_bf16" if bf16 else "wgmma"
+    assert F3.impl_launches == {**i0, ran: i0[ran] + 2}
+    assert F3.launches == {k: c + (k.endswith("_bf16") == bf16)
+                           for k, c in n0.items()}
+    assert y.dtype == dtype and y.shape == yp.shape and y.is_contiguous()
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    if bf16:
+        _hold_bf16(y, yp)
+    else:
+        np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_nhwc_wgmma_launches_match_the_emulation(cuda, dtype):
+    """The wgmma stats launch writes, slot by slot, and the main launch,
+    pixel by pixel, what ops/fused_nhwc_wgmma.py's emulation computes from
+    the same operands for the same work items."""
+    t = _inputs(2, 32 if dtype == torch.float32 else 16,
+                16 if dtype == torch.float32 else 8,
+                32 if dtype == torch.float32 else 16, 17, 45, cuda, seed=5)
+    ci, cm, co = t["wT"].shape[0], t["wT"].shape[1], t["wC"].shape[0]
+    xn = t["x"].permute(0, 2, 3, 1).contiguous().to(dtype)
+    w1, w2 = F3.operands(t["wT"], t["wC"], "wgmma", dtype)
+    got = F3.launch_stats(xn, w1, cm, 17, "wgmma")
+    want = F3.WG.emulate_stats(xn.cpu(), w1.cpu(), ci, cm)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-3)
+    mean, var = F3._moments(got, 4.0 * 17 * 45 * 2)
+    bn = F3._bn_rows(mean, var, t["scale"], t["bias"], 1e-5)
+    y = F3.launch_main(xn, w1, w2, bn, cm, co, 17, "wgmma")
+    yw = F3.WG.emulate_main(xn.cpu(), w1.cpu(), w2.cpu(), bn.cpu(), ci, cm,
+                            co)
+    assert y.dtype == dtype and y.shape == yw.shape
+    if dtype == torch.bfloat16:
+        _hold_bf16(y, yw)
+    else:
+        np.testing.assert_allclose(y.cpu(), yw, **Y_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_nhwc_wgmma_takes_more_images_than_a_grid_dimension(cuda, dtype):
+    t = _inputs(70000, 16, 8, 16, 8, 8, cuda, seed=3)
+    args = (t["x"].to(dtype), t["wT"], t["scale"], t["bias"], t["wC"])
+    y, (m, v) = F3.fused_convT_bn_relu_conv(*args, tm=8, impl="wgmma")
+    yp, (mp, vp) = F3.fused_nhwc_plain(*args, tm=8)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(m.cpu(), mp.cpu(), **STATS_TOL)
+    np.testing.assert_allclose(v.cpu(), vp.cpu(), **STATS_TOL)
+    if dtype == torch.bfloat16:
+        _hold_bf16(y, yp)
+    else:
+        np.testing.assert_allclose(y.cpu(), yp.cpu(), **Y_TOL)
+
+
+def test_nhwc_wgmma_refuses_what_it_was_not_built_for(cuda):
+    t = _inputs(1, 8, 4, 8, 8, 8, cuda)
+    n0 = dict(F3.launches)
+    with pytest.raises(ValueError, match="wgmma NHWC kernel has no"):
+        F3.fused_convT_bn_relu_conv(t["x"], t["wT"], t["scale"], t["bias"],
+                                    t["wC"], tm=8, impl="wgmma")
+    assert F3.launches == n0
 
 
 def test_nhwc_bf16_refuses_the_fma_kernel_and_unbuilt_triples(cuda):

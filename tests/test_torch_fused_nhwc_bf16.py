@@ -177,7 +177,8 @@ def test_bf16_refuses_the_fma_kernel_and_unbuilt_triples():
     odd = _tensors(_rect(1, 5, 4, 6, 8, 8))
     with pytest.raises(ValueError, match="no bf16 instantiation"):
         TF.fused_convT_bn_relu_conv(*odd, tm=8)
-    assert TF._impl_for(None, 16, 8, 16, 8, 8, bf16=True) == "mma"
+    assert TF._impl_for(None, 16, 8, 16, 8, 8, bf16=True) == "wgmma"
+    assert TF._impl_for(None, 8, 4, 8, 8, 8, bf16=True) == "mma"
     assert all(v == 0 for v in TF.launches.values())
 
 

@@ -196,9 +196,15 @@ def test_packed_stats_slots_are_the_schedule_items():
 # ---- the static choice -------------------------------------------------------
 
 def test_choose_impl_is_a_static_rule_on_the_shapes():
+    """The mma.sync kernel keeps the triple the wgmma kernel was not built
+    for; the other two go to "wgmma" (tests/test_torch_fused_nhwc_wgmma.py
+    holds that choice in both dtypes)."""
     for ci, cm, co in M.MMA_TRIPLES:
+        want = "wgmma" if (ci, cm, co) in TF.WG.TRIPLES else "mma"
         for h, w in ((8, 3), (32, 32), (256, 256)):
-            assert TF.choose_impl(ci, cm, co, h, w) == "mma"
+            assert TF.choose_impl(ci, cm, co, h, w) == want
+            assert TF.choose_impl(ci, cm, co, h, w, aligned=False) == "mma"
+    assert TF.choose_impl(8, 4, 8, 16, 16) == "mma"
     assert TF.choose_impl(5, 4, 6, 16, 16) == "fma"
     assert TF.choose_impl(16, 16, 32, 16, 16) == "fma"
     assert TF.choose_impl(3, 2, 3, 8, 8) == "fma"
@@ -207,13 +213,14 @@ def test_choose_impl_is_a_static_rule_on_the_shapes():
 def test_impl_argument_is_checked():
     x, wT, s, b, wC = map(torch.from_numpy, _inputs(1, 5, 4, 6, 8))
     with pytest.raises(ValueError, match="impl must be one of"):
-        TF.fused_convT_bn_relu_conv(x, wT, s, b, wC, tm=8, impl="wgmma")
+        TF.fused_convT_bn_relu_conv(x, wT, s, b, wC, tm=8, impl="tf32")
     with pytest.raises(ValueError, match="no instantiation"):
         TF.fused_convT_bn_relu_conv(x, wT, s, b, wC, tm=8, impl="mma")
     assert TF._impl_for(None, 5, 4, 6, 8, 8) == "fma"
     assert TF._impl_for("fma", 5, 4, 6, 8, 8) == "fma"
     assert TF._impl_for("mma", 16, 8, 16, 8, 8) == "mma"
-    assert set(TF.impl_launches) == set(TF.IMPLS) | {"mma_bf16"}
+    assert set(TF.impl_launches) == set(TF.IMPLS) | {"mma_bf16",
+                                                     "wgmma_bf16"}
 
 
 @pytest.mark.parametrize("impl", [None, "mma", "fma"])

@@ -37,7 +37,7 @@ def test_port_modules_import_no_jax():
               "utils.timers", "utils.logging", "serve", "cli", "upscale",
               "image.patches", "infer.seam", "infer.seam_device",
               "infer.ensemble", "infer.tiled", "ops.fused_nhwc",
-              "ops.fused_nhwc_mma",
+              "ops.fused_nhwc_mma", "ops.fused_nhwc_wgmma",
               "bench_fused", "bench_infer", "metrics.psnr_ssim",
               "utils.stats", "image.io", "image.ops", "data.folder",
               "data.indexed", "data.prefetch", "data.native", "data.dispatch",
