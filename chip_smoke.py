@@ -131,8 +131,9 @@ Phases, each fatal on failure:
  15. the bf16 training step at bench.py's geometry, K = 20 steps a call
      (train/multi_step.py): gray-3 (100,1,64,64), rgb-full (100,3,64,64),
      gray-patch-batch (1280,1,8,8) = 20 images, full width from a seed; ms
-     per step and images/s over two calls after a warm one (60 preprocess
-     launches), the stage breakdown, and for gray-3 whether G backward
+     per step and images/s from bench.measure_card (bench's workload and
+     timing: two calls after a warm one, 60 preprocess launches), the
+     stage breakdown, and for gray-3 whether G backward
      still runs cuDNN's fp32 dgrad_engine / wgrad_alg0_engine (profiler),
      beside phase 8's fp32 step.  The chunks after the first are CUDA
      graph replays: 60 launches run = the wrapper's 40 (20 warm-up, 20 at
@@ -143,11 +144,10 @@ Phases, each fatal on failure:
      warmup at most 3x the p50 of the next ten), then the requests of phase
      4, each held to the unfused bf16 generator in this process; /healthz
      must show the bf16 kernel's launches (and no fp32 launch) move after
-     the warmup, every one by the wgmma kernel.  bench_infer in bf16 (both
-     BN modes; every bf16 launch by the wgmma kernel, its implementation
-     counts printed), then the same measured with the pair by each bf16
-     kernel by name in turns; `bench_fused --kernel bulge --dtype bf16` as a
-     subprocess.
+     the warmup, every one by the wgmma kernel.  bench_infer's bf16
+     pipeline (both BN modes) with the pair by each bf16 kernel by name in
+     turns (its records are phase 27's); `bench_fused --kernel bulge
+     --dtype bf16` as a subprocess.
  17. path: training on image files.  200 CelebA-like 178x218 JPEGs of
      smooth random textures, written here from a seed, as one class
      folder; `python -m dcgan_sr_tpu_torch.cli --config gray --data-root
@@ -253,8 +253,8 @@ Phases, each fatal on failure:
      each in this process (every kernel's count from 0 just before it)
      unless said otherwise: overlap_protocol on the overlap fixture over
      the held-out sets 10000:10005 in both BN modes, its five rows held to
-     PARITY.md within 0.02 dB / 3e-4, and one set on the card against the
-     same on the CPU (phase 19's tolerance); select_checkpoint --full on 3
+     PARITY.md within 0.02 dB / 3e-4 (phase 19 holds the same overlap eval
+     on the card to the CPU); select_checkpoint --full on 3
      gray-3 epochs that cli.main trained (--textured, 10 steps each) beside
      a torn 4th (its SKIPPED line, 51 K2 launches of each kernel), and
      `python -m ...select_checkpoint` without --full as a subprocess (the
@@ -262,16 +262,29 @@ Phases, each fatal on failure:
      PSNR/SSIM pairs and verdict both times, under deterministic cuDNN; its
      verdict,
      and the spread of two runs of each dtype; K1 run 200 times each);
-     zssr_photo --bf16 --steps 200 on a seeded 384x512 photo;
+     zssr_photo --bf16 --steps 100 on a seeded 384x512 photo;
      serve_load (--size 100x72 --warm 10) against a gray-3 server started
      with --warmup --warmup-rect (the first request, non-square, within 3x
-     the p50 of the next ten); loader_bench at its defaults; and
+     the p50 of the next ten); loader_bench over 10 batches; and
      quality_protocol on a baseline directory written in
      tools/torch_baseline.py's format from the gray-3 fixture's G (its
      result.json scored by the torch.nn modules themselves on the card,
      TF32 off; the imported G's scores within 1e-3 dB / 1e-4 of those; the
-     twin trained 3 epochs of 2000 images).  Each tool's K1 and K2
+     twin trained 3 epochs of 1000 images).  Each tool's K1 and K2
      launches go into the kernels line.
+ 27. the measurement entry points.  `python -m dcgan_sr_tpu_torch.bench`
+     as a subprocess at its full geometry: the header, the launch line and
+     the five metric lines in bench.py's order (gray-3 last), each with a
+     value > 0, its [min, median, max] spread, the card's name and power
+     limit, and vs_baseline = value / BASELINE_MEASURED.json's baseline
+     (the file unchanged); K1 run 80 times a trainer, every bf16 K2 launch
+     by the wgmma kernel (80 stats, 160 main).  Then, in this process:
+     `attr_variant --config gray-3 --batch 100 --steps 5 --reps 2` (the JAX
+     tool's keys, every prefix row), `attr_overlap` at 64 images with
+     `--steps 5 --reps 2` in both modes (K2's counts exact, every launch by
+     the wgmma kernel), `feed_ab --config rgb-full --steps 8 --scan 4
+     --rounds 2` (its lines in ABBA order) and `probe_image_io` (nine PNGs).
+     The phase prints its seconds.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
      the mma.sync and FMA kernels' times in turns, their eval launches and
@@ -2095,40 +2108,29 @@ def profile_kernels(cfg, state, batches):
 
 def bf16_step_phase(smi, fp32_gray3):
     """K = 20 bf16 steps a call (train/multi_step.py) for each of bench.py's
-    three trainers at full width from a seed: ms per step and images/s over
-    two calls after one warm call; the stage breakdown (10 queued single
-    steps); for gray-3, whether G backward still runs cuDNN's fp32
-    engines."""
+    three trainers at full width from a seed, timed by bench.measure_card
+    (the implementation `python -m dcgan_sr_tpu_torch.bench` times: one
+    untimed call, then two timed ones, each one graph replay): ms per step
+    and images/s; the stage breakdown (10 queued single steps); for gray-3,
+    whether G backward still runs cuDNN's fp32 engines."""
     import math
 
     import torch
 
-    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch import bench
     from dcgan_sr_tpu_torch.ops import preprocess as P
-    from dcgan_sr_tpu_torch.train.multi_step import (build_multi_step,
-                                                     launches_run)
-    from dcgan_sr_tpu_torch.train.step import init_train_state
+    from dcgan_sr_tpu_torch.train.multi_step import launches_run
+    from dcgan_sr_tpu_torch.utils.measure import median_spread
 
     dev = torch.device("cuda")
     out = {}
     for variant, shape in BF16_TRAIN:
-        cfg = get_config(variant, env_override=False,
-                         compute_dtype="bfloat16")
-        state = init_train_state(cfg, torch.Generator().manual_seed(0),
-                                 device=dev)
-        hr = _cli_batches(cfg, K_STEPS, dev)
-        check(tuple(hr.shape[1:]) == shape, f"{variant} batch {hr.shape}")
-        multi = build_multi_step(cfg)
         n0 = P.launches["preprocess"]
-        _, m = multi(state, hr)
-        check(all(math.isfinite(v) for v in m["errG"].tolist()),
-              f"{variant} bf16 losses not finite")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            _, m = multi(state, hr)
-        last = {k: v[-1].item() for k, v in m.items()}
-        wall = (time.perf_counter() - t0) / (2 * K_STEPS) * 1e3
+        rates, w = bench.measure_card(variant, K_STEPS, 2, dev)
+        cfg, state, multi, hr = w.cfg, w.state, w.runner, w.batches
+        check(cfg.compute_dtype == "bfloat16"
+              and tuple(hr.shape[1:]) == shape, f"{variant} batch {hr.shape}")
+        last = {k: v[-1].item() for k, v in w.metrics.items()}
         # the first call's chunk runs eagerly and is then captured (counted,
         # not run); the next two are replays
         run = launches_run({"preprocess": P.launches["preprocess"] - n0},
@@ -2139,8 +2141,9 @@ def bf16_step_phase(smi, fp32_gray3):
         check(all(math.isfinite(v) for v in last.values()),
               f"{variant} bf16 losses {last}")
         imgs = cfg.images_consumed_per_step
-        r = {"step_ms": round(wall, 4),
-             "images_per_s": round(imgs / (wall / 1e3), 2),
+        ips, spread = median_spread(rates, 2)
+        r = {"step_ms": round(imgs / ips * 1e3, 4),
+             "images_per_s": round(ips, 2), "rep_spread": spread,
              "losses_after_60_steps": {k: round(v, 5) for k, v in
                                        last.items()}}
         bd = step_breakdown(cfg, state, smi, batches=list(hr[:4]),
@@ -2150,7 +2153,7 @@ def bf16_step_phase(smi, fp32_gray3):
         print(f"bf16 train step, {variant} {shape} ({imgs} images a step), "
               f"K={K_STEPS} a call, on {smi}: " + json.dumps(r), flush=True)
         out[variant] = r
-        del state, hr, multi
+        del state, hr, multi, w
         torch.cuda.empty_cache()
     g = out["gray-3"]
     print(f"bf16 gray-3 step {g['step_ms']} ms ({g['images_per_s']} images/s) "
@@ -2244,36 +2247,18 @@ def bf16_serve_phase(smi):
 
 
 def bf16_bench_phase(smi):
-    """bench_infer in bf16 in this process (both BN modes), and
-    `bench_fused --kernel bulge --dtype bf16` as a subprocess.  Returns the
-    bf16 kernels' launch counts of both."""
+    """The bf16 overlap pipeline (bench_infer.measure, both BN modes) with
+    the pair by each bf16 kernel by name, in turns, and `bench_fused
+    --kernel bulge --dtype bf16` as a subprocess.  Returns the bf16
+    kernels' launch counts of bench_fused."""
     from dcgan_sr_tpu_torch import bench_infer
     from dcgan_sr_tpu_torch.ops import bulge as K
 
     counts = dict.fromkeys(K.launches, 0)
-    for bn_eval in (False, True):
-        for d in (K.launches, K.impl_launches):
-            for k in d:
-                d[k] = 0
-        rec = bench_infer.overlap_record(bn_eval=bn_eval, device="cuda",
-                                         steps=10, dtype="bf16")
-        # every tile batch of the pipeline is 64 images x 225 tiles of
-        # 32x32x32, which ops/bulge.py's rule gives to the wgmma kernel
-        check(rec["value"] > 0 and rec["dtype"] == "bf16"
-              and K.launches["bulge_main_bf16"] > 0
-              and K.impl_launches["wgmma_bf16"] > 0
-              and K.impl_launches["mma_bf16"] == 0
-              and K.impl_launches["mma"] == K.impl_launches["fma"] == 0
-              and K.impl_launches["wgmma"] == 0,
-              f"bench_infer bf16: {rec}, launches {K.launches}, by "
-              f"implementation {K.impl_launches}")
-        for k in counts:
-            counts[k] += K.launches[k]
-        print(f"bench_infer bf16 on {smi}: " + json.dumps(rec) + " launches "
-              + json.dumps(K.launches) + " by implementation "
-              + json.dumps(K.impl_launches), flush=True)
-    # the same measurement with the pair by each bf16 kernel by name, in
-    # turns (mma, wgmma, wgmma, mma): comparison runs, not counted
+    # bench_infer's bf16 records, and their launches by implementation, are
+    # phase 27's (python -m dcgan_sr_tpu_torch.bench); here the pipeline
+    # with the pair by each bf16 kernel by name, in turns (mma, wgmma,
+    # wgmma, mma): comparison runs, not counted
     for bn_eval in (False, True):
         got = {"mma": [], "wgmma": []}
         for impl in ("mma", "wgmma", "wgmma", "mma"):
@@ -4212,7 +4197,7 @@ def tools_phase(smi):
         return launches[name]
 
     # overlap_protocol on the committed fixture, both BN modes, against
-    # PARITY.md; then one set on the card against the same on the CPU
+    # PARITY.md (phase 19 holds the same overlap eval on the card to the CPU)
     rows = {}
     for bn_eval in (False, True):
         res, lines, secs, c = _tool(overlap_protocol.main, [
@@ -4233,17 +4218,7 @@ def tools_phase(smi):
             rows[str(key)] = [round(p, 5), round(s, 6), wp, ws]
         done(f"overlap_protocol bn_eval={bn_eval}", {
             "s": secs, "images_per_s": round(500 / secs, 2), "lines": lines})
-    one = ["--ckpt", OVERLAP_FIXTURE, "--bn-eval", "--sets", "10000:10001"]
-    card, _, _, _ = _tool(overlap_protocol.main, one)
-    cpu, _, cpu_s, _ = _tool(overlap_protocol.main, one + ["--cpu"])
-    diff = {f: abs(getattr(card, f) - getattr(cpu, f)) for f in (
-        "psnr_bilinear", "psnr_naive", "psnr_seam", "ssim_bilinear",
-        "ssim_naive", "ssim_seam")}
-    for f, d in diff.items():
-        check(d <= (1e-3 if f.startswith("psnr") else 1e-4),
-              f"overlap_protocol card against CPU, {f}: {d}")
-    done("overlap_protocol", {"parity_rows": rows,
-                              "card_vs_cpu_one_set": diff, "cpu_s": cpu_s})
+    done("overlap_protocol", {"parity_rows": rows})
 
     with tempfile.TemporaryDirectory() as tmp:
         # select_checkpoint --full on what the trainer wrote: 3 short gray-3
@@ -4306,7 +4281,7 @@ def tools_phase(smi):
         # zssr_photo --bf16 on a seeded photo
         photo = write_photo(os.path.join(tmp, "photo.png"))
         res, lines, secs, c = _tool(zssr_photo.main, [
-            "--input", photo, "--bf16", "--steps", "200",
+            "--input", photo, "--bf16", "--steps", "100",
             "--ckpt-out", os.path.join(tmp, "zssr"),
             "--sr-out", os.path.join(tmp, "zssr_sr.png")])
         k = ran("zssr_photo --bf16", c, lines)
@@ -4315,12 +4290,12 @@ def tools_phase(smi):
               and res["holdout_hw"] == [96, 512]
               and os.path.isfile(os.path.join(tmp, "zssr_sr.png"))
               and os.path.isfile(os.path.join(
-                  tmp, "zssr", f"{cfg.name}_200_net_G.npz")),
+                  tmp, "zssr", f"{cfg.name}_100_net_G.npz")),
               f"zssr_photo: {lines}")
-        check(k["preprocess"] == 200 and k["bulge_stats"] == 1
+        check(k["preprocess"] == 100 and k["bulge_stats"] == 1
               and k["bulge_main"] == 2, f"zssr_photo launches {k}")
         done("zssr_photo --bf16", {
-            "s": secs, "steps_per_s": round(200 / res["train_time_s"], 2),
+            "s": secs, "steps_per_s": round(100 / res["train_time_s"], 2),
             "result": res})
 
         # serve_load against a gray-3 server warmed on every ladder pair;
@@ -4361,8 +4336,8 @@ def tools_phase(smi):
         done("serve_load", {"s": secs, "warmup": warm_line,
                             "lines": phases})
 
-        # loader_bench at its defaults (the host alone)
-        res, lines, secs, c = _tool(loader_bench.main, [])
+        # loader_bench (the host alone) over half its default batches
+        res, lines, secs, c = _tool(loader_bench.main, ["--batches", "10"])
         ran("loader_bench", c)
         check(sorted(res) == sorted([
             "folder_sample_images_per_sec", "folder_prefetch4_images_per_sec",
@@ -4376,7 +4351,7 @@ def tools_phase(smi):
                                    torch.Generator().manual_seed(0))
         with np.load(FIXTURE) as data:
             g_params = load_branch(data, "params", g_params)
-        epochs, ntrain = 3, 2000
+        epochs, ntrain = 3, 1000
         base = write_torch_baseline(os.path.join(tmp, "tb"), qcfg, g_params,
                                     epochs, ntrain, seed=1)
         (qrows, qdiff), lines, secs, c = _tool(quality_protocol.main, [
@@ -4398,6 +4373,167 @@ def tools_phase(smi):
 
     print(f"phase 26, kernel launches of each tool, on {smi}: "
           + json.dumps(launches), flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the measurement entry points as users start them
+# ---------------------------------------------------------------------------
+
+BENCH_LINES = ("overlap_sr_upscaled_mp_per_sec",
+               "overlap_sr_upscaled_mp_per_sec_bn_eval",
+               "train_images_per_sec_rgb_full",
+               "train_images_per_sec_gray_patch_batch",
+               "train_images_per_sec")
+
+
+def _bf16_k2_counts(name, launches, by_impl, stats, main):
+    """Every bf16 K2 launch by the wgmma kernel, and the counts expected."""
+    check(launches["bulge_stats_bf16"] == stats
+          and launches["bulge_main_bf16"] == main
+          and launches["bulge_stats"] == launches["bulge_main"] == 0
+          and by_impl["wgmma_bf16"] == stats + main
+          and sum(by_impl.values()) == stats + main,
+          f"{name}: K2 launched {launches}, by implementation {by_impl} "
+          f"(want {stats} stats and {main} main launches, all wgmma_bf16)")
+
+
+def measure_phase(smi):
+    """Phase 27: `python -m dcgan_sr_tpu_torch.bench` as a subprocess at
+    full geometry, then attr_variant, attr_overlap (both modes), feed_ab
+    and probe_image_io in this process (every kernel's count from 0 just
+    before each).  Returns {tool: {kernel: launches run}}."""
+    import torch
+
+    from dcgan_sr_tpu_torch import (attr_overlap, attr_variant, bench,
+                                    feed_ab, probe_image_io)
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.models import generator_spec
+    from dcgan_sr_tpu_torch.ops import bulge as K
+
+    t_phase = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    limit = float(smi.rsplit(",", 1)[1].split()[0])
+    launches = {}
+
+    def done(name, entry):
+        print(f"phase 27, {name}, on {smi}: " + json.dumps(entry),
+              flush=True)
+
+    # bench: its five lines after the header and the launch line, gray-3
+    # last; vs_baseline from the baseline file, which stays as it was
+    with open(bench.BASELINE_FILE, "rb") as f:
+        baseline_bytes = f.read()
+    t0 = time.perf_counter()
+    lines = _module(["dcgan_sr_tpu_torch.bench"])
+    secs = round(time.perf_counter() - t0, 2)
+    with open(bench.BASELINE_FILE, "rb") as f:
+        check(f.read() == baseline_bytes, "bench wrote the baseline file")
+    check(len(lines) == 7, f"bench printed {lines}")
+    head = json.loads(lines[0])
+    check(head["metric"] == "bench_selfcert" and head["device"] == kind
+          and head["power_limit_w"] == limit, f"bench header {head}")
+    check(lines[1].startswith("kernel launches: "), lines[1])
+    counts = json.loads(lines[1][len("kernel launches: "):])
+    recs = [json.loads(l) for l in lines[2:]]
+    check([r["metric"] for r in recs] == list(BENCH_LINES),
+          f"bench metric lines {[r['metric'] for r in recs]}")
+    baselines = bench.read_baselines()
+    for r in recs:
+        lo, med, hi = r["rep_spread"]
+        base = baselines[bench.BASELINE_KEYS[r["metric"]]]
+        check(r["value"] > 0 and 0 < lo <= med <= hi
+              and r["device"] == kind and r["power_limit_w"] == limit
+              and r["vs_baseline"] == round(r["value"] / base, 2),
+              f"bench line {r} (baseline {base})")
+    # K1: a warm-up chunk, then three replays of it, 20 steps each
+    check(counts["preprocess_run"] == {v: 4 * K_STEPS for v in
+                                       ("rgb-full", "gray-patch-batch",
+                                        "gray-3")},
+          f"bench K1 launches run {counts['preprocess_run']}")
+    # K2: 4 x 20 pipeline calls a BN mode; stats in the parity mode only
+    _bf16_k2_counts("bench", counts["bulge"], counts["bulge_impl"],
+                    4 * K_STEPS, 8 * K_STEPS)
+    launches["bench"] = {**counts["bulge"],
+                         "preprocess": sum(counts["preprocess_run"].values())}
+    done("python -m dcgan_sr_tpu_torch.bench",
+         {"s": secs, "header": head, "launches": counts, "lines": recs})
+
+    # attr_variant: the gray-3 bf16 step at batch 100 and its G prefixes
+    res, lines, secs, c = _tool(attr_variant.main, [
+        "--config", "gray-3", "--batch", "100", "--steps", "5",
+        "--reps", "2"])
+    n_layers = len(generator_spec(get_config("gray-3", env_override=False)))
+    check(list(res) == ["config", "dtype", "step_batch", "step_ms",
+                        "g_fwd_ms", "g_fwd_bwd_ms", "d_fwd_ms",
+                        "d_fwd_bwd_ms", "g_layers"]
+          and (res["config"], res["dtype"], res["step_batch"])
+          == ("gray-3", "bfloat16", 100)
+          and all(res[k] > 0 for k in list(res)[3:8])
+          and len(res["g_layers"]) == n_layers
+          and all(r["prefix_ms"] > 0 for r in res["g_layers"]),
+          f"attr_variant: {lines}")
+    # the chunk counts K1 at its warm-up and at its capture (5 + 5); the
+    # trainer's G runs layers 3-4 unfused: no K2
+    check(c["preprocess"] == 2 * 5 and c["bulge_main"] == 0
+          and c["bulge_main_bf16"] == 0, f"attr_variant launches {c}")
+    launches["attr_variant"] = {**c, "preprocess": 3 * 5}
+    done("attr_variant --config gray-3 --batch 100", {"s": secs,
+                                                      "result": res})
+
+    # attr_overlap, both modes, at 64 images: K2 on every generator call
+    for sweep in (False, True):
+        for k in K.impl_launches:
+            K.impl_launches[k] = 0
+        res, lines, secs, c = _tool(attr_overlap.main, [
+            "--images", "64", "--steps", "5", "--reps", "2"]
+            + ["--sweep-bn"] * sweep)
+        name = "attr_overlap" + " --sweep-bn" * sweep
+        calls = 3 * 5                        # a warm and two timed reps
+        if sweep:
+            check(all(res[f"{n}_ms"] > 0 for n in ("vmap_train", "vmap_eval",
+                                                   "flat_eval",
+                                                   "flat_pooled")),
+                  f"{name}: {res}")
+            # stats in vmap_train and flat_pooled; main in all four
+            _bf16_k2_counts(name, c, dict(K.impl_launches), 2 * calls,
+                            4 * calls)
+        else:
+            check(all(res[f"{n}_ms"] > 0 for n in attr_overlap.STAGES)
+                  and res["flops_per_step_g"] > 0, f"{name}: {res}")
+            # gen, naive and seam each run the generator
+            _bf16_k2_counts(name, c, dict(K.impl_launches), 3 * calls,
+                            3 * calls)
+        launches[name] = c
+        done(name, {"s": secs, "result": res,
+                    "by_implementation": dict(K.impl_launches)})
+
+    # feed_ab: 5 epochs of 8 steps in chunks of 4, one capture
+    res, lines, secs, c = _tool(feed_ab.main, [
+        "--config", "rgb-full", "--steps", "8", "--scan", "4",
+        "--rounds", "2"])
+    own = [l for l in lines if not l.startswith(("Epoch:", "End of epoch"))]
+    check(len(own) == 8 and own[0].startswith("warmup epoch: ")
+          and [l.split(":")[0] for l in own[1:5]] == [
+              "round 0 stage_ahead=False", "round 0 stage_ahead=True",
+              "round 1 stage_ahead=True", "round 1 stage_ahead=False"]
+          and re.fullmatch(r"stage_ahead=True won [0-2]/2 paired rounds",
+                           own[-1]), f"feed_ab: {lines}")
+    # K1 counted at the warm-up chunk and at its capture; the rest replays
+    check(c["preprocess"] == 2 * 4, f"feed_ab launches {c}")
+    launches["feed_ab"] = {**c, "preprocess": 5 * 8}
+    done("feed_ab --config rgb-full", {"s": secs, "lines": own})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, lines, secs, _ = _tool(probe_image_io.main, [tmp])
+        pngs = sorted(os.listdir(tmp))
+    check(len(pngs) == 9 and sum("constant input -> black" in l
+                                 for l in lines) == 5,
+          f"probe_image_io: {pngs}, {lines}")
+    done("probe_image_io", {"s": secs, "pngs": pngs})
+    print(f"phase 27 took {time.perf_counter() - t_phase:.1f} s; kernel "
+          f"launches of each tool, on {smi}: " + json.dumps(launches),
+          flush=True)
     return launches
 
 
@@ -4722,6 +4858,12 @@ def main():
         launches[k] += sum(c[k] for c in tool_launches.values())
 
     stamp()
+    # phase 27: the measurement entry points; counts from 0 before each
+    measure_launches = measure_phase(smi)
+    for k in ("bulge_stats_bf16", "bulge_main_bf16"):
+        launches[k] += sum(c[k] for c in measure_launches.values())
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -4803,9 +4945,11 @@ def main():
         "replaces": "dcgan_sr_tpu/ops/pallas_kernels.py:64",
         "launches": trainer_counts["preprocess"] + opt_launches["preprocess"]
         + dp_launches["preprocess"]
-        + sum(c["preprocess"] for c in tool_launches.values()),
+        + sum(c["preprocess"] for c in tool_launches.values())
+        + sum(c["preprocess"] for c in measure_launches.values()),
         "tools_launches": {t: c["preprocess"] for t, c in
-                           tool_launches.items() if c["preprocess"]},
+                           {**tool_launches, **measure_launches}.items()
+                           if c["preprocess"]},
         "max_abs_err": pre_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

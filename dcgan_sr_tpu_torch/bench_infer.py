@@ -13,8 +13,9 @@ pipeline), random-init weights from a seed, batches of 64 images of
 64x64 from a seed.  A repetition is `steps` pipeline calls queued back to
 back; both stitched outputs are summed into an accumulator that is fetched
 at the end, so the clock stops only when every call has finished.  Prints
-one JSON line per BN mode asked for.  No `vs_baseline` is recorded: the
-torch-CPU baseline file belongs to the JAX package's bench.
+one JSON line per BN mode asked for.  No `vs_baseline` is recorded here:
+`python -m dcgan_sr_tpu_torch.bench` adds it on the card, from the torch-CPU
+baseline file that the JAX package's bench measures and writes.
 """
 
 from __future__ import annotations
@@ -77,21 +78,24 @@ def measure(n_images=N_IMAGES, reps=3, steps=20, bn_eval=False, device="cuda",
 
 
 def overlap_record(bn_eval=False, **kw):
-    """One JSON-able record: the median of the repetitions and their
-    relative spread, under bench_infer.py's metric names."""
+    """One JSON-able record under bench_infer.py's metric names: the median
+    of the repetitions and their [min, median, max] spread
+    (utils/measure.median_spread, as bench_infer.py:148-177).  No
+    `vs_baseline`: bench.py adds it on the card."""
     import torch
 
-    mps = sorted(measure(bn_eval=bn_eval, **kw))
-    med = mps[len(mps) // 2]
+    from .utils.measure import median_spread
+
+    mps, spread = median_spread(measure(bn_eval=bn_eval, **kw), 3)
     dev = torch.device(kw.get("device", "cuda"))
     return {
         # a CPU run checks the plumbing; its rate is not the card's metric
         "metric": ("" if dev.type == "cuda" else "cpu_")
                   + "overlap_sr_upscaled_mp_per_sec"
                   + ("_bn_eval" if bn_eval else ""),
-        "value": round(med, 3),
+        "value": round(mps, 3),
         "unit": "MP/s",
-        "rep_spread": round((mps[-1] - mps[0]) / med, 4),
+        "rep_spread": spread,
         "dtype": kw.get("dtype", "bf16"),
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
