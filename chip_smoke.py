@@ -130,14 +130,14 @@ Phases, each fatal on failure:
      chip_smoke as c; c.bf16_kernel_phase_alone()"`.
  15. the bf16 training step at bench.py's geometry, K = 20 steps a call
      (train/multi_step.py): gray-3 (100,1,64,64), rgb-full (100,3,64,64),
-     gray-patch-batch (1280,1,8,8) = 20 images, full width from a seed; ms
-     per step and images/s from bench.measure_card (bench's workload and
-     timing: two calls after a warm one, 60 preprocess launches), the
-     stage breakdown, and for gray-3 whether G backward
-     still runs cuDNN's fp32 dgrad_engine / wgrad_alg0_engine (profiler),
-     beside phase 8's fp32 step.  The chunks after the first are CUDA
-     graph replays: 60 launches run = the wrapper's 40 (20 warm-up, 20 at
-     capture) - 20 captured + 40 replayed (`launches_run`).
+     gray-patch-batch (1280,1,8,8) = 20 images, full width from a seed,
+     bench's workload (bench.workload) run twice, untimed: finite losses,
+     the stage breakdown, and for gray-3 whether G backward still runs
+     cuDNN's fp32 dgrad_engine / wgrad_alg0_engine (profiler).  The second
+     chunk is a CUDA graph replay: 40 launches run = the wrapper's 40 (20
+     warm-up, 20 at capture) - 20 captured + 20 replayed (`launches_run`).
+     The images/s of these trainers are phase 27's bench lines, which also
+     print the gray-3 bf16 step beside phase 8's fp32 step.
  16. path: `python -m dcgan_sr_tpu_torch.serve --bf16 --warmup` for gray-3
      and gray-patch-batch-overlap, both BN modes, four servers started
      together: timed requests at LR 64 and 256 first (the first after the
@@ -283,8 +283,12 @@ Phases, each fatal on failure:
      tool's keys, every prefix row), `attr_overlap` at 64 images with
      `--steps 5 --reps 2` in both modes (K2's counts exact, every launch by
      the wgmma kernel), `feed_ab --config rgb-full --steps 8 --scan 4
-     --rounds 2` (its lines in ABBA order) and `probe_image_io` (nine PNGs).
-     The phase prints its seconds.
+     --rounds 2` (its lines in ABBA order: a check of its plumbing at
+     smoke depth, no A/B finding) and `probe_image_io` (nine PNGs).  K1's
+     launches of attr_variant and feed_ab are those that ran, as each tool
+     reads them from its runner (`main(..., launches=)`).  The gray-3
+     bench step is printed beside phase 8's fp32 step and phase 15's
+     profile.  The phase prints its seconds.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
      the mma.sync and FMA kernels' times in turns, their eval launches and
@@ -356,6 +360,7 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
                                   (tests/test_torch_train_step.py)
 """
 
+import functools
 import http.client
 import io
 import json
@@ -2106,13 +2111,13 @@ def profile_kernels(cfg, state, batches):
                             for name, _, ms in kernels[:6]]}
 
 
-def bf16_step_phase(smi, fp32_gray3):
+def bf16_step_phase(smi):
     """K = 20 bf16 steps a call (train/multi_step.py) for each of bench.py's
-    three trainers at full width from a seed, timed by bench.measure_card
-    (the implementation `python -m dcgan_sr_tpu_torch.bench` times: one
-    untimed call, then two timed ones, each one graph replay): ms per step
-    and images/s; the stage breakdown (10 queued single steps); for gray-3,
-    whether G backward still runs cuDNN's fp32 engines."""
+    three trainers at full width from a seed, bench's workload
+    (bench.workload) run twice, untimed (its images/s are phase 27's bench
+    lines): the launches that ran, finite losses, the stage breakdown (10
+    queued single steps); for gray-3, whether G backward still runs cuDNN's
+    fp32 engines.  Returns {variant: its record}."""
     import math
 
     import torch
@@ -2120,31 +2125,29 @@ def bf16_step_phase(smi, fp32_gray3):
     from dcgan_sr_tpu_torch import bench
     from dcgan_sr_tpu_torch.ops import preprocess as P
     from dcgan_sr_tpu_torch.train.multi_step import launches_run
-    from dcgan_sr_tpu_torch.utils.measure import median_spread
 
     dev = torch.device("cuda")
     out = {}
     for variant, shape in BF16_TRAIN:
         n0 = P.launches["preprocess"]
-        rates, w = bench.measure_card(variant, K_STEPS, 2, dev)
+        w = bench.workload(variant, K_STEPS, dev)
         cfg, state, multi, hr = w.cfg, w.state, w.runner, w.batches
         check(cfg.compute_dtype == "bfloat16"
               and tuple(hr.shape[1:]) == shape, f"{variant} batch {hr.shape}")
-        last = {k: v[-1].item() for k, v in w.metrics.items()}
+        for _ in range(2):
+            _, metrics = multi(state, hr)
+        last = {k: v[-1].item() for k, v in metrics.items()}
         # the first call's chunk runs eagerly and is then captured (counted,
-        # not run); the next two are replays
+        # not run); the second is a replay
         run = launches_run({"preprocess": P.launches["preprocess"] - n0},
                            multi)["preprocess"]
-        check(multi.replays == 2 and run == 3 * K_STEPS,
-              f"{variant}: preprocess ran {run} times in {3 * K_STEPS} "
+        check(multi.replays == 1 and run == 2 * K_STEPS,
+              f"{variant}: preprocess ran {run} times in {2 * K_STEPS} "
               f"steps ({multi.stats()})")
         check(all(math.isfinite(v) for v in last.values()),
               f"{variant} bf16 losses {last}")
         imgs = cfg.images_consumed_per_step
-        ips, spread = median_spread(rates, 2)
-        r = {"step_ms": round(imgs / ips * 1e3, 4),
-             "images_per_s": round(ips, 2), "rep_spread": spread,
-             "losses_after_60_steps": {k: round(v, 5) for k, v in
+        r = {"losses_after_40_steps": {k: round(v, 5) for k, v in
                                        last.items()}}
         bd = step_breakdown(cfg, state, smi, batches=list(hr[:4]),
                             benchmarks=(False,))[False]
@@ -2155,14 +2158,6 @@ def bf16_step_phase(smi, fp32_gray3):
         out[variant] = r
         del state, hr, multi, w
         torch.cuda.empty_cache()
-    g = out["gray-3"]
-    print(f"bf16 gray-3 step {g['step_ms']} ms ({g['images_per_s']} images/s) "
-          f"beside the fp32 step of phase 8, {fp32_gray3['step_ms']} ms "
-          f"({fp32_gray3['images_per_s']} images/s), on {smi}; cuDNN's "
-          f"dgrad_engine / wgrad_alg0_engine in the bf16 step: "
-          f"{g['profile']['cudnn_fp32_backward_ms']} ms a step (30.2 / 11.9 "
-          f"in the fp32 step, PERF.md section 5); device busy "
-          f"{g['profile']['device_busy_share']} of the wall time", flush=True)
     return out
 
 
@@ -4398,11 +4393,13 @@ def _bf16_k2_counts(name, launches, by_impl, stats, main):
           f"(want {stats} stats and {main} main launches, all wgmma_bf16)")
 
 
-def measure_phase(smi):
+def measure_phase(smi, fp32_gray3, bf16_profile):
     """Phase 27: `python -m dcgan_sr_tpu_torch.bench` as a subprocess at
     full geometry, then attr_variant, attr_overlap (both modes), feed_ab
     and probe_image_io in this process (every kernel's count from 0 just
-    before each).  Returns {tool: {kernel: launches run}}."""
+    before each).  Prints bench's gray-3 bf16 step beside phase 8's fp32
+    step (`fp32_gray3`) and phase 15's profile of the bf16 step.  Returns
+    {tool: {kernel: launches run}}."""
     import torch
 
     from dcgan_sr_tpu_torch import (attr_overlap, attr_variant, bench,
@@ -4458,11 +4455,22 @@ def measure_phase(smi):
                          "preprocess": sum(counts["preprocess_run"].values())}
     done("python -m dcgan_sr_tpu_torch.bench",
          {"s": secs, "header": head, "launches": counts, "lines": recs})
+    ips = recs[-1]["value"]
+    step_ms = bench.BATCH / ips * 1e3
+    print(f"bf16 gray-3 step {step_ms:.4f} ms ({ips} images/s, bench) "
+          f"beside the fp32 step of phase 8, {fp32_gray3['step_ms']} ms "
+          f"({fp32_gray3['images_per_s']} images/s), on {smi}; cuDNN's "
+          f"dgrad_engine / wgrad_alg0_engine in the bf16 step: "
+          f"{bf16_profile['cudnn_fp32_backward_ms']} ms a step (30.2 / 11.9 "
+          f"in the fp32 step, PERF.md section 5); device busy "
+          f"{bf16_profile['device_busy_share']} of the wall time", flush=True)
 
     # attr_variant: the gray-3 bf16 step at batch 100 and its G prefixes
-    res, lines, secs, c = _tool(attr_variant.main, [
-        "--config", "gray-3", "--batch", "100", "--steps", "5",
-        "--reps", "2"])
+    ran = {}
+    res, lines, secs, c = _tool(
+        functools.partial(attr_variant.main, launches=ran), [
+            "--config", "gray-3", "--batch", "100", "--steps", "5",
+            "--reps", "2"])
     n_layers = len(generator_spec(get_config("gray-3", env_override=False)))
     check(list(res) == ["config", "dtype", "step_batch", "step_ms",
                         "g_fwd_ms", "g_fwd_bwd_ms", "d_fwd_ms",
@@ -4473,11 +4481,12 @@ def measure_phase(smi):
           and len(res["g_layers"]) == n_layers
           and all(r["prefix_ms"] > 0 for r in res["g_layers"]),
           f"attr_variant: {lines}")
-    # the chunk counts K1 at its warm-up and at its capture (5 + 5); the
-    # trainer's G runs layers 3-4 unfused: no K2
-    check(c["preprocess"] == 2 * 5 and c["bulge_main"] == 0
-          and c["bulge_main_bf16"] == 0, f"attr_variant launches {c}")
-    launches["attr_variant"] = {**c, "preprocess": 3 * 5}
+    # K1 ran in the warm-up chunk and in the two timed replays (the tool's
+    # count from the runner); the trainer's G runs layers 3-4 unfused: no K2
+    check(ran["preprocess"] == 3 * 5 and c["bulge_main"] == 0
+          and c["bulge_main_bf16"] == 0,
+          f"attr_variant launches {c}, run {ran}")
+    launches["attr_variant"] = {**c, "preprocess": ran["preprocess"]}
     done("attr_variant --config gray-3 --batch 100", {"s": secs,
                                                       "result": res})
 
@@ -4509,9 +4518,11 @@ def measure_phase(smi):
                     "by_implementation": dict(K.impl_launches)})
 
     # feed_ab: 5 epochs of 8 steps in chunks of 4, one capture
-    res, lines, secs, c = _tool(feed_ab.main, [
-        "--config", "rgb-full", "--steps", "8", "--scan", "4",
-        "--rounds", "2"])
+    ran = {}
+    res, lines, secs, c = _tool(
+        functools.partial(feed_ab.main, launches=ran), [
+            "--config", "rgb-full", "--steps", "8", "--scan", "4",
+            "--rounds", "2"])
     own = [l for l in lines if not l.startswith(("Epoch:", "End of epoch"))]
     check(len(own) == 8 and own[0].startswith("warmup epoch: ")
           and [l.split(":")[0] for l in own[1:5]] == [
@@ -4519,10 +4530,12 @@ def measure_phase(smi):
               "round 1 stage_ahead=True", "round 1 stage_ahead=False"]
           and re.fullmatch(r"stage_ahead=True won [0-2]/2 paired rounds",
                            own[-1]), f"feed_ab: {lines}")
-    # K1 counted at the warm-up chunk and at its capture; the rest replays
-    check(c["preprocess"] == 2 * 4, f"feed_ab launches {c}")
-    launches["feed_ab"] = {**c, "preprocess": 5 * 8}
-    done("feed_ab --config rgb-full", {"s": secs, "lines": own})
+    # K1 ran in every step of the five epochs (the tool's count from the
+    # runner: the warm-up chunk, then replays)
+    check(ran["preprocess"] == 5 * 8, f"feed_ab launches {c}, run {ran}")
+    launches["feed_ab"] = {**c, "preprocess": ran["preprocess"]}
+    done("feed_ab --config rgb-full (plumbing check at smoke depth)",
+         {"s": secs, "lines": own})
 
     with tempfile.TemporaryDirectory() as tmp:
         _, lines, secs, _ = _tool(probe_image_io.main, [tmp])
@@ -4785,7 +4798,7 @@ def main():
 
     stamp()
     # phase 15: the bf16 training step at bench.py's geometry
-    bf16_step_phase(smi, breakdown[False])
+    bf16_steps = bf16_step_phase(smi)
 
     stamp()
     # phase 16: the bf16 paths as users start them; counts from 0 here and
@@ -4859,7 +4872,8 @@ def main():
 
     stamp()
     # phase 27: the measurement entry points; counts from 0 before each
-    measure_launches = measure_phase(smi)
+    measure_launches = measure_phase(smi, breakdown[False],
+                                     bf16_steps["gray-3"]["profile"])
     for k in ("bulge_stats_bf16", "bulge_main_bf16"):
         launches[k] += sum(c[k] for c in measure_launches.values())
 

@@ -36,7 +36,7 @@ import torch
 
 from .core import get_config
 from .models import Network, discriminator_spec, generator_spec, init_network
-from .train.multi_step import build_multi_step
+from .train.multi_step import build_multi_step, counted, launches_run
 from .train.step import init_train_state
 from .utils.device import pick_device
 from .utils.measure import timed_scan
@@ -71,7 +71,10 @@ def layer_desc(layer):
                             if "cin" in layer else "")
 
 
-def main(argv=None):
+def main(argv=None, launches=None):
+    """The tool; `launches`, where given, is filled with {kernel: launches
+    the card ran} in the full step's chunks (train/multi_step.py
+    launches_run: the capture not counted, every replay counted)."""
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="rgb-full")
@@ -110,9 +113,13 @@ def main(argv=None):
     # full step
     state = init_train_state(cfg, torch.Generator().manual_seed(0),
                              device=device)
+    before = counted()
     multi = build_multi_step(cfg)
     sb = on_device(k, b, cfg.nc, hw, hw)
     dt = timed_scan(lambda: multi(state, sb)[1]["errG"][-1], (), reps, k)
+    if launches is not None:
+        launches.update(launches_run(
+            {key: n - before[key] for key, n in counted().items()}, multi))
     out["step_ms"] = round(dt * 1e3, 3)
     print(f"{'full step':24s} {dt*1e3:7.3f} ms  ({b/dt:,.0f} img-eq/s)",
           flush=True)

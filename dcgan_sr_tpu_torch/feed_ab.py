@@ -33,12 +33,15 @@ import torch
 from .cli import build_data
 from .core import get_config
 from .train.loop import train_epochs
-from .train.multi_step import build_multi_step
+from .train.multi_step import build_multi_step, counted, launches_run
 from .train.step import build_train_step, init_train_state
 from .utils.device import pick_device
 
 
-def main(argv=None):
+def main(argv=None, launches=None):
+    """The tool; `launches`, where given, is filled with {kernel: launches
+    the card ran} over every epoch, the warm-up's included
+    (train/multi_step.py launches_run)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="rgb-full")
     ap.add_argument("--steps", type=int, default=32)
@@ -60,6 +63,7 @@ def main(argv=None):
     state = init_train_state(cfg, torch.Generator().manual_seed(
         cfg.manualSeed), device=device)
     step_fn = build_train_step(cfg)
+    before = counted()
     multi = build_multi_step(cfg) if args.scan > 1 else None
     feed_dtype = torch.bfloat16 if args.feed_bf16 else None
 
@@ -93,6 +97,9 @@ def main(argv=None):
         print(f"{args.flag}={flag_value}: median {v[len(v) // 2]:.3f}s  "
               f"all={[round(x, 2) for x in times[flag_value]]}")
     print(f"{args.flag}=True won {wins}/{args.rounds} paired rounds")
+    if launches is not None:
+        launches.update(launches_run(
+            {k: n - before[k] for k, n in counted().items()}, multi))
     return times, wins
 
 

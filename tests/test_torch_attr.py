@@ -5,6 +5,7 @@ the JAX package's init, rtol 1e-4), and they print the JAX tools' keys and
 row labels.  Times from these runs are the host's and are not asserted."""
 
 import contextlib
+import functools
 import io
 import json
 import sys
@@ -30,6 +31,7 @@ from dcgan_sr_tpu.models import init_network as j_init_network
 from dcgan_sr_tpu_torch import attr_overlap, attr_variant
 from dcgan_sr_tpu_torch.core import VARIANTS, get_config
 from dcgan_sr_tpu_torch.models import Network, generator_spec
+from dcgan_sr_tpu_torch.train.multi_step import counted
 from tools import attr_variant as j_attr_variant
 
 TOL = dict(rtol=1e-4, atol=1e-6)
@@ -96,9 +98,12 @@ def test_prefix_rows_are_labelled_as_the_jax_tools(monkeypatch, variant):
 
 def test_attr_variant_prints_the_jax_tools_keys(monkeypatch):
     want = _jax_tool_json(monkeypatch, "gray-3")
-    got, lines = _run(attr_variant.main, [
+    ran = {}
+    got, lines = _run(functools.partial(attr_variant.main, launches=ran), [
         "--cpu", "--config", "gray-3", "--batch", "2", "--steps", "2",
         "--reps", "1", "--ngf", "4", "--ndf", "8"])
+    # every kernel's launches that ran in the step's chunks: none on the CPU
+    assert ran == dict.fromkeys(counted(), 0)
     assert json.loads(lines[-1]) == got
     assert list(got) == list(want)
     assert [r["layer"] for r in got["g_layers"]] == \

@@ -4,6 +4,7 @@ A/B prints the JAX tool's lines in ABBA order, and the probe writes the
 JAX tool's PNG bytes and prints its lines."""
 
 import contextlib
+import functools
 import io
 import os
 import re
@@ -16,6 +17,7 @@ from dcgan_sr_tpu.data import native as j_native
 from dcgan_sr_tpu.image.io import load_image as j_load_image
 from dcgan_sr_tpu.train import multi_step as JMS
 from dcgan_sr_tpu_torch import feed_ab, probe_image_io
+from dcgan_sr_tpu_torch.train.multi_step import counted
 from tools import feed_ab as j_feed_ab
 from tools import probe_image_io as j_probe
 
@@ -43,7 +45,10 @@ def test_feed_ab_prints_the_jax_tools_lines_in_abba_order(monkeypatch,
     monkeypatch.setenv("ngf", "4")
     monkeypatch.setenv("ndf", "8")
     monkeypatch.setenv("batchSize", "2")
-    lines = _run(feed_ab.main, ARGS + flags)
+    ran = {}
+    lines = _run(functools.partial(feed_ab.main, launches=ran), ARGS + flags)
+    # every kernel's launches that ran over the epochs: none on the CPU
+    assert ran == dict.fromkeys(counted(), 0)
     # the JAX tool's lines, its train loop and programs replaced by stubs
     # that return at once (nothing compiles)
     monkeypatch.setattr(JT, "train_epochs", lambda cfg, state, *a, **k: (
