@@ -64,8 +64,8 @@ Phases, each fatal on failure:
   8. where a step's time goes: CUDA events after each stage of the step
      (2 warm-up steps, then 10 queued without waiting in between), the whole
      step in ms and images/s, the host's time to queue a step, peak
-     device memory, the same with torch.backends.cudnn.benchmark on, and
-     the training generator's forward layer by layer.
+     device memory, and the training generator's forward layer by layer
+     (cuDNN's autotuning had changed neither by 1%, so it is not rerun).
   9. kernel: the channels-last fused pair (ops/fused_nhwc.py), each
      implementation it has at a shape (the TMA and wgmma kernel of
      csrc/fused_nhwc_wgmma.cu and the mma.sync kernel of csrc/fused_nhwc.cu
@@ -224,7 +224,12 @@ Phases, each fatal on failure:
      bit for bit after unpack_state, the masters' storage unchanged.
      `python -m dcgan_sr_tpu_torch.cli --config gray-3 --synthetic --steps
      6 --scan 3 --fast-ops --compact-params` (through cli.main), then
-     `--resume`: K1 run 6 times each, compact checkpoints.
+     `--resume`: K1 run 6 times each, compact checkpoints.  Between them
+     the knob table as users start it, `python -m
+     dcgan_sr_tpu_torch.profile_table --steps 5 --reps 2` (bf16) and with
+     `--fp32` (tools/profile_step.py's rows and JSON line; K1 run 15 times
+     a training row, G's forward alone 15 launches of each K2 kernel, all
+     by the wgmma kernel), its rows printed beside the times in turns.
  25. data parallel (parallel/, `--dp`).  (a) In this process, a NCCL world
      of one: build_dp_train_step against the single-device step from one
      copied state, gray-3 batch 100, fp32 (TF32 off) and bf16: the first
@@ -254,14 +259,14 @@ Phases, each fatal on failure:
      unless said otherwise: overlap_protocol on the overlap fixture over
      the held-out sets 10000:10005 in both BN modes, its five rows held to
      PARITY.md within 0.02 dB / 3e-4 (phase 19 holds the same overlap eval
-     on the card to the CPU); select_checkpoint --full on 3
-     gray-3 epochs that cli.main trained (--textured, 10 steps each) beside
-     a torn 4th (its SKIPPED line, 51 K2 launches of each kernel), and
-     `python -m ...select_checkpoint` without --full as a subprocess (the
-     same BEST line); validate_bf16 at its defaults, twice (the same
-     PSNR/SSIM pairs and verdict both times, under deterministic cuDNN; its
-     verdict,
-     and the spread of two runs of each dtype; K1 run 200 times each);
+     on the card to the CPU); select_checkpoint --full --select-sets 1 on
+     3 gray-3 epochs that cli.main trained (--textured, 10 steps each)
+     beside a torn 4th (its SKIPPED line, 45 K2 launches of each kernel),
+     and `python -m ...select_checkpoint --select-sets 1` without --full as
+     a subprocess (the same BEST line); validate_bf16 at 20 steps (its
+     warm-up chunk and the capture), twice (the same PSNR/SSIM pairs and
+     verdict both times, under deterministic cuDNN; its verdict, and the
+     spread of two runs of each dtype; K1 run 40 times each);
      zssr_photo --bf16 --steps 100 on a seeded 384x512 photo;
      serve_load (--size 100x72 --warm 10) against a gray-3 server started
      with --warmup --warmup-rect (the first request, non-square, within 3x
@@ -278,7 +283,12 @@ Phases, each fatal on failure:
      value > 0, its [min, median, max] spread, the card's name and power
      limit, and vs_baseline = value / BASELINE_MEASURED.json's baseline
      (the file unchanged); K1 run 80 times a trainer, every bf16 K2 launch
-     by the wgmma kernel (80 stats, 160 main).  Then, in this process:
+     by the wgmma kernel (80 stats, 160 main); `host` the fingerprint tag
+     of utils/host.py on every line, `host_desc` in the header.  Then, in
+     this process: `bench_infer --self-ensemble 8`, with and without
+     `--ensemble-batched` (both BN modes, 8 images a call; every bf16 K2
+     launch by the wgmma kernel, 8 or 1 generator calls a pipeline call),
+     each line beside bench's N = 1 line;
      `attr_variant --config gray-3 --batch 100 --steps 5 --reps 2` (the JAX
      tool's keys, every prefix row), `attr_overlap` at 64 images with
      `--steps 5 --reps 2` in both modes (K2's counts exact, every launch by
@@ -289,6 +299,27 @@ Phases, each fatal on failure:
      reads them from its runner (`main(..., launches=)`).  The gray-3
      bench step is printed beside phase 8's fp32 step and phase 15's
      profile.  The phase prints its seconds.
+ 28. the ported options that had never run on the card, at full width,
+     each held to the same command run with --cpu in this process (fp32
+     bytes within 1 level of 255, tiled on all but 1% of the pixels; eval
+     slice means PSNR 1e-3 dB, SSIM 1e-4), every K2 launch fp32 and by the
+     wgmma kernel: `--g-ema 0.999` in the K-step CUDA graph (gray-3 batch
+     100, K = 3: the replayed chunk's EMA moves and agrees with two eager
+     twins from a copy of its state, deterministic cuDNN), then `cli
+     --g-ema 0.999 --scan 3` for 2 epochs of 6 steps (K1 run 12 times, the
+     EMA branch in both checkpoints); `upscale --self-ensemble 8` with and
+     without `--ensemble-batched`, both BN modes, on directories of two
+     images, gray-3 64x64 and overlap 32x32 (8 main launches against 1); `--self-ensemble 8` on
+     a 48x64 image (4 members: the same bytes as `--self-ensemble 4`);
+     `--true-2x` on LR directories (gray-3, overlap); `--resize 64`;
+     `--ema` (gray-3 from the CLI's checkpoint, the overlap fixture with a
+     seeded perturbation as its EMA branch: other pixels than the params
+     branch's); `serve --self-ensemble 8 --parity-bn` and `serve --ema`
+     started together, each response against an SRService on the CPU;
+     `cli --eval --eval-sets 1 --self-ensemble 8 --ensemble-batched` with
+     batchSize=5 on a checkpoint of the gray-3 fixture; `select_checkpoint
+     --ema` on the CLI's second checkpoint and `overlap_protocol --ema --sets
+     10000:10001` (other scores than the params branch's).
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
      the mma.sync and FMA kernels' times in turns, their eval launches and
@@ -363,6 +394,7 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
 import functools
 import http.client
 import io
+import itertools
 import json
 import os
 import re
@@ -1767,11 +1799,11 @@ def overlap_phase(cfg, fused, plain, smi, fused_fma, fused_mma):
     for bn_eval in (False, True):
         got = {"mma": [], "wgmma": []}
         for impl in ("mma", "wgmma", "wgmma", "mma"):
-            got[impl] += bench_infer.measure(bn_eval=bn_eval, reps=3,
+            got[impl] += bench_infer.measure(bn_eval=bn_eval, reps=1,
                                              steps=10, bulge_impl=impl,
                                              dtype="fp32")
         print(f"bench_infer fp32 {'bn_eval' if bn_eval else 'parity BN'}, "
-              f"pair by each kernel in turns (MP/s, 2 x 3 repetitions) on "
+              f"pair by each kernel in turns (MP/s, 2 x 1 repetitions) on "
               f"{smi}: " + json.dumps({k: [round(v, 3) for v in vs]
                                        for k, vs in got.items()}), flush=True)
     return counts
@@ -2257,10 +2289,10 @@ def bf16_bench_phase(smi):
     for bn_eval in (False, True):
         got = {"mma": [], "wgmma": []}
         for impl in ("mma", "wgmma", "wgmma", "mma"):
-            got[impl] += bench_infer.measure(bn_eval=bn_eval, reps=3,
+            got[impl] += bench_infer.measure(bn_eval=bn_eval, reps=1,
                                              steps=10, bulge_impl=impl)
         print(f"bench_infer bf16 {'bn_eval' if bn_eval else 'parity BN'}, "
-              f"pair by each kernel in turns (MP/s, 2 x 3 repetitions) on "
+              f"pair by each kernel in turns (MP/s, 2 x 1 repetitions) on "
               f"{smi}: " + json.dumps({k: [round(v, 3) for v in vs]
                                        for k, vs in got.items()}), flush=True)
     lines = _module(["dcgan_sr_tpu_torch.bench_fused", "--kernel", "bulge",
@@ -2360,14 +2392,15 @@ def _zero_counts():
             counts[k] = 0
 
 
-def _cli(args):
+def _cli(args, env=None):
     """The trainer's entry point, cli.main, in this process as a user's
     `python -m dcgan_sr_tpu_torch.cli` runs it: the launch counts from 0,
-    no config override from the environment, its output captured."""
+    no config override from the environment but `env`'s, its output
+    captured."""
     from dcgan_sr_tpu_torch import cli
 
     _zero_counts()
-    return _in_process(cli.main, args)[1]
+    return _in_process(cli.main, args, env)[1]
 
 
 def _step_ms(step, state, batch, iters=5):
@@ -3124,13 +3157,15 @@ def graph_step_phase(smi):
 # phase 23: Torch7 .t7 checkpoints on the served paths
 # ---------------------------------------------------------------------------
 
-def _in_process(main, args):
+def _in_process(main, args, env=None):
     """An entry point's main(args) in this process as a user's `python -m`
-    runs it: no config override from the environment, its output
-    captured.  Returns (its return value, its output lines)."""
+    runs it: no config override from the environment but those of `env`
+    (a user's `batchSize=5 python -m ...`), its output captured.  Returns
+    (its return value, its output lines)."""
     import contextlib
 
     saved = {k: os.environ.pop(k) for k in CONFIG_ENV if k in os.environ}
+    os.environ.update(env or {})
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
@@ -3139,6 +3174,8 @@ def _in_process(main, args):
         sys.stderr.write(out.getvalue()[-4000:])
         raise
     finally:
+        for k in env or {}:
+            os.environ.pop(k, None)
         os.environ.update(saved)
     return ret, out.getvalue().splitlines()
 
@@ -3369,14 +3406,17 @@ def opt_in_phase(smi):
     --fast-ops (first-step losses from one state; stage times in turns);
     the bf16 K = 20 graph chunk, standard against fast, in turns, for
     gray-3 and gray-patch-batch; --compact-params against standard over one
-    replayed fp32 chunk (bit for bit); the CLI with both flags, then
-    --resume.  Returns {kernel: launches run} of the CLI runs."""
+    replayed fp32 chunk (bit for bit); the knob table (profile_table), bf16
+    and --fp32; the CLI with both flags, then --resume.  Returns {kernel:
+    launches run} of the knob table and the CLI runs."""
     import math
 
     import numpy as np
     import torch
 
+    from dcgan_sr_tpu_torch import profile_table
     from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.ops import bulge as K
     from dcgan_sr_tpu_torch.models import discriminator_spec, generator_spec
     from dcgan_sr_tpu_torch.ops.compact import pack_state, unpack_state
     from dcgan_sr_tpu_torch.train.checkpoint import checkpoint_path
@@ -3525,8 +3565,55 @@ def opt_in_phase(smi):
     del out
     torch.cuda.empty_cache()
 
+    # the knob table as users start it (python -m
+    # dcgan_sr_tpu_torch.profile_table, tools/profile_step.py's counterpart),
+    # bf16 then --fp32, printed beside the standard and fast times above
+    counts = dict.fromkeys(K.launches, 0)
+    counts["preprocess"] = 0
+    rows = ("baseline", "compact_params", "fast_ops", "pallas_preprocess",
+            "compact+pallas")
+    for in_fp32 in (False, True):
+        ran = {}
+        for k in K.impl_launches:
+            K.impl_launches[k] = 0
+        res, lines, secs, _ = _tool(
+            functools.partial(profile_table.main, launches=ran),
+            ["--steps", "5", "--reps", "2"] + ["--fp32"] * in_fp32)
+        dtype = "float32" if in_fp32 else "bfloat16"
+        fwd = {"bulge_stats": 15, "bulge_main": 15} if in_fp32 else {
+            "bulge_stats_bf16": 15, "bulge_main_bf16": 15}
+        impl = dict(K.impl_launches)
+        check(res["dtype"] == dtype and res["batch"] == 100
+              and list(res["ms_per_step"]) == list(rows) + ["g_forward_only"]
+              and all(v > 0 for v in res["ms_per_step"].values())
+              and len(lines) == 9 and lines[-1] == json.dumps(res)
+              and lines[7] == profile_table.PALLAS_NOTE,
+              f"profile_table {dtype}: {lines}")
+        # K1 in the warm-up chunk and the two replays of 5 steps; the
+        # trainer's G runs layers 3-4 unfused; G's forward alone runs the
+        # fused pair, 5 calls a repetition, a warm one and two timed
+        check(all(ran[r]["preprocess"] == 3 * 5
+                  and not any(ran[r][k] for k in K.launches) for r in rows)
+              and {k: n for k, n in ran["g_forward_only"].items() if n} == fwd
+              and impl == {**dict.fromkeys(impl, 0),
+                           ("wgmma" if in_fp32 else "wgmma_bf16"): 30},
+              f"profile_table {dtype}: launches {ran}, by implementation "
+              f"{impl}")
+        counts["preprocess"] += sum(ran[r]["preprocess"] for r in rows)
+        for k, n in fwd.items():
+            counts[k] += n
+        side = ({"standard": fp32["standard"]["step_ms"],
+                 "fast": fp32["fast"]["step_ms"]} if in_fp32 else
+                {"standard": bf16["gray-3"]["standard"]["step_ms"],
+                 "fast": bf16["gray-3"]["fast"]["step_ms"]})
+        print(f"profile_table {'--fp32' if in_fp32 else '(bf16)'} --steps 5 "
+              f"--reps 2, {secs} s, ms a step: " + json.dumps(
+                  res["ms_per_step"]) + "; beside phase 24's in-turns gray-3 "
+              + ("fp32 step (eager)" if in_fp32 else "bf16 K = 20 graph replay")
+              + " ms: " + json.dumps(side) + f"; K2 {fwd} by {impl}, on "
+              f"{smi}", flush=True)
+
     # the trainer as users start it, with both flags, then --resume
-    counts = {}
     with tempfile.TemporaryDirectory() as ck:
         flags = ["--config", "gray-3", "--synthetic", "--seed", "1",
                  "--fast-ops", "--compact-params", "--checkpoint-dir", ck,
@@ -3548,7 +3635,7 @@ def opt_in_phase(smi):
             check(run == 6 and graph["captures"] == 1
                   and graph["replays"] == 1,
                   f"cli --fast-ops --compact-params: K1 ran {run}, {graph}")
-            counts["preprocess"] = counts.get("preprocess", 0) + run
+            counts["preprocess"] += run
             ep = 2 if resume else 1
             with np.load(checkpoint_path(ck, cfg.name, ep, "G")) as data:
                 check(data["_params_/_1_/_w_"].ndim == 2
@@ -3828,7 +3915,7 @@ def dp_phase(smi, graph22=None):
             zero()
             for name in ("dp", "single", "single", "dp"):
                 fn, st = (dstep, sd) if name == "dp" else (step, ss)
-                turns[name].append(_step_ms(fn, st, batches[1], iters=10))
+                turns[name].append(_step_ms(fn, st, batches[1], iters=5))
             add(P.launches)
             nccl, total = _nccl_ms(
                 lambda: [dstep(sd, batches[1]) for _ in range(3)], 3)
@@ -4030,6 +4117,7 @@ PARITY_OVERLAP = {"bilinear": (28.461, 0.97440),
                   (True, "seam"): (29.986, 0.97852)}
 TOL_PARITY = (0.02, 3e-4)          # PARITY.md prints 3 / 5 decimals
 TOOL_KERNELS = ("bulge_stats", "bulge_main", "preprocess")
+VALIDATE_STEPS = 20        # each dtype's steps in phase 26's validate_bf16
 
 
 def _tool(main, args):
@@ -4232,7 +4320,8 @@ def tools_phase(smi):
         with open(os.path.join(ck, f"{cfg.name}_4_net_D.npz"), "wb") as f:
             f.write(d3)
         best, lines, secs, c = _tool(select_checkpoint.main,
-                                     ["--dir", ck, "--full"])
+                                     ["--dir", ck, "--full",
+                                      "--select-sets", "1"])
         k = ran("select_checkpoint --full", c)
         check(any(l.startswith("epoch 4: SKIPPED unreadable checkpoint")
                   for l in lines), f"no SKIPPED line: {lines}")
@@ -4241,26 +4330,30 @@ def tools_phase(smi):
         ref = [l for l in lines if l.startswith("[")]
         check(len(scored) == 3 and len(ref) == 8
               and all(l.endswith("train-Size: 2100") for l in ref)
-              and k["bulge_stats"] == k["bulge_main"] == 3 * 3 + 42,
+              and k["bulge_stats"] == k["bulge_main"] == 3 + 42,
               f"select_checkpoint: {lines}, launches {k}")
         done("select_checkpoint --full", {
-            "s": secs, "images_per_s": round((900 + 4200) / secs, 2),
+            "s": secs, "images_per_s": round((300 + 4200) / secs, 2),
             "best": best, "lines": lines})
-        sub = _module(["dcgan_sr_tpu_torch.select_checkpoint", "--dir", ck])
+        sub = _module(["dcgan_sr_tpu_torch.select_checkpoint", "--dir", ck,
+                       "--select-sets", "1"])
         check(sub[-1] == [l for l in lines if l.startswith("BEST")][0],
               f"python -m select_checkpoint: {sub[-1]}")
 
-        # validate_bf16 at its defaults (100 steps of batch 100, K = 20),
-        # twice: under cuDNN's deterministic algorithms both runs must print
-        # the same PSNR/SSIM of each dtype and the same verdict
+        # validate_bf16 at 20 steps of batch 100 (K = 20: the warm-up chunk
+        # and the capture), twice: under cuDNN's deterministic algorithms
+        # both runs must print the same PSNR/SSIM of each dtype and the same
+        # verdict (its 100-step default runs from four seeds in PERF.md)
         runs = []
         for rep in (1, 2):
-            ok, lines, secs, c = _tool(validate_bf16.main, [])
+            ok, lines, secs, c = _tool(
+                lambda _: validate_bf16.run(steps=VALIDATE_STEPS), None)
             k = ran(f"validate_bf16 #{rep}", c, lines)
             check(lines[-2].startswith("delta PSNR ")
                   and lines[-2].endswith("-> PASS" if ok else "-> FAIL"),
                   f"validate_bf16: {lines}")
-            check(k["preprocess"] == 200 and k["bulge_stats"] == 4
+            check(k["preprocess"] == 2 * VALIDATE_STEPS
+                  and k["bulge_stats"] == 4
                   and k["bulge_main"] == 4, f"validate_bf16 launches {k}")
             runs.append({"s": secs, "pass": bool(ok), "lines": lines})
         fields = [[float(v) for v in re.findall(
@@ -4393,20 +4486,23 @@ def _bf16_k2_counts(name, launches, by_impl, stats, main):
           f"(want {stats} stats and {main} main launches, all wgmma_bf16)")
 
 
-def measure_phase(smi, fp32_gray3, bf16_profile):
+def measure_phase(smi, fp32_gray3=None, bf16_profile=None):
     """Phase 27: `python -m dcgan_sr_tpu_torch.bench` as a subprocess at
-    full geometry, then attr_variant, attr_overlap (both modes), feed_ab
-    and probe_image_io in this process (every kernel's count from 0 just
-    before each).  Prints bench's gray-3 bf16 step beside phase 8's fp32
-    step (`fp32_gray3`) and phase 15's profile of the bf16 step.  Returns
-    {tool: {kernel: launches run}}."""
+    full geometry (its host stamps held to utils/host.machine_fingerprint),
+    then `bench_infer --self-ensemble 8` (both forms), attr_variant,
+    attr_overlap (both modes), feed_ab and probe_image_io in this process
+    (every kernel's count from 0 just before each).  Prints bench's gray-3 bf16 step beside phase 8's fp32
+    step (`fp32_gray3`) and phase 15's profile of the bf16 step, where
+    given (the phase run alone has neither).  Returns {tool: {kernel:
+    launches run}}."""
     import torch
 
     from dcgan_sr_tpu_torch import (attr_overlap, attr_variant, bench,
-                                    feed_ab, probe_image_io)
+                                    bench_infer, feed_ab, probe_image_io)
     from dcgan_sr_tpu_torch.core import get_config
     from dcgan_sr_tpu_torch.models import generator_spec
     from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.utils.host import machine_fingerprint
 
     t_phase = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -4435,6 +4531,13 @@ def measure_phase(smi, fp32_gray3, bf16_profile):
     recs = [json.loads(l) for l in lines[2:]]
     check([r["metric"] for r in recs] == list(BENCH_LINES),
           f"bench metric lines {[r['metric'] for r in recs]}")
+    # the host's fingerprint, as bench.py stamps it: the tag on every line,
+    # its description in the header
+    tag, desc = machine_fingerprint()
+    check(head["host"] == tag and head["host_desc"] == desc
+          and all(r["host"] == tag for r in recs),
+          f"bench host stamps {head['host']!r} {head['host_desc']!r}, want "
+          f"{tag!r} {desc!r}")
     baselines = bench.read_baselines()
     for r in recs:
         lo, med, hi = r["rep_spread"]
@@ -4457,13 +4560,41 @@ def measure_phase(smi, fp32_gray3, bf16_profile):
          {"s": secs, "header": head, "launches": counts, "lines": recs})
     ips = recs[-1]["value"]
     step_ms = bench.BATCH / ips * 1e3
-    print(f"bf16 gray-3 step {step_ms:.4f} ms ({ips} images/s, bench) "
-          f"beside the fp32 step of phase 8, {fp32_gray3['step_ms']} ms "
-          f"({fp32_gray3['images_per_s']} images/s), on {smi}; cuDNN's "
-          f"dgrad_engine / wgrad_alg0_engine in the bf16 step: "
-          f"{bf16_profile['cudnn_fp32_backward_ms']} ms a step (30.2 / 11.9 "
-          f"in the fp32 step, PERF.md section 5); device busy "
-          f"{bf16_profile['device_busy_share']} of the wall time", flush=True)
+    if fp32_gray3 is not None and bf16_profile is not None:
+        print(f"bf16 gray-3 step {step_ms:.4f} ms ({ips} images/s, bench) "
+              f"beside the fp32 step of phase 8, {fp32_gray3['step_ms']} ms "
+              f"({fp32_gray3['images_per_s']} images/s), on {smi}; cuDNN's "
+              f"dgrad_engine / wgrad_alg0_engine in the bf16 step: "
+              f"{bf16_profile['cudnn_fp32_backward_ms']} ms a step (30.2 / "
+              f"11.9 in the fp32 step, PERF.md section 5); device busy "
+              f"{bf16_profile['device_busy_share']} of the wall time",
+              flush=True)
+
+    # bench_infer --self-ensemble 8, each form, both BN modes: 8 images a
+    # call (bench_infer.py's max(8, 64 // 8)), 4 x 20 calls a mode; the
+    # members run as 8 generator calls a pipeline call, or batched as one
+    # of 8 x 8 x 225 = 14,400 tiles (the N = 1 line's call)
+    n1 = {r["metric"]: r["value"] for r in recs[:2]}
+    for batched in (False, True):
+        for k in K.impl_launches:
+            K.impl_launches[k] = 0
+        _, lines, secs, c = _tool(bench_infer.main, [
+            "--self-ensemble", "8"] + ["--ensemble-batched"] * batched)
+        tta = [json.loads(l) for l in lines[:-1]]
+        form = "_batched" if batched else ""
+        check([r["metric"] for r in tta] == [
+            f"overlap_sr_upscaled_mp_per_sec_tta8{form}",
+            f"overlap_sr_upscaled_mp_per_sec_tta8{form}_bn_eval"]
+            and all(0 < r["rep_spread"][0] <= r["value"]
+                    <= r["rep_spread"][2] and r["device"] == kind
+                    for r in tta), f"bench_infer --self-ensemble 8: {lines}")
+        calls = 4 * K_STEPS * (1 if batched else 8)
+        name = "bench_infer --self-ensemble 8" + " --ensemble-batched" * batched
+        _bf16_k2_counts(name, c, dict(K.impl_launches), calls, 2 * calls)
+        launches[name] = c
+        done(name, {"s": secs, "lines": tta, "over_the_n1_line": [
+            round(r["value"] / n1[r["metric"].replace(f"_tta8{form}", "")], 4)
+            for r in tta], "n1_lines": n1})
 
     # attr_variant: the gray-3 bf16 step at batch 100 and its G prefixes
     ran = {}
@@ -4548,6 +4679,512 @@ def measure_phase(smi, fp32_gray3, bf16_profile):
           f"launches of each tool, on {smi}: " + json.dumps(launches),
           flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the ported options that had never run on the card
+# ---------------------------------------------------------------------------
+
+# score lines: the eval protocol's ([tag] PSNR|SSIM btwn a & b: value),
+# select_checkpoint's (epoch N: train-slice PSNR x SSIM y) and
+# overlap_protocol's (name  PSNR x  SSIM y); groups: the label, then the value
+SCORE_LINES = (
+    re.compile(r"^\[(.+?)\] (PSNR|SSIM) btwn (.+?): ([-\d.]+|nan|inf),"),
+    re.compile(r"^(epoch \d+): train-slice (PSNR) ([-\d.]+|nan|inf) "),
+    re.compile(r"^(epoch \d+): train-slice PSNR \S+ (SSIM) "
+               r"([-\d.]+|nan|inf)$"),
+    re.compile(r"^(\S+)\s+(PSNR) ([-\d.]+|nan|inf)\s+SSIM"),
+    re.compile(r"^(\S+)\s+PSNR \S+\s+(SSIM) ([-\d.]+|nan|inf)$"),
+)
+TOL_SCORE = {"PSNR": 1e-3, "SSIM": 1e-4}     # PERF.md section 2
+G_EMA = 0.999
+EMA_K = 3
+
+
+def _scores(lines):
+    """{label: (value, decimals printed)} of the score lines in `lines`."""
+    out = {}
+    for line in lines:
+        for pat in SCORE_LINES:
+            m = pat.match(line)
+            if m:
+                *label, v = m.groups()
+                out[" ".join(label)] = (float(v), len(v.partition(".")[2]))
+    return out
+
+
+def _hold_scores(name, card, cpu):
+    """Card scores against the CPU's: PSNR within 1e-3 dB and SSIM within
+    1e-4, plus the last printed digit; returns the largest differences."""
+    check(card and set(card) == set(cpu), f"{name}: score lines "
+          f"{sorted(card)} on the card, {sorted(cpu)} on the CPU")
+    worst = {"PSNR": 0.0, "SSIM": 0.0}
+    for label, (v, nd) in card.items():
+        kind = "SSIM" if "SSIM" in label.split() else "PSNR"
+        d = abs(v - cpu[label][0])
+        worst[kind] = max(worst[kind], d)
+        check(v == v and abs(v) != float("inf")
+              and d <= TOL_SCORE[kind] + 10.0 ** -nd,
+              f"{name}: {label} {v} on the card, {cpu[label][0]} on the CPU")
+    return worst
+
+
+def _counted_run(main, args, env=None):
+    """main(args) in this process with every kernel's count from 0 just
+    before it: (its lines, seconds, {kernel: launches}, {implementation:
+    launches})."""
+    import torch
+
+    from dcgan_sr_tpu_torch.ops import bulge as K
+
+    _zero_counts()
+    for k in K.impl_launches:
+        K.impl_launches[k] = 0
+    t0 = time.perf_counter()
+    _, lines = _in_process(main, args, env)
+    torch.cuda.synchronize()
+    return (lines, round(time.perf_counter() - t0, 2), dict(K.launches),
+            dict(K.impl_launches))
+
+
+def _card_and_cpu(main, card_args, cpu_args=None, env=None):
+    """main(card_args) on the card, then main(cpu_args + --cpu) (cpu_args
+    defaults to card_args), each a `_counted_run`.  Returns the card's
+    (lines, seconds, {kernel: launches}, {implementation: launches}) and
+    the CPU's (lines, seconds)."""
+    card = _counted_run(main, card_args, env)
+    cpu = _counted_run(main, list(cpu_args or card_args) + ["--cpu"], env)
+    return card, cpu[:2]
+
+
+def _fp32_k2(name, launches, impl, stats=None, main=None):
+    """Every K2 launch of a path fp32 and by the wgmma kernel, at least one
+    main launch (`main`: exactly that many), stats launches where `stats`
+    says (None: either)."""
+    n = launches["bulge_stats"] + launches["bulge_main"]
+    check(launches["bulge_main"] > 0 and impl["wgmma"] == n
+          and sum(impl.values()) == n
+          and launches["bulge_stats_bf16"] == launches["bulge_main_bf16"] == 0
+          and (stats is None or (launches["bulge_stats"] > 0) == stats)
+          and (main is None or launches["bulge_main"] == main),
+          f"{name}: K2 launched {launches}, by implementation {impl}")
+
+
+def _pngs(path):
+    """{file name: pixels} of a PNG file ("" its name) or of every file in
+    a directory."""
+    import numpy as np
+    from PIL import Image
+
+    names = sorted(os.listdir(path)) if os.path.isdir(path) else [""]
+    return {n: np.asarray(Image.open(os.path.join(path, n) if n else path),
+                          np.int16) for n in names}
+
+
+def _hold_pixels(name, a, b, share):
+    """Images `a` against `b` ({name: pixels}): the same files and shapes,
+    within TOL_U8 levels of 255 on all but `share` of each image's pixels.
+    Returns (the largest difference in levels, pixels beyond TOL_U8)."""
+    import numpy as np
+
+    check(a and list(a) == list(b), f"{name}: files {list(a)} vs {list(b)}")
+    worst = beyond = 0
+    for n in a:
+        check(a[n].shape == b[n].shape,
+              f"{name} {n}: {a[n].shape} vs {b[n].shape}")
+        d = np.abs(a[n] - b[n])
+        off = int((d > TOL_U8).sum())
+        check(off <= share * d.size, f"{name} {n}: {off} of {d.size} pixels "
+              f"beyond {TOL_U8} levels (max {int(d.max())})")
+        worst, beyond = max(worst, int(d.max())), beyond + off
+    return worst, beyond
+
+
+def _differs(a, b):
+    """Pixels that differ at all between two {name: pixels} sets."""
+    return sum(int((a[n] != b[n]).sum()) for n in a)
+
+
+def ema_graph_check(smi):
+    """`--g-ema` inside the K-step CUDA graph: gray-3 fp32 at batch 100
+    with g_ema 0.999, K = 3, under cuDNN's deterministic algorithms.  A
+    runner warms up on one chunk and captures it; two eager twins start
+    from copies of its state; the graph replays the next chunk and the
+    twins run it eagerly.  The replayed EMA must move, and agree with the
+    twins' as they agree with each other (a graph that updated a copy of
+    the EMA buffers would leave the live ones where they were)."""
+    import numpy as np
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
+    from dcgan_sr_tpu_torch.train.step import (init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    dev = torch.device("cuda")
+    cfg = get_config("gray-3", env_override=False, g_ema=G_EMA)
+    b = _batches(cfg, 2 * EMA_K, dev)
+    chunks = (torch.stack(b[:EMA_K]), torch.stack(b[EMA_K:]))
+    prev = _deterministic()
+    try:
+        sg = init_train_state(cfg, torch.Generator().manual_seed(0),
+                              device=dev)
+        mg, me = build_multi_step(cfg), build_multi_step(cfg)
+        mg(sg, chunks[0])                 # eager warm-up, then the capture
+        snap = state_to_numpy(sg)
+        se, se2 = (state_from_numpy(cfg, snap, device=dev) for _ in range(2))
+        ema0 = [t.clone() for t in sg.g_ema]
+        mg(sg, chunks[1])
+        me.eager(se, chunks[1])
+        me.eager(se2, chunks[1])
+        torch.cuda.synchronize()
+    finally:
+        _deterministic(prev)
+
+    def flat(ts):
+        return torch.cat([t.flatten() for t in ts]).double().cpu().numpy()
+
+    e0, eg, e1, e2 = (flat(t) for t in (ema0, sg.g_ema, se.g_ema, se2.g_ema))
+    diff, spread = float(np.abs(eg - e1).max()), float(np.abs(e1 - e2).max())
+    moved, moved_eager = float(np.abs(eg - e0).max()), float(
+        np.abs(e1 - e0).max())
+    floor = 1e-6 * (1 + float(np.abs(e1).max()))
+    r = {"K": EMA_K, "g_ema": G_EMA, "replays": mg.replays,
+         "ema_moved_by_replay": moved, "ema_moved_eager": moved_eager,
+         "max_abs_diff_graph_vs_eager": diff, "eager_twins_spread": spread}
+    check(mg.captures == 1 and mg.replays == 1 and bool(np.isfinite(eg).all())
+          and moved > 0 and diff <= 2 * spread + floor,
+          f"the --g-ema graph's EMA against eager: {r}")
+    print(f"--g-ema 0.999 in the K-step CUDA graph, gray-3 fp32 batch 100, "
+          f"one replayed chunk against two eager twins, deterministic cuDNN, "
+          f"on {smi}: " + json.dumps(r), flush=True)
+    return r
+
+
+def options_phase(smi):
+    """Phase 28: the ported options that had never run on the card, at full
+    width, each held to the same command (or service) run with --cpu:
+    `--g-ema` in the CUDA graph (ema_graph_check) and through the CLI;
+    `upscale --self-ensemble 8` with and without --ensemble-batched in both
+    BN modes, full (gray-3) and overlap directories, the rectangular
+    fallback to 4 members, `--true-2x` on LR directories, `--resize` and
+    `--ema`; `serve --self-ensemble 8` and `serve --ema`; `cli --eval
+    --self-ensemble 8 --ensemble-batched` on the gray-3 fixture;
+    `select_checkpoint --ema` and `overlap_protocol --ema`.  Returns {path:
+    {kernel: launches on the card}}."""
+    import numpy as np
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.train.checkpoint import (checkpoint_path,
+                                                     npz_branches)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("gray-3", env_override=False)
+    launches = {}
+    ema_graph_check(smi)
+
+    with tempfile.TemporaryDirectory() as d:
+        # the trainer with --g-ema, K = 3 a CUDA graph: its checkpoints
+        # carry the EMA branch that --ema reads below
+        ck = os.path.join(d, "ck")
+        lines = _cli(["--config", "gray-3", "--synthetic", "--g-ema",
+                      str(G_EMA), "--steps", "6", "--scan", "3", "--epochs",
+                      "2", "--seed", "1", "--checkpoint-dir", ck])
+        run, graph = k1_run(lines)
+        check(run == 12 and graph["captures"] == 1 and graph["replays"] == 3,
+              f"cli --g-ema: K1 ran {run}, graphs {graph}")
+        ema_ckpt = checkpoint_path(ck, cfg.name, 2, "G")
+        with np.load(ema_ckpt) as data:
+            check("ema" in npz_branches(data)
+                  and not np.array_equal(data["_ema_/_1_/_w_"],
+                                         data["_params_/_1_/_w_"]),
+                  "the --g-ema checkpoint has no moved EMA branch")
+        launches["cli --g-ema"] = {"preprocess": run}
+        print(f"cli gray-3 --g-ema {G_EMA} --scan 3, 2 epochs of 6 steps: K1 "
+              f"ran {run}, graphs {graph}; both checkpoints carry the EMA "
+              f"branch, on {smi}", flush=True)
+
+        # the overlap fixture with an EMA branch: its params, perturbed
+        ema_npz = os.path.join(d, "overlap_ema_net_G.npz")
+        rng = np.random.RandomState(28)
+        with np.load(OVERLAP_FIXTURE) as data:
+            arrays = {k: data[k] for k in data.files}
+        for k in sorted(arrays):
+            if k.startswith("_params_/"):
+                a = arrays[k]
+                arrays["_ema_/" + k[len("_params_/"):]] = (a * (
+                    1 + 0.05 * rng.standard_normal(a.shape))).astype(a.dtype)
+        np.savez(ema_npz, **arrays)
+        # overlap_protocol --ema on the CPU (100 images of 225 tiles on the
+        # host, the phase's longest run) as a user starts it, in a process
+        # of its own beside the rest of the phase
+        op_args = ["--ckpt", ema_npz, "--sets", "10000:10001"]
+        op_cpu = subprocess.Popen(
+            [sys.executable, "-m", "dcgan_sr_tpu_torch.overlap_protocol",
+             *op_args, "--ema", "--cpu"], cwd=REPO,
+            env={k: v for k, v in os.environ.items() if k not in CONFIG_ENV},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        t_op = time.perf_counter()
+        try:
+            _option_paths(smi, d, cfg, ck, ema_ckpt, ema_npz, rng, launches)
+            _tool_ema(smi, ck, op_args, op_cpu, t_op, launches)
+        finally:
+            if op_cpu.poll() is None:
+                op_cpu.kill()
+            op_cpu.wait()
+
+    print(f"phase 28 took {time.perf_counter() - t_phase:.1f} s; K2 launches "
+          f"of each path, on {smi}: " + json.dumps(launches), flush=True)
+    return launches
+
+
+def _option_paths(smi, d, cfg, ck, ema_ckpt, ema_npz, rng, launches):
+    """Phase 28's upscale, serve and cli --eval runs (`options_phase`):
+    `ck` holds the --g-ema trainer's checkpoints, `ema_ckpt` its second G,
+    `ema_npz` the overlap fixture with an EMA branch; each path's launches
+    go into `launches`."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dcgan_sr_tpu_torch import cli, upscale
+    from dcgan_sr_tpu_torch.image.io import load_image
+    from dcgan_sr_tpu_torch.serve import SRService
+    from dcgan_sr_tpu_torch.train.checkpoint import (load_branch,
+                                                     load_generator,
+                                                     save_checkpoint)
+    from dcgan_sr_tpu_torch.train.step import (init_train_state,
+                                               state_from_numpy,
+                                               state_to_numpy)
+
+    ocfg_name = "gray-patch-batch-overlap"
+
+    # input images, from a seed
+    def write(directory, shapes):
+        os.makedirs(directory, exist_ok=True)
+        for i, hw in enumerate(shapes):
+            Image.fromarray((rng.rand(*hw) * 255).astype(np.uint8)).save(
+                os.path.join(directory, f"{i}.png"))
+        return directory
+
+    sq = write(os.path.join(d, "sq"), [(64, 64)] * 2)
+    sq32 = write(os.path.join(d, "sq32"), [(32, 32)] * 2)   # 49 tiles
+    lr_full = write(os.path.join(d, "lr_full"), [(32, 32), (36, 28)])
+    lr_tiled = write(os.path.join(d, "lr_tiled"), [(32, 32)] * 2)
+    one = write(os.path.join(d, "one"), [(64, 64), (48, 64), (50, 70)])
+    img64, rect, odd = (os.path.join(one, f"{i}.png") for i in range(3))
+    n_out = itertools.count()
+
+    def up(name, args, tiled, stats=None, main=None):
+        """upscale on the card and with --cpu; the card's images held to
+        the CPU's (tiled: all but TILED_FLIP_SHARE of the pixels)."""
+        out = os.path.join(d, f"out{next(n_out)}")
+        ext = "" if os.path.isdir(args[args.index("--input") + 1]) \
+            else ".png"
+        (lines, secs, c, impl), (_, cpu_secs) = _card_and_cpu(
+            upscale.main, args + ["--output", out + ext],
+            args + ["--output", out + "_cpu" + ext])
+        _fp32_k2(f"upscale {name}", c, impl, stats, main)
+        got = _pngs(out + ext)
+        worst, beyond = _hold_pixels(f"upscale {name}", got,
+                                     _pngs(out + "_cpu" + ext),
+                                     TILED_FLIP_SHARE if tiled else 0.0)
+        launches[f"upscale {name}"] = c
+        print(f"upscale {name}: card {secs} s, CPU {cpu_secs} s, max "
+              f"{worst} levels from the CPU, {beyond} pixels beyond "
+              f"{TOL_U8}; K2 {c} by {impl}, on {smi}", flush=True)
+        return got, c
+
+    # --self-ensemble 8: full (gray-3) and overlap directories, both
+    # forms, both BN modes; a form's generator calls: 8 members or 1
+    for variant, fixture, src, tiled in (
+            ("gray-3", FIXTURE, sq, False),
+            (ocfg_name, OVERLAP_FIXTURE, sq32, True)):
+        for bn in ([], ["--bn-eval"]):
+            mains = {}
+            for batched in ([], ["--ensemble-batched"]):
+                _, c = up(" ".join([variant, "--self-ensemble 8", *batched,
+                                    *bn]), [
+                              "--config", variant, "--ckpt", fixture,
+                              "--input", src, "--self-ensemble", "8",
+                              *batched, *bn], tiled, stats=not bn)
+                mains[bool(batched)] = c["bulge_main"]
+            check(mains[False] == 8 * mains[True], f"{variant} "
+                  f"--self-ensemble 8 {bn}: main launches {mains}")
+
+    # a rectangle takes the four shape-keeping members of 8
+    g3 = ["--config", "gray-3", "--ckpt", FIXTURE, "--input", rect]
+    got8, _ = up("gray-3 --self-ensemble 8, 48x64", g3 + [
+        "--self-ensemble", "8"], False, stats=True, main=4)
+    got4, _ = up("gray-3 --self-ensemble 4, 48x64", g3 + [
+        "--self-ensemble", "4"], False, stats=True, main=4)
+    check(_differs(got8, got4) == 0, "--self-ensemble 8 on a rectangle "
+          "is not its 4-member plan")
+
+    # --true-2x on LR directories, --resize
+    up("gray-3 --true-2x, LR directory", [
+        "--config", "gray-3", "--ckpt", FIXTURE, "--input", lr_full,
+        "--true-2x"], False, stats=True, main=1)
+    up(f"{ocfg_name} --true-2x, LR directory", [
+        "--config", ocfg_name, "--ckpt", OVERLAP_FIXTURE, "--input",
+        lr_tiled, "--true-2x"], True, stats=True, main=1)
+    got, _ = up("gray-3 --resize 64, 50x70", [
+        "--config", "gray-3", "--ckpt", FIXTURE, "--input", odd,
+        "--resize", "64"], False, stats=True, main=1)
+    check(list(got.values())[0].shape == (64, 64), "--resize 64 wrote "
+          f"{list(got.values())[0].shape}")
+
+    # --ema: differs from the params branch, matches the CPU's EMA
+    for variant, ckpt, src, tiled in (
+            ("gray-3", ema_ckpt, img64, False),
+            (ocfg_name, ema_npz, sq32, True)):
+        args = ["--config", variant, "--ckpt", ckpt, "--input", src]
+        ema, _ = up(f"{variant} --ema", args + ["--ema"], tiled,
+                    stats=True)
+        raw, _ = up(f"{variant} (params branch of the --ema file)", args,
+                    tiled, stats=True)
+        n = _differs(ema, raw)
+        check(n > 0, f"upscale {variant} --ema gave the params branch")
+        print(f"upscale {variant} --ema: {n} pixels differ from the "
+              f"params branch", flush=True)
+
+    # servers: --self-ensemble 8 (parity BN) and --ema (running BN),
+    # started together.  Each has services on the CPU: the one every
+    # response is held to, and (--ema) the params branch's, which the
+    # responses must differ from
+    runs = (("--self-ensemble 8", True, FIXTURE, ("--self-ensemble", "8"),
+             ({"self_ensemble": 8},)),
+            ("--ema", False, ema_ckpt, ("--ema",),
+             ({"ema": True}, {"ema": False})))
+    served = {}
+    with tempfile.TemporaryFile() as log:
+        servers = [start_server(cfg, parity, log, ckpt, extra)
+                   for _, parity, ckpt, extra, _ in runs]
+        try:
+            for srv, (name, parity, ckpt, _, kws) in zip(servers, runs):
+                h0 = wait_up(srv, f"serve {name}")
+                refs = [SRService(
+                    cfg, load_generator(cfg, ckpt, ema=kw.get("ema", False),
+                                        need_state=not parity,
+                                        device="cpu")[0],
+                    max_batch=8, window_ms=0, bn_eval=not parity,
+                    u8_io=True, self_ensemble=kw.get("self_ensemble", 1))
+                    for kw in kws]
+                try:
+                    worst = beyond = moved = 0
+                    for hw in ((32, 32), (48, 40), (64, 64)):
+                        body = _png((rng.rand(*hw) * 255).astype(np.uint8))
+                        status, resp = _request(srv[1], "POST",
+                                                "/upscale", body)
+                        check(status == 200, f"serve {name}: {status}")
+                        got = {"": np.asarray(Image.open(
+                            io.BytesIO(resp)), np.int16)}
+                        img = load_image(io.BytesIO(body), nc=1)[0]
+                        want = [{"": _u8(r.submit(img))} for r in refs]
+                        w, b = _hold_pixels(f"serve {name} {hw}", got,
+                                            want[0], 0.0)
+                        worst, beyond = max(worst, w), beyond + b
+                        moved += sum(_differs(got, x) for x in want[1:])
+                finally:
+                    for r in refs:
+                        r.close()
+                hz = _healthz(srv[1])
+                c = {k: v - h0["kernel_launches"][k]
+                     for k, v in hz["kernel_launches"].items()}
+                _fp32_k2(f"serve {name}", c, {
+                    k: v - h0["bulge_impl_launches"][k]
+                    for k, v in hz["bulge_impl_launches"].items()},
+                    stats=parity)
+                check(hz["errors"] == 0 and (len(refs) == 1 or moved > 0),
+                      f"serve {name}: {hz['errors']} errors, {moved} pixels "
+                      f"other than the params branch's")
+                launches[f"serve {name}"] = c
+                served[name] = {"max_levels_from_cpu": worst,
+                                "pixels_beyond": beyond,
+                                "pixels_differing_from_params_branch":
+                                moved if len(refs) > 1 else None,
+                                "launches": c}
+        except Exception:
+            log.seek(0)
+            sys.stderr.write(log.read().decode(errors="replace")[-8000:])
+            raise
+        finally:
+            for proc, _ in servers:
+                stop_server(proc)
+    print(f"serve gray-3 --self-ensemble 8 (parity BN) and --ema "
+          f"(running BN), LR 32x32, 48x40, 64x64 against the CPU, on "
+          f"{smi}: " + json.dumps(served), flush=True)
+
+    # cli --eval with the ensemble on the gray-3 fixture: a checkpoint
+    # of it at epoch 1 (D from a seed), resumed with no step to take
+    fx = os.path.join(d, "fixture_ck")
+    tree = state_to_numpy(init_train_state(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    with np.load(FIXTURE) as data:
+        tree["g_params"] = load_branch(data, "params", tree["g_params"])
+        tree["g_state"] = load_branch(data, "state", tree["g_state"])
+    save_checkpoint(fx, cfg.name, 1, state_from_numpy(cfg, tree, "cpu"))
+    (lines, secs, c, impl), (cpu_lines, cpu_secs) = _card_and_cpu(
+        cli.main, ["--config", "gray-3", "--textured", "--checkpoint-dir",
+                   fx, "--resume", "--epochs", "1", "--steps", "1",
+                   "--eval", "--eval-sets", "1", "--self-ensemble", "8",
+                   "--ensemble-batched"], env={"batchSize": "5"})
+    check("resumed from epoch 1" in lines and "batchSize=5" in lines[0],
+          f"cli --eval on the fixture: {lines[:4]}")
+    card = _scores(lines)
+    check(len(card) == 8, f"cli --eval score lines: {lines}")
+    worst = _hold_scores("cli --eval --self-ensemble 8 --ensemble-batched",
+                         card, _scores(cpu_lines))
+    _fp32_k2("cli --eval --self-ensemble 8 --ensemble-batched", c, impl,
+             stats=True, main=2)
+    launches["cli --eval --self-ensemble 8 --ensemble-batched"] = c
+    print(f"cli --eval --eval-sets 1 --self-ensemble 8 --ensemble-batched "
+          f"(batchSize=5) on the gray-3 fixture: card {secs} s, CPU "
+          f"{cpu_secs} s, largest differences {worst}; card scores "
+          + json.dumps({k: v for k, (v, _) in card.items()})
+          + f"; K2 {c}, on {smi}", flush=True)
+
+
+def _tool_ema(smi, ck, op_args, op_cpu, t_op, launches):
+    """select_checkpoint --ema and overlap_protocol --ema: card == CPU (the
+    latter's CPU run is `op_cpu`, started at `t_op`), and other scores than
+    the params branch's on the card."""
+    from dcgan_sr_tpu_torch import overlap_protocol, select_checkpoint
+
+    for tool, args, name in (
+            (select_checkpoint.main, ["--dir", ck, "--epochs", "2:3",
+                                      "--select-sets", "1"],
+             "select_checkpoint"),
+            (overlap_protocol.main, op_args, "overlap_protocol")):
+        if name == "select_checkpoint":
+            (lines, secs, c, impl), (cpu_lines, cpu_secs) = _card_and_cpu(
+                tool, args + ["--ema"])
+        else:
+            lines, secs, c, impl = _counted_run(tool, args + ["--ema"])
+            out, _ = op_cpu.communicate(timeout=900)
+            # from its start, beside the rest of the phase
+            cpu_secs = round(time.perf_counter() - t_op, 2)
+            check(op_cpu.returncode == 0, f"overlap_protocol --ema --cpu "
+                  f"exited with {op_cpu.returncode}: {out[-4000:]}")
+            cpu_lines = out.splitlines()
+        card = _scores(lines)
+        worst = _hold_scores(f"{name} --ema", card, _scores(cpu_lines))
+        _fp32_k2(f"{name} --ema", c, impl, stats=True)
+        _, raw = _in_process(tool, args)
+        raw = _scores(raw)
+        check(set(raw) == set(card) and any(
+            abs(raw[k][0] - card[k][0]) > TOL_SCORE[
+                "SSIM" if "SSIM" in k.split() else "PSNR"]
+            for k in card if "bilinear" not in k),
+            f"{name} --ema scored as the params branch: {card} {raw}")
+        launches[f"{name} --ema"] = c
+        print(f"{name} --ema: card {secs} s, CPU {cpu_secs} s, largest "
+              f"differences {worst}; card " + json.dumps(
+                  {k: v for k, (v, _) in card.items()})
+              + "; params branch " + json.dumps(
+                  {k: v for k, (v, _) in raw.items()})
+              + f"; K2 {c}, on {smi}", flush=True)
 
 
 def main():
@@ -4683,17 +5320,11 @@ def main():
     trainer_counts = trainer_phase(cfg)
     check(trainer_counts["preprocess"] > 0,
           "the preprocess kernel was not launched on the trained path")
-    breakdown = step_breakdown(cfg, state, smi)
+    breakdown = step_breakdown(cfg, state, smi, benchmarks=(False,))
     x = torch.rand((100, 1, 32, 32), device="cuda",
                    generator=torch.Generator(device="cuda").manual_seed(2))
-    for bench in (False, True):
-        torch.backends.cudnn.benchmark = bench
-        try:
-            fwd = forward_breakdown(state.g, x, "pooled")
-        finally:
-            torch.backends.cudnn.benchmark = False
-        print(f"training G forward, batch 100 LR 32x32, unfused, "
-              f"cudnn.benchmark={bench} (ms): " + json.dumps(fwd), flush=True)
+    print(f"training G forward, batch 100 LR 32x32, unfused (ms): "
+          + json.dumps(forward_breakdown(state.g, x, "pooled")), flush=True)
     print(f"train step, gray-3 full width, batch 100: "
           f"{breakdown[False]['step_ms']} ms, "
           f"{breakdown[False]['images_per_s']} images/s, peak "
@@ -4855,8 +5486,11 @@ def main():
         launches[k] += v
 
     stamp()
-    # phase 24: the opt-in rewrites; K1 counted from 0 in each CLI run
+    # phase 24: the opt-in rewrites and the knob table; counts from 0 in
+    # each run
     opt_launches = opt_in_phase(smi)
+    for k in K.launches:
+        launches[k] += opt_launches[k]
 
     stamp()
     # phase 25: data parallel; counts from 0 before each of its paths
@@ -4876,6 +5510,13 @@ def main():
                                      bf16_steps["gray-3"]["profile"])
     for k in ("bulge_stats_bf16", "bulge_main_bf16"):
         launches[k] += sum(c[k] for c in measure_launches.values())
+
+    stamp()
+    # phase 28: the options never run on the card before; counts from 0
+    # before each path
+    option_launches = options_phase(smi)
+    for k in ("bulge_stats", "bulge_main"):
+        launches[k] += sum(c.get(k, 0) for c in option_launches.values())
 
     stamp()
     # phase 20
@@ -4904,6 +5545,8 @@ def main():
             "eval_launches": eval_launches[name],
             "tools_launches": {t: c[name] for t, c in tool_launches.items()
                                if c[name]},
+            "options_launches": {t: c[name] for t, c in
+                                 option_launches.items() if c.get(name)},
             "at_eval_shape": {
                 "shape": list(EVAL_SHAPE), "ms": eval_row[f"{key}_ms"],
                 "mma_ms": eval_row[f"{key}_mma_ms"],
@@ -4960,10 +5603,14 @@ def main():
         "launches": trainer_counts["preprocess"] + opt_launches["preprocess"]
         + dp_launches["preprocess"]
         + sum(c["preprocess"] for c in tool_launches.values())
-        + sum(c["preprocess"] for c in measure_launches.values()),
+        + sum(c["preprocess"] for c in measure_launches.values())
+        + option_launches["cli --g-ema"]["preprocess"],
         "tools_launches": {t: c["preprocess"] for t, c in
-                           {**tool_launches, **measure_launches}.items()
-                           if c["preprocess"]},
+                           {**tool_launches, **measure_launches,
+                            "phase 24 (its CLI runs, profile_table)":
+                            opt_launches,
+                            "cli --g-ema": option_launches["cli --g-ema"]
+                            }.items() if c["preprocess"]},
         "max_abs_err": pre_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

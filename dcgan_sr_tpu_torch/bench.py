@@ -25,8 +25,9 @@ Everything is measured first; then it prints a `bench_selfcert` header, one
 `kernel launches:` line (K1's launches that ran, per trainer; K2's launches
 by kernel and by implementation) and the five metric lines in bench.py's
 order, gray-3 last.  Every metric line carries the [min, median, max]
-spread of its repetitions, the host, the CPU anchor, the card's name and
-power limit, and `vs_baseline`: the value over the torch-CPU baseline in
+spread of its repetitions, the host's tag (utils/host.machine_fingerprint;
+the header also carries its description), the CPU anchor, the card's name
+and power limit, and `vs_baseline`: the value over the torch-CPU baseline in
 BASELINE_MEASURED.json, which this module only reads (bench.py measures and
 writes it through the JAX package; a missing key gives null).
 
@@ -42,7 +43,6 @@ import argparse
 import dataclasses
 import json
 import os
-import platform
 import subprocess
 import time
 from typing import Any, Optional
@@ -56,6 +56,7 @@ from .ops import bulge
 from .train.multi_step import build_multi_step, counted, launches_run
 from .train.step import init_train_state
 from .utils.device import pick_device
+from .utils.host import machine_fingerprint
 from .utils.measure import median_spread
 
 STEPS = 20
@@ -167,20 +168,6 @@ def cpu_anchor(reps=5):
     return (time.perf_counter() - t0) / reps
 
 
-def host_desc():
-    """"N cores, <CPU model>" of this host."""
-    model = platform.processor() or "unknown"
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith("model name"):
-                    model = line.split(":", 1)[1].strip()
-                    break
-    except OSError:
-        pass
-    return f"{os.cpu_count()} cores, {model}"
-
-
 def card_desc(device):
     """(name, power limit in W) of the card; ("cpu", None) on the CPU.  The
     limit is nvidia-smi's `power.limit` (None where it cannot be read)."""
@@ -224,7 +211,7 @@ def main(argv=None):
     probe = round(time.perf_counter() - t0, 3)
     card = device.type == "cuda"
     name, power_w = card_desc(device)
-    host = host_desc()
+    host, host_desc = machine_fingerprint()
     anchor = round(cpu_anchor(), 4)
     baselines = read_baselines()
     baseline_host = baselines.get("host", "unknown (see BASELINE_MEASURED)")
@@ -263,7 +250,8 @@ def main(argv=None):
     print(json.dumps({
         "metric": "bench_selfcert", "value": probe,
         "unit": "s (first card round trip)", "host": host,
-        "cpu_anchor_s": anchor, "baseline_host": baseline_host,
+        "host_desc": host_desc, "cpu_anchor_s": anchor,
+        "baseline_host": baseline_host,
         "baseline_note": "vs_baseline comparable only within one baseline "
                          "regeneration (BASELINE_MEASURED.json 'note'); "
                          "'value' fields are comparable across runs on one "

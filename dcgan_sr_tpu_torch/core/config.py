@@ -250,7 +250,10 @@ def apply_env_overrides(cfg: Config, env=None) -> Config:
             continue
         try:
             val = float(raw)
-            if val == int(val) and f.type in ("int", "Optional[int]"):
+            # a non-finite value (ntrain=inf: the reference's math.huge)
+            # stays a float; int() of it would raise OverflowError
+            if (math.isfinite(val) and val == int(val)
+                    and f.type in ("int", "Optional[int]")):
                 val = int(val)
         except ValueError:
             val = raw

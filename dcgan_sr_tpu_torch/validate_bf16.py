@@ -56,17 +56,19 @@ def deterministic_cudnn():
 
 
 def run(steps=100, batch=100, tol_psnr=1.0, tol_ssim=0.02, device=None,
-        k=20, **overrides):
+        k=20, seed=5, **overrides):
     """The two runs and the verdict line, under `deterministic_cudnn`;
     returns True on PASS.  `device` defaults to the first CUDA device; `k`
-    steps a chunk; `overrides` go to get_config (a test's small widths)."""
+    steps a chunk; `seed` draws the one initial state both runs start from;
+    `overrides` go to get_config (a test's small widths)."""
     if steps < k:
         raise ValueError(f"steps ({steps}) must be at least one chunk of {k}")
     with deterministic_cudnn():
-        return _run(steps, batch, tol_psnr, tol_ssim, device, k, overrides)
+        return _run(steps, batch, tol_psnr, tol_ssim, device, k, seed,
+                    overrides)
 
 
-def _run(steps, batch, tol_psnr, tol_ssim, device, k, overrides):
+def _run(steps, batch, tol_psnr, tol_ssim, device, k, seed, overrides):
     device = torch.device(device) if device is not None else pick_device()
     src = SyntheticImages(fine_size=64, nc=1, seed=11)
     batches = torch.from_numpy(np.stack(
@@ -75,7 +77,7 @@ def _run(steps, batch, tol_psnr, tol_ssim, device, k, overrides):
     cfg0 = get_config("gray-3", env_override=False, batchSize=batch,
                       **overrides)
     init = state_to_numpy(init_train_state(
-        cfg0, torch.Generator().manual_seed(5), device="cpu"))
+        cfg0, torch.Generator().manual_seed(seed), device="cpu"))
 
     results, runners = {}, []
     for dtype in ("float32", "bfloat16"):

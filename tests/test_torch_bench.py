@@ -77,6 +77,18 @@ def test_bench_lines_carry_spreads_and_stamps_but_no_vs_baseline(run):
                                else "images/sec")
 
 
+def test_bench_stamps_the_host_fingerprint_on_every_line(run):
+    """bench.py:222-236, 252: the header carries the host's tag and its
+    description, every metric line the tag."""
+    from dcgan_sr_tpu.utils.cache import machine_fingerprint as j_fingerprint
+    lines, _, _ = run
+    tag, desc = j_fingerprint()
+    head = json.loads(lines[0])
+    assert (head["host"], head["host_desc"]) == (tag, desc)
+    for rec in map(json.loads, lines[2:]):
+        assert rec["host"] == tag and "host_desc" not in rec
+
+
 def test_bench_launch_line_counts_k1_per_trainer_and_k2_by_kernel(run):
     lines, _, _ = run
     counts = json.loads(lines[1][len("kernel launches: "):])

@@ -80,3 +80,22 @@ def test_kwarg_overrides_match():
         T.get_config("gray-3", env_override=False, nonexistent_field=1)
     with pytest.raises(KeyError):
         T.get_config("no-such-variant")
+
+
+@pytest.mark.parametrize("raw", ["inf", "Infinity", "-inf"])
+def test_non_finite_ntrain_override_stays_a_float_in_the_port(monkeypatch,
+                                                              raw):
+    """The port only: ntrain=inf by env gives what the rgb-full and gray
+    defaults hold (math.inf) where the JAX package's copy raises
+    OverflowError from int(inf)."""
+    import math
+    monkeypatch.setenv("ntrain", raw)
+    cfg = T.get_config("gray-3")
+    assert cfg.ntrain == float(raw) and not math.isfinite(cfg.ntrain)
+    assert isinstance(cfg.ntrain, float)
+    if raw == "inf":
+        assert cfg.ntrain == math.inf == \
+            T.get_config("rgb-full", env_override=False).ntrain
+        # nan too is kept as the float it is
+        out = T.apply_env_overrides(T.Config(), env={"ntrain": "nan"})
+        assert math.isnan(out.ntrain)

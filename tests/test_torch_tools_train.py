@@ -188,6 +188,27 @@ def test_validate_bf16_starts_both_dtypes_from_one_set_of_weights(
     assert out[1].startswith("bfloat16 : G-PSNR ")
 
 
+@pytest.mark.parametrize("kw,want", [({}, 5), ({"seed": 0}, 0),
+                                     ({"seed": 2}, 2)])
+def test_validate_bf16_seed_draws_the_initial_state(monkeypatch, kw, want):
+    """`run(seed=)` seeds the one initial draw both dtypes start from; the
+    default is the CLI's 5."""
+    seeds = []
+
+    class Drawn(Exception):
+        pass
+
+    def draw(cfg, generator, device):
+        seeds.append(generator.initial_seed())
+        raise Drawn
+
+    monkeypatch.setattr(validate_bf16, "init_train_state", draw)
+    with pytest.raises(Drawn):
+        validate_bf16.run(steps=2, batch=2, device="cpu", k=2, ngf=4, ndf=8,
+                          **kw)
+    assert seeds == [want]
+
+
 @pytest.mark.parametrize("before", [(False, True), (True, False)])
 def test_validate_bf16_runs_under_deterministic_cudnn(monkeypatch, before):
     """Both runs and both scores use cuDNN's deterministic algorithms with
