@@ -266,11 +266,18 @@ Phases, each fatal on failure:
      a subprocess (the same BEST line); validate_bf16 at 20 steps (its
      warm-up chunk and the capture), twice (the same PSNR/SSIM pairs and
      verdict both times, under deterministic cuDNN; its verdict, and the
-     spread of two runs of each dtype; K1 run 40 times each);
+     spread of two runs of each dtype; K1 run 40 times each), then `python
+     -m dcgan_sr_tpu_torch.validate_bf16` as a subprocess, the CLI's
+     default: 100 steps of each dtype from the JAX tool's own initial
+     state (fixtures/gray3_jax_init_key5.npz, the JAX package's gray-3
+     init at PRNGKey(5)), its two score lines and verdict line printed
+     (PASS and FAIL are both findings; its exit code must say the same),
+     K1 run 200 times, K2 4 stats and 4 main launches;
      zssr_photo --bf16 --steps 100 on a seeded 384x512 photo;
      serve_load (--size 100x72 --warm 10) against a gray-3 server started
-     with --warmup --warmup-rect (the first request, non-square, within 3x
-     the p50 of the next ten); loader_bench over 10 batches; and
+     with --warmup --warmup-rect --max-size 128 (a ladder of 5 LR extents;
+     the first request, non-square, within 3x the p50 of the next ten);
+     loader_bench over 5 batches; and
      quality_protocol on a baseline directory written in
      tools/torch_baseline.py's format from the gray-3 fixture's G (its
      result.json scored by the torch.nn modules themselves on the card,
@@ -1571,14 +1578,20 @@ def overlap_kernel_phase(params, state):
 # ---------------------------------------------------------------------------
 
 def _module(args, timeout=600):
+    return _module_run(args, timeout)[1]
+
+
+def _module_run(args, timeout=600, codes=(0,)):
+    """`python -m <args>` from the repo without the config env vars: (its
+    exit code, its output lines); a code outside `codes` fails the script."""
     env = {k: v for k, v in os.environ.items() if k not in CONFIG_ENV}
     cmd = [sys.executable, "-m", *args]
     r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
                        timeout=timeout)
-    if r.returncode != 0:
+    if r.returncode not in codes:
         sys.stderr.write(r.stdout[-4000:] + r.stderr[-8000:])
-    check(r.returncode == 0, f"{' '.join(cmd)} exited with {r.returncode}")
-    return r.stdout.splitlines()
+    check(r.returncode in codes, f"{' '.join(cmd)} exited with {r.returncode}")
+    return r.returncode, r.stdout.splitlines()
 
 
 def bench_fused_phase():
@@ -4366,6 +4379,33 @@ def tools_phase(smi):
             d: [round(abs(fields[i][j] - fields[i + 2][j]), 4)
                 for j in (0, 1)] for i, d in enumerate(("fp32", "bf16"))}})
 
+        # the CLI's default as a user starts it: 100 steps of each dtype from
+        # the JAX tool's own initial state (fixtures/gray3_jax_init_key5.npz);
+        # PASS (exit 0) and FAIL (exit 1) are both findings
+        t0 = time.perf_counter()
+        rc, lines = _module_run(["dcgan_sr_tpu_torch.validate_bf16"],
+                                codes=(0, 1))
+        secs = round(time.perf_counter() - t0, 2)
+        k = ran("validate_bf16 (the CLI, the JAX init)", None, lines)
+        check(len(lines) >= 4 and lines[-4].startswith("float32  : G-PSNR ")
+              and lines[-3].startswith("bfloat16 : G-PSNR ")
+              and lines[-2].startswith("delta PSNR ")
+              and lines[-2].endswith("-> FAIL" if rc else "-> PASS"),
+              f"python -m dcgan_sr_tpu_torch.validate_bf16 (exit {rc}): "
+              f"{lines}")
+        check(k["preprocess"] == 200 and k["bulge_stats"] == 4
+              and k["bulge_main"] == 4,
+              f"python -m dcgan_sr_tpu_torch.validate_bf16 launches {k}")
+        scores = {d: [float(v) for v in re.findall(
+            r"G-(?:PSNR|SSIM) ([\d.]+)", l)]
+            for d, l in zip(("fp32", "bf16"), lines[-4:-2])}
+        delta = [float(v) for v in re.findall(
+            r"delta (?:PSNR|SSIM) ([\d.]+)", lines[-2])]
+        done("python -m dcgan_sr_tpu_torch.validate_bf16 (the JAX tool's "
+             "init, 100 steps)", {
+                 "s": secs, "G_psnr_ssim": scores, "delta_psnr_ssim": delta,
+                 "verdict": "FAIL" if rc else "PASS", "lines": lines})
+
         # zssr_photo --bf16 on a seeded photo
         photo = write_photo(os.path.join(tmp, "photo.png"))
         res, lines, secs, c = _tool(zssr_photo.main, [
@@ -4390,7 +4430,8 @@ def tools_phase(smi):
         # the first request is non-square
         with tempfile.TemporaryFile() as log:
             server = start_server(cfg, False, log,
-                                  extra=("--warmup", "--warmup-rect"))
+                                  extra=("--warmup", "--warmup-rect",
+                                         "--max-size", "128"))
             try:
                 before = wait_up(server, "serve --warmup-rect")
                 _, lines, secs, _ = _tool(serve_load.main, [
@@ -4424,8 +4465,8 @@ def tools_phase(smi):
         done("serve_load", {"s": secs, "warmup": warm_line,
                             "lines": phases})
 
-        # loader_bench (the host alone) over half its default batches
-        res, lines, secs, c = _tool(loader_bench.main, ["--batches", "10"])
+        # loader_bench (the host alone) over a quarter of its default batches
+        res, lines, secs, c = _tool(loader_bench.main, ["--batches", "5"])
         ran("loader_bench", c)
         check(sorted(res) == sorted([
             "folder_sample_images_per_sec", "folder_prefetch4_images_per_sec",

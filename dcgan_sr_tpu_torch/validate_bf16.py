@@ -17,6 +17,12 @@ and 100 GAN steps amplify that to more than the tolerance between two runs
 of one dtype, so the verdict would change from run to run.  The two flags
 touch only cuDNN, so a CPU run is unchanged.
 
+The command line starts both runs from the JAX tool's own initial state:
+its `init_train_state(gray-3, PRNGKey(5))`, committed as
+fixtures/gray3_jax_init_key5.npz (weights and BN statistics in fp32; Adam's
+moments start at zero), so its verdict is the JAX tool's experiment.
+`run(seed=N)` without `init=` draws the initial state from torch instead.
+
   python -m dcgan_sr_tpu_torch.validate_bf16 [--cpu]
 
 Exits 0 on PASS, 1 on FAIL.  The last line counts the kernel launches that
@@ -28,6 +34,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 
 import numpy as np
@@ -36,10 +43,50 @@ import torch
 from .core import get_config
 from .data import SyntheticImages
 from .evaluation import evaluate_slice, inference_generator
+from .models import discriminator_spec, generator_spec
 from .ops import bulge, preprocess
 from .train.multi_step import build_multi_step, launches_run
 from .train.step import init_train_state, state_from_numpy, state_to_numpy
 from .utils.device import pick_device
+
+# the JAX tool's initial state (tests/test_torch_validate_init.py --write)
+JAX_INIT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "fixtures", "gray3_jax_init_key5.npz")
+
+
+def _layers(flat, field, n):
+    """The `field/<layer>/<name>[/<name>]` arrays of `flat` as a list of n
+    per-layer dicts (a layer without any: {})."""
+    out = [{} for _ in range(n)]
+    for key, a in flat.items():
+        head, i, *names = key.split("/")
+        if head != field:
+            continue
+        d = out[int(i)]
+        for name in names[:-1]:
+            d = d.setdefault(name, {})
+        d[names[-1]] = a
+    return out
+
+
+def jax_init(path=JAX_INIT):
+    """The gray-3 initial state of `path` as a numpy state tree in
+    `state_to_numpy`'s layout: its weights and BN statistics, Adam's
+    moments at zero with t = 0 (the JAX package's `adam_init`), no EMA."""
+    cfg = get_config("gray-3", env_override=False)
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    tree = {"g_ema_params": None}
+    for tag, spec in (("g", generator_spec(cfg)),
+                      ("d", discriminator_spec(cfg))):
+        params = _layers(flat, f"{tag}_params", len(spec))
+        tree[f"{tag}_params"] = params
+        tree[f"{tag}_state"] = _layers(flat, f"{tag}_state", len(spec))
+        tree[f"{tag}_opt"] = {
+            m: [{k: np.zeros_like(a) for k, a in p.items()} for p in params]
+            for m in ("m", "v")}
+        tree[f"{tag}_opt"]["t"] = np.asarray(0, np.int32)
+    return tree
 
 
 @contextlib.contextmanager
@@ -56,28 +103,32 @@ def deterministic_cudnn():
 
 
 def run(steps=100, batch=100, tol_psnr=1.0, tol_ssim=0.02, device=None,
-        k=20, seed=5, **overrides):
+        k=20, seed=5, init=None, **overrides):
     """The two runs and the verdict line, under `deterministic_cudnn`;
     returns True on PASS.  `device` defaults to the first CUDA device; `k`
-    steps a chunk; `seed` draws the one initial state both runs start from;
-    `overrides` go to get_config (a test's small widths)."""
+    steps a chunk; `init` is the one initial state both runs start from (a
+    numpy tree in `state_to_numpy`'s layout, e.g. `jax_init()`), else
+    `seed` draws it; `overrides` go to get_config (a test's small
+    widths)."""
     if steps < k:
         raise ValueError(f"steps ({steps}) must be at least one chunk of {k}")
     with deterministic_cudnn():
-        return _run(steps, batch, tol_psnr, tol_ssim, device, k, seed,
+        return _run(steps, batch, tol_psnr, tol_ssim, device, k, seed, init,
                     overrides)
 
 
-def _run(steps, batch, tol_psnr, tol_ssim, device, k, seed, overrides):
+def _run(steps, batch, tol_psnr, tol_ssim, device, k, seed, init,
+         overrides):
     device = torch.device(device) if device is not None else pick_device()
     src = SyntheticImages(fine_size=64, nc=1, seed=11)
     batches = torch.from_numpy(np.stack(
         [src.load_batch(s, batch) for s in range(k)])).to(device)
-    # one draw of the initial weights, copied into both runs
-    cfg0 = get_config("gray-3", env_override=False, batchSize=batch,
-                      **overrides)
-    init = state_to_numpy(init_train_state(
-        cfg0, torch.Generator().manual_seed(seed), device="cpu"))
+    if init is None:
+        # one draw of the initial weights, copied into both runs
+        cfg0 = get_config("gray-3", env_override=False, batchSize=batch,
+                          **overrides)
+        init = state_to_numpy(init_train_state(
+            cfg0, torch.Generator().manual_seed(seed), device="cpu"))
 
     results, runners = {}, []
     for dtype in ("float32", "bfloat16"):
@@ -120,7 +171,7 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
-    return run(device=pick_device(args.cpu))
+    return run(device=pick_device(args.cpu), init=jax_init())
 
 
 if __name__ == "__main__":
