@@ -28,8 +28,8 @@ Phases, each fatal on failure:
      plain version and the cuDNN unfused composition; it is an error if
      `bulge()`'s choice is not the fastest.
   3. where a request's time goes: device time of one generator forward at
-     LR 256x256, step by step (each layer, and the fused pair), fused and
-     unfused, in both BN modes.
+     LR 256x256, step by step (each layer, and the fused pair, from the
+     port's spans), fused and unfused, in both BN modes.
   4. path: `python -m dcgan_sr_tpu_torch.serve` on 127.0.0.1 with the
      full-width gray-3 fixture, once with --parity-bn and once with the
      default running-stats BN.  2x requests at LR 32x32, 100x72 and 256x256,
@@ -61,9 +61,10 @@ Phases, each fatal on failure:
      "graph launches" line: 1 capture, 2 replays), both checkpoints written, the G
      file loaded through load_generator and used to upscale one image, and
      `--resume` continuing at epoch 2 with Adam's step count 8.
-  8. where a step's time goes: CUDA events after each stage of the step
-     (2 warm-up steps, then 10 queued without waiting in between), the whole
-     step in ms and images/s, the host's time to queue a step, peak
+  8. where a step's time goes: the step's stage spans over 10 steps run
+     under a profiler (after 2 warm-up steps), the whole step in ms and
+     images/s over 10 steps queued without waiting in between and without
+     a profiler, the host's time to queue a step, peak
      device memory, and the training generator's forward layer by layer
      (cuDNN's autotuning had changed neither by 1%, so it is not rerun).
   9. kernel: the channels-last fused pair (ops/fused_nhwc.py), each
@@ -755,49 +756,53 @@ def tf32_probe_phase():
 # ---------------------------------------------------------------------------
 
 def forward_breakdown(net, x, bn_stats, iters=5, groups=None):
-    """Mean device ms of one generator forward and of each step in it: a
-    layer between its module hooks, or a fused pair (which runs outside
-    any layer's call) in the gap between two layers' hooks."""
+    """Mean device ms of one generator forward and of each step in it, from
+    the port's spans (dcgan_sr_tpu_torch/utils/profiling.py): a layer is
+    its `upsample`, `conv`, `bn` and `act` spans, a fused pair its `bulge`
+    span (the second conv's BN and activation are that layer's), "between
+    layers" what lies in no layer's span (the casts, the gaps), "total"
+    the whole forward."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    marks = []
+    from dcgan_sr_tpu_torch.utils import profiling as prof
 
-    def mark(tag):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        marks.append((tag, e))
-
-    hooks = []
-    for i, layer in enumerate(net.layers):
-        hooks.append(layer.register_forward_pre_hook(
-            lambda m, a, i=i: mark(("start", i))))
-        hooks.append(layer.register_forward_hook(
-            lambda m, a, o, i=i: mark(("end", i))))
+    # the label of each group of spans a forward opens, in order: a group
+    # starts at an upsample, a conv or a fused pair
+    labels = []
+    for i, layer in enumerate(net.spec):
+        if i in net.pairs:
+            labels.append((f"layers {i}-{i + 1} fused pair",
+                           f"layer {i + 1} {net.spec[i + 1]['kind']}"))
+        elif layer["kind"] in ("upsample", "conv", "convT") \
+                and i - 1 not in net.pairs:
+            labels.append((f"layer {i} {layer['kind']}",) * 2)
     acc = {}
-    try:
-        with torch.inference_mode():
-            net(x, bn_stats=bn_stats, groups=groups)
+    with torch.inference_mode():
+        net(x, bn_stats=bn_stats, groups=groups)
+        torch.cuda.synchronize()
+        prof.reset_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
             for _ in range(iters):
-                marks.clear()
-                mark(("start", None))
-                net(x, bn_stats=bn_stats, groups=groups)
-                mark(("end", None))
-                torch.cuda.synchronize()
-                for (a, e0), (b, e1) in zip(marks, marks[1:]):
-                    if a[0] == "start" and b[0] == "end" and a[1] == b[1]:
-                        kind = net.spec[a[1]]["kind"]
-                        label = f"layer {a[1]} {kind}"
-                    elif a[0] == "end" and b[0] == "start" and a[1] is not None \
-                            and b[1] is not None and b[1] > a[1] + 1:
-                        label = f"layers {a[1] + 1}-{b[1] - 1} fused pair"
-                    else:
-                        label = "between layers"
-                    acc[label] = acc.get(label, 0.0) + e0.elapsed_time(e1)
-                acc["total"] = acc.get("total", 0.0) + \
-                    marks[0][1].elapsed_time(marks[-1][1])
-    finally:
-        for h in hooks:
-            h.remove()
+                with prof.span("forward"):
+                    net(x, bn_stats=bn_stats, groups=groups)
+            torch.cuda.synchronize()
+    recs = prof.span_records()
+    prof.reset_spans()
+    for top in (r for r in recs if r["name"] == "forward"):
+        group = -1
+        for r in (r for r in recs if r["parent"] == top["id"]):
+            if r["name"] in ("upsample", "conv", "bulge"):
+                group += 1
+            if r["name"] == "cast":
+                continue
+            label = labels[group][0 if r["name"] == "bulge" else 1]
+            acc[label] = acc.get(label, 0.0) + r["device_s"] * 1e3
+        check(group == len(labels) - 1,
+              f"forward opened {group + 1} layer groups, not {len(labels)}")
+        acc["total"] = acc.get("total", 0.0) + top["device_s"] * 1e3
+    acc["between layers"] = acc["total"] - sum(
+        v for k, v in acc.items() if k != "total")
     return {k: round(v / iters, 4) for k, v in acc.items()}
 
 
@@ -1302,21 +1307,28 @@ def trainer_phase(cfg):
 # phase 8: where a step's time goes
 # ---------------------------------------------------------------------------
 
-STAGES = ("preprocess", "g_forward", "d_real_forward_backward",
-          "d_fake_forward", "d_fake_pullbacks", "g_backward", "adam_updates")
+# the step's stage spans (train/step.py) under the names this phase prints
+STAGES = {"train.preprocess": "preprocess", "train.g_forward": "g_forward",
+          "train.d_real": "d_real_forward_backward",
+          "train.d_fake_forward": "d_fake_forward",
+          "train.d_fake_pullbacks": "d_fake_pullbacks",
+          "train.g_backward": "g_backward", "train.adam": "adam_updates"}
 
 
 def step_breakdown(cfg, state, smi, warm=2, iters=10, batches=None,
                    benchmarks=(False, True)):
-    """Device time of each stage of the step, from CUDA events the step
-    records as it queues each stage.  The host queues all `iters` steps
-    without waiting (as the trainer does between two log lines), so a
-    stage's time is the device's, not the host's time to enqueue it; the
-    step's own time is the wall clock over the steps, ending in a
+    """Device time of each stage of the step, from the step's stage spans
+    (dcgan_sr_tpu_torch/utils/profiling.py), read over `iters` steps run
+    under a profiler.  The host queues the steps without waiting (as the
+    trainer does between two log lines), so a stage's time is the
+    device's, not the host's time to enqueue it.  The step's own time is
+    the wall clock over `iters` more steps without a profiler, ending in a
     synchronize."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from dcgan_sr_tpu_torch.train.step import build_train_step
+    from dcgan_sr_tpu_torch.utils import profiling as prof
 
     dev = torch.device("cuda")
     step = build_train_step(cfg)
@@ -1329,30 +1341,27 @@ def step_breakdown(cfg, state, smi, warm=2, iters=10, batches=None,
                 step(state, batches[i % len(batches)])
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            marks = []
-
-            def mark(name):
-                e = torch.cuda.Event(enable_timing=True)
-                e.record()
-                marks.append((name, e))
-
             t0 = time.perf_counter()
             for i in range(iters):
-                mark("start")
-                step(state, batches[i % len(batches)], mark=mark)
+                step(state, batches[i % len(batches)])
             queued = (time.perf_counter() - t0) / iters * 1e3
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / iters * 1e3
+            prof.reset_spans()
+            with profile(activities=[ProfilerActivity.CPU]):
+                for i in range(iters):
+                    step(state, batches[i % len(batches)])
+                torch.cuda.synchronize()
+            totals = prof.span_totals()
+            prof.reset_spans()
         finally:
             torch.backends.cudnn.benchmark = False
-        check([n for n, _ in marks] == (["start"] + list(STAGES)) * iters,
-              f"stages {[n for n, _ in marks[:len(STAGES) + 1]]}")
-        acc = dict.fromkeys(STAGES, 0.0)
-        for (_, e0), (name, e1) in zip(marks, marks[1:]):
-            if name != "start":
-                acc[name] += e0.elapsed_time(e1)
-        r = {k: round(v / iters, 4) for k, v in acc.items()}
-        r["stages_sum_ms"] = round(sum(acc.values()) / iters, 4)
+        check(all(totals.get(n, {}).get("count") == iters for n in STAGES),
+              f"stages {[(n, t['count']) for n, t in totals.items()]}")
+        r = {k: round(totals[n]["device_s"] * 1e3 / iters, 4)
+             for n, k in STAGES.items()}
+        r["stages_sum_ms"] = round(sum(totals[n]["device_s"] for n in STAGES)
+                                   * 1e3 / iters, 4)
         r["host_queue_ms"] = round(queued, 4)
         r["step_ms"] = round(wall, 4)
         r["images_per_s"] = round(cfg.images_consumed_per_step

@@ -22,6 +22,11 @@ its contiguous slice (the image count must divide by the ranks), and the
 outputs are all_gathered, so every rank returns the whole batch (the JAX
 global output array).  BN statistics there are per image, per group or
 running, so the generator needs no collective.
+
+Spans (utils/profiling.py, on while a profiler runs): the batched
+pipelines' stages `sr.extract` (tiles and their degrade), `sr.degrade`,
+`sr.generator` (every generator call of the pipeline call), `sr.stitch` and
+`sr.seam`, siblings with no span around the call.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ..image.patches import (
     stitch_overlap_naive,
 )
 from .seam import seam_stitch
+from ..utils.profiling import span
 from .seam_device import seam_stitch_device
 
 # Tiles per generator call in the flat and grouped overlap pipelines.  One
@@ -225,8 +231,12 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
 
     @torch.inference_mode()
     def run(images):
-        lr = images if lr_input else box_downsample2(images)
-        return gen(lr)
+        lr = images
+        if not lr_input:
+            with span("sr.degrade"):
+                lr = box_downsample2(images)
+        with span("sr.generator"):
+            return gen(lr)
 
     return _sharded(run, mesh)
 
@@ -324,19 +334,23 @@ def make_overlap_sr_fn(cfg, net, *, compute_dtype=None, mesh=None, fine=None,
 
     @torch.inference_mode()
     def run(images):
-        tiles = extract_overlap_patches(images, ep, eov)     # (N, T, ·, ·)
-        if not lr_input:
-            tiles = box_downsample2(tiles)
+        with span("sr.extract"):
+            tiles = extract_overlap_patches(images, ep, eov)  # (N, T, ·, ·)
+            if not lr_input:
+                tiles = box_downsample2(tiles)
         n, t = tiles.shape[0], tiles.shape[1]
         members = self_ensemble if ensemble_batched else 1
         step = max(1, TILE_BUDGET // (t * members))
-        fake = torch.cat([
-            gen_tiles(tiles[i:i + step].reshape((-1, 1) + tuple(tiles.shape[2:])),
-                      min(step, n - i))[:, 0]
-            for i in range(0, n, step)]).reshape(n, t, patch, patch)
-        return {"tiles": fake,
-                "naive": stitch_overlap_naive(fake, fine, patch, ov),
-                "seam": seam_stitch_device(fake, fine, patch, ov,
-                                           both_seams=both_seams)}
+        with span("sr.generator"):
+            fake = torch.cat([
+                gen_tiles(tiles[i:i + step].reshape(
+                    (-1, 1) + tuple(tiles.shape[2:])), min(step, n - i))[:, 0]
+                for i in range(0, n, step)]).reshape(n, t, patch, patch)
+        with span("sr.stitch"):
+            naive = stitch_overlap_naive(fake, fine, patch, ov)
+        with span("sr.seam"):
+            seam = seam_stitch_device(fake, fine, patch, ov,
+                                      both_seams=both_seams)
+        return {"tiles": fake, "naive": naive, "seam": seam}
 
     return _sharded(run, mesh)

@@ -19,6 +19,12 @@ computes in bf16 from the fp32 master parameters (ops/nn.py), BN statistics
 stay fp32, and the output goes back to fp32 for the losses, labels and
 metrics.  The fused pair takes the bf16 tensor as it is (ops/bulge.py).
 
+Spans (utils/profiling.py, on while a profiler runs): `cast` around the
+entry and exit casts, `upsample` around each nearest upsampling, `conv`
+around each convolution (its weight cast and layout changes included),
+`bn` around each BN, `act` around each activation, in G and D alike; the
+fused pair is ops/bulge.py's `bulge`.
+
 BN statistics (`bn_stats` of forward):
   "pooled"     train mode over the batch given (apply_network train=True);
                with `groups=G`, over each of G equal runs of consecutive
@@ -62,13 +68,13 @@ from ..ops import nn as N
 from ..ops.bulge import STATS_MODES, bulge
 from ..ops.compact import _w_shape
 from ..ops.init import init_bn, init_conv
+from ..utils.profiling import span
 
 _ACTS = {
     "relu": N.relu,
     "lrelu": lambda x: N.leaky_relu(x, 0.2),
     "sigmoid": N.sigmoid,
     "tanh": N.tanh,
-    None: lambda x: x,
 }
 
 BN_STATS = STATS_MODES   # the three ways the fused pair takes its statistics
@@ -152,39 +158,46 @@ class Layer(nn.Module):
 
     def conv(self, x, compute_dtype=None, fast=False):
         sp, w = self.spec, self.weight
-        # JAX's fast_ok: k4s2p1 and an even input, conv and convT alike
-        if (fast and self.foldable and x.shape[-1] % 2 == 0
-                and x.shape[-2] % 2 == 0):
-            fn = (FAST.conv2d_s2d if sp["kind"] == "conv"
-                  else FAST.conv_transpose2d_subpixel)
-            return fn(x, w, compute_dtype=compute_dtype)
-        if sp["kind"] == "conv":
-            return N.conv2d(x, w, sp["s"], sp["p"],
-                            compute_dtype=compute_dtype)
-        return N.conv_transpose2d(x, w, sp["s"], sp["p"],
-                                  compute_dtype=compute_dtype)
+        with span("conv"):
+            # JAX's fast_ok: k4s2p1 and an even input, conv and convT alike
+            if (fast and self.foldable and x.shape[-1] % 2 == 0
+                    and x.shape[-2] % 2 == 0):
+                fn = (FAST.conv2d_s2d if sp["kind"] == "conv"
+                      else FAST.conv_transpose2d_subpixel)
+                return fn(x, w, compute_dtype=compute_dtype)
+            if sp["kind"] == "conv":
+                return N.conv2d(x, w, sp["s"], sp["p"],
+                                compute_dtype=compute_dtype)
+            return N.conv_transpose2d(x, w, sp["s"], sp["p"],
+                                      compute_dtype=compute_dtype)
 
     def post(self, x, bn_stats, track_stats=False, logits=False, groups=None,
              axis_name=None):
         """BN (if any) and the activation that follow this layer's conv."""
         if self.spec.get("bn"):
-            x, new = N.batch_norm(
-                x, self.bn_scale, self.bn_bias,
-                state={"mean": self.bn_mean, "var": self.bn_var},
-                train=bn_stats != "running", per_image=bn_stats == "per_image",
-                groups=groups, axis_name=axis_name)
-            if track_stats and bn_stats == "pooled":
-                # in place: no backward reads the running statistics
-                self.bn_mean.copy_(new["mean"].detach())
-                self.bn_var.copy_(new["var"].detach())
+            with span("bn"):
+                x, new = N.batch_norm(
+                    x, self.bn_scale, self.bn_bias,
+                    state={"mean": self.bn_mean, "var": self.bn_var},
+                    train=bn_stats != "running",
+                    per_image=bn_stats == "per_image", groups=groups,
+                    axis_name=axis_name)
+                if track_stats and bn_stats == "pooled":
+                    # in place: no backward reads the running statistics
+                    self.bn_mean.copy_(new["mean"].detach())
+                    self.bn_var.copy_(new["var"].detach())
         act = self.spec.get("act")
-        return x if logits and act == "sigmoid" else _ACTS[act](x)
+        if act is None or (logits and act == "sigmoid"):
+            return x
+        with span("act"):
+            return _ACTS[act](x)
 
     def forward(self, x, bn_stats, track_stats=False, logits=False,
                 groups=None, compute_dtype=None, fast=False, axis_name=None):
         kind = self.spec["kind"]
         if kind == "upsample":
-            return N.upsample_nearest(x, self.spec["factor"])
+            with span("upsample"):
+                return N.upsample_nearest(x, self.spec["factor"])
         if kind == "flatten":
             return x.reshape(x.shape[0], -1)[:, 0]
         if kind in ("conv", "convT"):
@@ -246,7 +259,8 @@ class Network(nn.Module):
                 "bn_stats='pooled', no groups and fuse=False: the fused "
                 "pair's in-kernel statistics are never cross-replica")
         if compute_dtype is not None:
-            x = x.to(compute_dtype)
+            with span("cast"):
+                x = x.to(compute_dtype)
         i = 0
         while i < len(self.layers):
             layer = self.layers[i]
@@ -263,4 +277,7 @@ class Network(nn.Module):
                 x = layer(x, bn_stats, track_stats, logits, groups,
                           compute_dtype, fast, axis_name)
                 i += 1
-        return x if compute_dtype is None else x.float()
+        if compute_dtype is None:
+            return x
+        with span("cast"):
+            return x.float()

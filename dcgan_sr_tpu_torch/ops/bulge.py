@@ -57,6 +57,7 @@ import torch
 
 from . import bulge_mma as M
 from . import nn as N
+from ..utils.profiling import span
 from ._build import compile_and_load, raw_stream, sm_count
 
 STATS_MODES = ("pooled", "per_image", "running")
@@ -402,7 +403,14 @@ def bulge(x, wT, scale, bias, wC, *, stats="pooled", running=None,
 
     x (B, Ci, H, W) fp32 or bf16 (y in x's dtype); wT (Ci, Cm, 4, 4) IOHW;
     wC (Co, Cm, 4, 4) OIHW; scale, bias (Cm,).  See the module docstring for
-    `stats`, `groups` and `impl` (CUDA only; None = `choose_impl`)."""
+    `stats`, `groups` and `impl` (CUDA only; None = `choose_impl`).  The
+    whole call is the span `bulge` (utils/profiling.py)."""
+    with span("bulge"):
+        return _bulge(x, wT, scale, bias, wC, stats, running, groups, eps,
+                      impl)
+
+
+def _bulge(x, wT, scale, bias, wC, stats, running, groups, eps, impl):
     _check(x, wT, scale, bias, wC, stats, running, groups)
     if stats != "pooled":
         groups = None

@@ -16,7 +16,8 @@ keeps one graph per chunk shape and works in four stages:
      it;
   3. every later chunk of that shape is a `copy_` into the input buffer and
      one replay on the current stream; the metrics come back as a clone,
-     since the next replay overwrites the buffer;
+     since the next replay overwrites the buffer (the spans train.feed and
+     train.replay, utils/profiling.py);
   4. (the loop's business) an epoch's remainder steps run through the eager
      single step, on the same tensors.
 
@@ -34,6 +35,10 @@ safe:
     at launch time, which during capture is the capture stream;
   * `crop_hflip_at` reads its offsets from the static buffer on the card
     (the loop checked them on the host before the copy).
+
+The capture runs inside `utils.profiling.capture_stages()`: the step's
+stage spans become event nodes of the graph, so `span_totals()` gives each
+stage's device time in the last replay, profiler or not.
 
 A capture that fails (a host read, an op that cannot be captured) raises; it
 never falls back to the eager loop.  A graph addresses the tensors of the
@@ -66,6 +71,7 @@ import torch
 
 from ..ops import bulge, fused_nhwc, preprocess
 from ..parallel.dp import Replicas
+from ..utils.profiling import capture_stages, span
 from .step import build_train_step
 
 # every kernel wrapper's launch counter ({kernel: launches queued})
@@ -167,13 +173,15 @@ class MultiStep:
         if g.state is not state:
             raise ValueError("this runner's CUDA graph was captured on "
                              "another TrainState; build a runner per state")
-        for s, x in zip(g.static_in, leaves):
-            s.copy_(x)
-        g.graph.replay()
+        with span("train.feed"):
+            for s, x in zip(g.static_in, leaves):
+                s.copy_(x)
+        with span("train.replay"):
+            g.graph.replay()
+            out = g.static_out.clone()
         self.replays += 1
         for k, n in g.per_replay.items():
             self.replayed[k] += n
-        out = g.static_out.clone()
         return state, {k: out[i] for i, k in enumerate(g.names)}
 
     def _warm_up_and_capture(self, key, state, hr_batches, leaves):
@@ -191,7 +199,7 @@ class MultiStep:
         graph = torch.cuda.CUDAGraph()
         before = counted()
         try:
-            with torch.cuda.graph(graph):
+            with capture_stages(), torch.cuda.graph(graph):
                 _, out = self.eager(state, chunk)
                 names = tuple(out)
                 static_out = torch.stack([out[k] for k in names])

@@ -72,6 +72,7 @@ from ..ops.adam import adam_init, adam_update_
 from ..ops.compact import pack_state
 from ..ops.preprocess import preprocess
 from ..parallel.collectives import pmean
+from ..utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -185,10 +186,6 @@ def state_from_trees(g_spec, d_spec, tree, device):
 
 # ---- the step ---------------------------------------------------------------
 
-def _no_mark(name):
-    pass
-
-
 def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     """Returns train_step(state, hr_batch) -> (state, metrics).
 
@@ -205,9 +202,10 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
 
     `preprocess_fn` computes (hr, lr) from the batch; it exists so that a
     check can run this same step with `ops.preprocess.preprocess_plain` on
-    the card.  `train_step` also takes `mark=`, a callable named after each
-    stage of the step as it is queued (chip_smoke.py records a CUDA event
-    in it to see where the time goes).
+    the card.  The step's stages are spans (utils/profiling.py `stage`):
+    train.preprocess, train.g_forward, train.d_real, train.d_fake_forward,
+    train.d_fake_pullbacks, train.g_backward, train.pmeans (data parallel
+    only) and train.adam, which tile the step's work.
     """
     cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
     fast = cfg.fast_ops
@@ -230,76 +228,81 @@ def build_train_step(cfg, *, axis_name=None, preprocess_fn=preprocess):
     device_augment, fine_size = cfg.device_augment, cfg.fineSize
     grad = torch.autograd.grad
 
-    def step(state, hr, mark=_no_mark):
-        if device_augment:
-            hr, tops, lefts, flips = hr
-        if hr.dtype == torch.bfloat16:
-            hr = hr.float()          # a bf16 feed carries only input rounding
-        if device_augment:
-            # the donkey trainHook's crop + hflip pixel work on the device
-            # (donkey_folder.lua:52-70), at offsets the loader drew on the
-            # host with the reference's single uniform draw
-            hr = crop_hflip_at(hr, tops, lefts, flips, fine_size)
-        with torch.no_grad():
-            hr, lr_img = preprocess_fn(hr, rgb_to_gray=rgb_to_gray,
-                                       to_pm1=to_pm1)
-        mark("preprocess")
+    def step(state, hr):
+        with stage("train.preprocess"):
+            if device_augment:
+                hr, tops, lefts, flips = hr
+            if hr.dtype == torch.bfloat16:
+                hr = hr.float()      # a bf16 feed carries only input rounding
+            if device_augment:
+                # the donkey trainHook's crop + hflip pixel work on the
+                # device (donkey_folder.lua:52-70), at offsets the loader
+                # drew on the host with the reference's single uniform draw
+                hr = crop_hflip_at(hr, tops, lefts, flips, fine_size)
+            with torch.no_grad():
+                hr, lr_img = preprocess_fn(hr, rgb_to_gray=rgb_to_gray,
+                                           to_pm1=to_pm1)
         g_params, d_params = params_of(state.g), params_of(state.d)
 
         # G forward: one graph, pulled back once, for G's update
-        fake = state.g(lr_img, track_stats=True, compute_dtype=cdt,
-                       fast=fast, axis_name=axis_name)
-        mark("g_forward")
+        with stage("train.g_forward"):
+            fake = state.g(lr_img, track_stats=True, compute_dtype=cdt,
+                           fast=fast, axis_name=axis_name)
 
         # D on real (own batch statistics; first running-stat update)
-        out_real = state.d(hr, track_stats=True, logits=fold,
-                           compute_dtype=cdt, fast=fast, axis_name=axis_name)
-        err_d_real = crit(out_real, torch.full_like(out_real, cfg.real_label))
-        gd_real = grad(err_d_real, d_params)
-        mark("d_real_forward_backward")
+        with stage("train.d_real"):
+            out_real = state.d(hr, track_stats=True, logits=fold,
+                               compute_dtype=cdt, fast=fast,
+                               axis_name=axis_name)
+            err_d_real = crit(out_real,
+                              torch.full_like(out_real, cfg.real_label))
+            gd_real = grad(err_d_real, d_params)
 
         # D on fake: one forward, shared by the D-fake and the G loss
-        _, fake_vec, g_vec = make_labels(cfg, hr, fake.detach())
-        out_fake = state.d(fake, track_stats=True, logits=fold,
-                           compute_dtype=cdt, fast=fast, axis_name=axis_name)
-        mark("d_fake_forward")
-        err_d_fake = crit(out_fake, fake_vec)
-        err_g = crit(out_fake, g_vec)
-        gd_fake = grad(err_d_fake, d_params, retain_graph=True)
-        # fGx: the pullback to `fake` only (updateGradInput), never into D's
-        # parameter gradients
-        g_loss = err_g if cfg.gan_weight == 1.0 else err_g * cfg.gan_weight
-        (dfake,) = grad(g_loss, fake)
-        mark("d_fake_pullbacks")
-        pixel_loss = torch.zeros((), device=hr.device)
-        if cfg.pixel_loss_weight > 0:
-            # surplus pixel-reconstruction term: the cotangent of
-            # w * mean((fake-hr)^2) adds directly to D's pullback
-            with torch.no_grad():
-                diff = fake - hr
-                pixel_loss = torch.mean(diff ** 2)
-                dfake = dfake + (cfg.pixel_loss_weight * 2.0
-                                 / fake.numel()) * diff
-        gg = grad(fake, g_params, grad_outputs=dfake)
-        mark("g_backward")
+        with stage("train.d_fake_forward"):
+            _, fake_vec, g_vec = make_labels(cfg, hr, fake.detach())
+            out_fake = state.d(fake, track_stats=True, logits=fold,
+                               compute_dtype=cdt, fast=fast,
+                               axis_name=axis_name)
+        with stage("train.d_fake_pullbacks"):
+            err_d_fake = crit(out_fake, fake_vec)
+            err_g = crit(out_fake, g_vec)
+            gd_fake = grad(err_d_fake, d_params, retain_graph=True)
+            # fGx: the pullback to `fake` only (updateGradInput), never into
+            # D's parameter gradients
+            g_loss = err_g if cfg.gan_weight == 1.0 else err_g * cfg.gan_weight
+            (dfake,) = grad(g_loss, fake)
+        with stage("train.g_backward"):
+            pixel_loss = torch.zeros((), device=hr.device)
+            if cfg.pixel_loss_weight > 0:
+                # surplus pixel-reconstruction term: the cotangent of
+                # w * mean((fake-hr)^2) adds directly to D's pullback
+                with torch.no_grad():
+                    diff = fake - hr
+                    pixel_loss = torch.mean(diff ** 2)
+                    dfake = dfake + (cfg.pixel_loss_weight * 2.0
+                                     / fake.numel()) * diff
+            gg = grad(fake, g_params, grad_outputs=dfake)
 
         # fDx accumulates real+fake gradients before one adam step
-        gd = torch._foreach_add(gd_real, gd_fake)
         err_d_real, err_d_fake, err_g = (err_d_real.detach(),
                                          err_d_fake.detach(), err_g.detach())
         if axis_name is not None:
-            gd, gg = pmean(gd, axis_name), pmean(gg, axis_name)
-            err_d_real, err_d_fake, err_g, pixel_loss = pmean(
-                [err_d_real, err_d_fake, err_g, pixel_loss], axis_name)
-            mark("pmeans")
-        adam_update_(d_params, gd, state.d_opt, **adam_kw)
-        adam_update_(g_params, gg, state.g_opt, **adam_kw)
-        if state.g_ema is not None and cfg.g_ema > 0:
-            with torch.no_grad():
-                torch._foreach_mul_(state.g_ema, cfg.g_ema)
-                torch._foreach_add_(state.g_ema, g_params,
-                                    alpha=1.0 - cfg.g_ema)
-        mark("adam_updates")
+            with stage("train.pmeans"):
+                gd = pmean(torch._foreach_add(gd_real, gd_fake), axis_name)
+                gg = pmean(gg, axis_name)
+                err_d_real, err_d_fake, err_g, pixel_loss = pmean(
+                    [err_d_real, err_d_fake, err_g, pixel_loss], axis_name)
+        with stage("train.adam"):
+            if axis_name is None:
+                gd = torch._foreach_add(gd_real, gd_fake)
+            adam_update_(d_params, gd, state.d_opt, **adam_kw)
+            adam_update_(g_params, gg, state.g_opt, **adam_kw)
+            if state.g_ema is not None and cfg.g_ema > 0:
+                with torch.no_grad():
+                    torch._foreach_mul_(state.g_ema, cfg.g_ema)
+                    torch._foreach_add_(state.g_ema, g_params,
+                                        alpha=1.0 - cfg.g_ema)
 
         metrics = {
             "errD": err_d_real + err_d_fake,

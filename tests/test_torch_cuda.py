@@ -1144,6 +1144,41 @@ def test_each_replay_advances_the_step_count_on_the_card(cuda):
         run(other, hr)
 
 
+def test_captured_stage_spans_time_each_replay(cuda):
+    """The step's stage spans are event nodes of the captured graph
+    (utils/profiling.py capture_stages): one boundary event a stage plus
+    the capture's start, no profiler running, and after each replay
+    span_totals() reads that replay's stages, which sum to the replay's own
+    device time within 2% (what lies outside them: the last step's
+    metrics and the stacked output)."""
+    from dcgan_sr_tpu_torch.utils import profiling as prof
+
+    cfg = get_config("gray-3", **GRAPH_KW)
+    st = init_train_state(cfg, torch.Generator().manual_seed(0), device=cuda)
+    prof.reset_spans()
+    run = build_multi_step(cfg)
+    (hr,) = _chunks(cfg, cuda, n=1, k=3)
+    run(st, hr)
+    assert prof.span_totals() == {}            # captured, never replayed
+    assert len(prof._store.graphs[-1].events) == 1 + 7 * 3
+    g = next(iter(run._graphs.values()))
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(2):
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        tot = prof.span_totals()
+        assert {n: t["count"] for n, t in tot.items()} == {
+            n: 3 for n in ("train.preprocess", "train.g_forward",
+                           "train.d_real", "train.d_fake_forward",
+                           "train.d_fake_pullbacks", "train.g_backward",
+                           "train.adam")}
+        stages = sum(t["device_s"] for t in tot.values()) * 1e3
+        assert 0.98 * a.elapsed_time(b) <= stages <= a.elapsed_time(b)
+    prof.reset_spans()
+
+
 def test_a_capture_that_fails_raises(cuda):
     """A step that reads a value back to the host trains eagerly (the warm-up
     chunk) and cannot be captured: the runner raises instead of falling back
