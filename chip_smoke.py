@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build of every kernel of every
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
-     bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu, fused_nhwc_wgmma.cu —
-     started together),
+     bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu, fused_nhwc_wgmma.cu,
+     bn.cu — started together),
      timed, with the `-Xptxas -v` resource lines.
   2. kernels: first the fp32 wgmma kernels' layout probe (two k-steps of
      wgmma .tf32 on raw fp32 words: the result must be the product of the
@@ -328,14 +328,31 @@ Phases, each fatal on failure:
      batchSize=5 on a checkpoint of the gray-3 fixture; `select_checkpoint
      --ema` on the CLI's second checkpoint and `overlap_protocol --ema --sets
      10000:10001` (other scores than the params branch's).
+ 29. kernels: BN of a bf16 map in two passes (ops/bn.py, csrc/bn.cu) at
+     the SR cells' largest BN maps, (16,16,2048,2048) per image and
+     (14400,32,32,32) in 64 groups of 225 tiles, and at a served LR-256
+     image's first map (1,32,1024,1024) on running statistics: a and b
+     within one bf16 step of the plain path's (ops/nn.py batch_stats or the
+     running statistics, then normalize's formula), y with its ReLU bit for
+     bit the plain composition's on the kernel's own a and b, two runs bit
+     for bit; then the statistics (with their combine), the apply and both
+     together timed in turns with the plain path, beside the byte bound
+     (2 + 4 B an element at 3.35 TB/s: 1.923 and 0.845 ms; 4 B on running
+     statistics) and the library's F.batch_norm + relu in bf16 (per image
+     as a batch of one with N x C channels; the grouped shape pooled over
+     the whole batch, the same bytes).  Then one bf16 call of the gray-3
+     and of the overlap pipeline in each BN mode, each from BN counters set
+     to 0: every BN layer outside the fused pair launches the kernels, none
+     takes the plain code.  The phase prints its seconds.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
      the mma.sync and FMA kernels' times in turns, their eval launches and
      times at the eval shape), K2 stats bf16, K2 main bf16 (the wgmma kernel
      the paths run, with the mma.sync kernel's times in turns), K3 stats,
      K3 main, K3
-     stats bf16, K3 main bf16), then the contract line {"ok": true,
-     "device": {...}}.
+     stats bf16, K3 main bf16, BN's statistics and apply kernels with the
+     launches of phase 29's SR path calls), then the contract line {"ok":
+     true, "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
   mean, var of the hidden tensor  1e-5 abs + 1e-5 rel (tests/test_pallas_fused.py)
@@ -367,6 +384,10 @@ Tolerances (max |kernel - plain|, both fp32 on the card):
                                   another order, and may round the other
                                   way; then y rounds once more (statistics
                                   as for fp32)
+  BN kernels' a, b and y (bf16)   a, b within one bf16 step of the plain
+                                  path's (its fp32 sums run in another
+                                  order); y bit for bit the plain
+                                  composition's on the kernel's own a, b
   bf16 served PNG bytes           2 levels of 255 on all but 5% of a
                                   response's pixels, against the UNFUSED
                                   bf16 generator (TOL_U8_BF16 below)
@@ -5237,6 +5258,167 @@ def _tool_ema(smi, ck, op_args, op_cpu, t_op, launches):
               + f"; K2 {c}, on {smi}", flush=True)
 
 
+# phase 29: BN of a bf16 map in two passes against its plain version
+
+# the SR cells' largest BN maps: the gray-3 pipeline's (16 LR-256 images,
+# the 2048x2048 layers) per image, the overlap pipeline's 14,400 tiles of
+# 64 images at 32x32, each image's 225 tiles one group; and a served LR-256
+# image's first BN map on the running statistics
+BN_SHAPES = (((16, 16, 2048, 2048), "per_image"),
+             ((14400, 32, 32, 32), "groups"),
+             ((1, 32, 1024, 1024), "running"))
+
+
+def bn_phase(smi):
+    """ops/bn.py's kernels against the plain bf16 path at BN_SHAPES, then
+    timed (module docstring, phase 29).  Returns a row per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import bn as BN
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    rows = []
+    for shape, mode in BN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(29)
+        n, c = shape[:2]
+        x = (torch.randn((1, c, 1, 1), generator=g, device=dev)
+             + torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+        scale = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        running = (torch.randn(c, generator=g, device=dev),
+                   0.5 + torch.rand(c, generator=g, device=dev))
+        kw = {"per_image": dict(per_image=True), "groups": dict(groups=64),
+              "running": {}}[mode]
+        if mode == "running":
+            def ab():
+                return BN.running_ab(x, scale, bias, running)
+            pm, pv = running
+            lx, lw, lb = x, scale, bias
+        else:
+            def ab():
+                return BN.stats(x, scale, bias, **kw)[2:]
+            pm, pv = N.batch_stats(x, **kw)
+            if mode == "per_image":    # the library's per-(n, c) statistics
+                lx, lw, lb = x.view(1, n * c, *shape[2:]), scale.repeat(n), \
+                    bias.repeat(n)
+            else:                      # pooled over the batch: same bytes
+                lx, lw, lb = x, scale, bias
+        a, b = ab()
+        inv = torch.rsqrt(pv + 1e-5)
+        for got, want in ((a, inv * scale),
+                          (b, bias - pm * inv * scale)):
+            ulps = (got.view(torch.int16).int() - want.to(torch.bfloat16)
+                    .reshape(got.shape).view(torch.int16).int()).abs()
+            check(int(ulps.max()) <= 1, f"BN a or b at {shape} ({mode}): "
+                  f"{int(ulps.max())} bf16 steps from the plain path's")
+        y = BN.apply(x, a, b, "relu")
+        rep = n // a.shape[0]
+        ar, br = (v.repeat_interleave(rep, dim=0)[:, :, None, None]
+                  for v in (a, b))
+        check(torch.equal(y.view(torch.int16),
+                          N.relu(x * ar + br).view(torch.int16)),
+              f"BN apply at {shape} ({mode}): not the plain composition's "
+              f"bits")
+        again = ab()
+        check(all(torch.equal(u, v) for u, v in zip((a, b), again))
+              and torch.equal(y, BN.apply(x, *again, "relu")),
+              f"BN kernels at {shape} ({mode}): two runs differ")
+        del ar, br, again, inv
+        if mode == "running":
+            fns = {
+                "kernels": lambda: BN.bn_act(x, scale, bias, running=running,
+                                             act="relu"),
+                "plain": lambda: N.relu(N.normalize(x, *running, scale,
+                                                    bias)),
+                "library": lambda: F.relu(F.batch_norm(
+                    lx, *running, lw, lb, training=False))}
+        else:
+            fns = {
+                "kernels": lambda: BN.bn_act(x, scale, bias, act="relu",
+                                             **kw),
+                "plain": lambda: N.relu(N.normalize(
+                    x, *N.batch_stats(x, **kw), scale, bias)),
+                "library": lambda: F.relu(F.batch_norm(
+                    lx, None, None, lw, lb, training=True))}
+        fns["stats"] = ab
+        fns["apply"] = lambda: BN.apply(x, a, b, "relu")
+        mean_ms, best_ms = in_turns(fns, 10)
+        elems = x.numel()
+        read = 0 if mode == "running" else 2 * elems
+        row = {"shape": list(shape), "stats": mode,
+               "ms": mean_ms["kernels"], "best_ms": best_ms["kernels"],
+               "bound_ms": bound(0, read + 4 * elems)[0],
+               "stats_ms": mean_ms["stats"],
+               "stats_bound_ms": bound(0, read)[0],
+               "apply_ms": mean_ms["apply"],
+               "apply_bound_ms": bound(0, 4 * elems)[0],
+               "plain_ms": mean_ms["plain"], "library_ms": mean_ms["library"]}
+        row["share_of_bound"] = round(row["bound_ms"] / row["ms"], 4)
+        print(f"BN kernels at {shape} ({mode}) on {smi}: " + json.dumps(row),
+              flush=True)
+        rows.append(row)
+        del x, y, lx, fns, a, b, pm, pv
+        torch.cuda.empty_cache()
+    print(f"phase 29 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def bn_paths(smi):
+    """The bf16 SR paths on ops/bn.py's kernels: one call of the gray-3
+    and of the overlap pipeline in each BN mode, each from counters set to
+    0; every BN layer outside the fused pair must launch the kernels, and
+    none take the plain code.  Returns what those calls launched."""
+    import torch
+
+    from dcgan_sr_tpu_torch.core import get_config
+    from dcgan_sr_tpu_torch.infer.tiled import (make_full_sr_fn,
+                                                make_overlap_sr_fn)
+    from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
+    from dcgan_sr_tpu_torch.ops import bn as BN
+
+    dev = torch.device("cuda")
+    total = {**dict.fromkeys(BN.launches, 0), "plain_cuda_calls": 0}
+    for variant in ("gray-3", "gray-patch-batch-overlap"):
+        cfg = get_config(variant, env_override=False)
+        spec = generator_spec(cfg)
+        net = Network(spec, *init_network(spec, torch.Generator()
+                                          .manual_seed(0)), device="cuda")
+        n_bn = sum(1 for i, layer in enumerate(spec)
+                   if layer.get("bn") and i not in net.pairs)
+        check(n_bn > 0, f"{variant}: no BN layer outside the fused pair")
+        g = torch.Generator(device=dev).manual_seed(30)
+        for bn_eval in (False, True):
+            if variant == "gray-3":
+                fn = make_full_sr_fn(net, compute_dtype=torch.bfloat16,
+                                     bn_eval=bn_eval)
+                x = torch.rand((4, 1, 256, 256), generator=g, device=dev)
+            else:
+                fn = make_overlap_sr_fn(cfg, net, compute_dtype=torch.bfloat16,
+                                        bn_eval=bn_eval)
+                x = torch.rand((4, 64, 64), generator=g, device=dev)
+            for k in BN.launches:
+                BN.launches[k] = 0
+            BN.plain_cuda_calls = 0
+            with torch.inference_mode():
+                fn(x)
+            torch.cuda.synchronize()
+            want = {"bn_stats_bf16": 0 if bn_eval else n_bn,
+                    "bn_finish_bf16": n_bn, "bn_apply_bf16": n_bn}
+            check(BN.launches == want and BN.plain_cuda_calls == 0,
+                  f"bf16 {variant} SR call (bn_eval={bn_eval}) launched "
+                  f"{BN.launches}, {BN.plain_cuda_calls} plain CUDA BN "
+                  f"calls; want {want}, none plain")
+            for k in BN.launches:
+                total[k] += BN.launches[k]
+            total["plain_cuda_calls"] += BN.plain_cuda_calls
+    print(f"bf16 SR paths on the BN kernels on {smi}: " + json.dumps(total),
+          flush=True)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5247,6 +5429,7 @@ def main():
 
     from dcgan_sr_tpu_torch.core import get_config
     from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
+    from dcgan_sr_tpu_torch.ops import bn as BN
     from dcgan_sr_tpu_torch.ops import bulge as K
     from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
     from dcgan_sr_tpu_torch.ops import preprocess as P
@@ -5284,7 +5467,8 @@ def main():
                ("preprocess", P.build, lambda: P.build_log),
                ("fused_nhwc", F3.build, lambda: F3.build_log),
                ("fused_nhwc_wgmma", F3.build_wgmma,
-                lambda: F3.wgmma_build_log))
+                lambda: F3.wgmma_build_log),
+               ("bn", BN.build, lambda: BN.build_log))
     threads = [threading.Thread(target=build, args=(fn, name))
                for name, fn, _ in sources]
     for th in threads:
@@ -5569,6 +5753,12 @@ def main():
         launches[k] += sum(c.get(k, 0) for c in option_launches.values())
 
     stamp()
+    # phase 29: BN of a bf16 map in two passes against its plain version,
+    # then the bf16 SR paths' launches of it, counted from 0
+    bn_rows = bn_phase(smi)
+    bn_launches = bn_paths(smi)
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -5728,6 +5918,23 @@ def main():
             "mma_source": "dcgan_sr_tpu_torch/csrc/fused_nhwc.cu",
             "pair_ms": k3b_row["pair_ms"],
             "pair_mma_ms": k3b_row["pair_mma_ms"]})
+    # BN in two passes: no TPU kernel (XLA fused the JAX package's BN);
+    # the launches are those of phase 29's bf16 SR path calls
+    for name, key in (("bn_stats_bf16", "stats"), ("bn_apply_bf16", "apply")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dcgan_sr_tpu_torch/csrc/bn.cu",
+            "replaces": "none (XLA's fusion of dcgan_sr_tpu/ops/nn.py:111)",
+            "launches": bn_launches[name], "dtype": "bf16",
+            "plain_cuda_calls": bn_launches["plain_cuda_calls"],
+            "at_shapes": [{"shape": r["shape"], "stats": r["stats"],
+                           "ms": r[f"{key}_ms"],
+                           "bound_ms": r[f"{key}_bound_ms"],
+                           "bound_by": "bytes", "both_ms": r["ms"],
+                           "both_bound_ms": r["bound_ms"],
+                           "plain_ms": r["plain_ms"],
+                           "library_ms": r["library_ms"]}
+                          for r in bn_rows]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -152,7 +152,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from .core import get_config
-    from .ops import bulge
+    from .ops import bn, bulge
     from .utils.device import pick_device
 
     device = pick_device(args.cpu)
@@ -170,7 +170,9 @@ def main(argv=None):
             n_images=n_images,
             reps=args.reps, steps=args.steps, device=str(device),
             seed=args.seed, cfg=cfg, dtype=args.dtype)), flush=True)
-    print("kernel launches: " + json.dumps(bulge.launches))
+    print("kernel launches: " + json.dumps({
+        **bulge.launches, **bn.launches,
+        "bn_plain_cuda_calls": bn.plain_cuda_calls}))
 
 
 if __name__ == "__main__":

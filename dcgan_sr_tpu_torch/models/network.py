@@ -23,7 +23,11 @@ Spans (utils/profiling.py, on while a profiler runs): `cast` around the
 entry and exit casts, `upsample` around each nearest upsampling, `conv`
 around each convolution (its weight cast and layout changes included),
 `bn` around each BN, `act` around each activation, in G and D alike; the
-fused pair is ops/bulge.py's `bulge`.
+fused pair is ops/bulge.py's `bulge`.  A layer with BN hands its
+activation to ops/nn.py batch_norm, so its `bn` span holds the activation:
+the plain path opens the `act` span inside it, and where BN runs on
+ops/bn.py's kernels (a bf16 map on the card, no gradient carried) a ReLU or
+leaky ReLU is folded into the second kernel and no `act` span opens.
 
 BN statistics (`bn_stats` of forward):
   "pooled"     train mode over the batch given (apply_network train=True);
@@ -69,13 +73,6 @@ from ..ops.bulge import STATS_MODES, bulge
 from ..ops.compact import _w_shape
 from ..ops.init import init_bn, init_conv
 from ..utils.profiling import span
-
-_ACTS = {
-    "relu": N.relu,
-    "lrelu": lambda x: N.leaky_relu(x, 0.2),
-    "sigmoid": N.sigmoid,
-    "tanh": N.tanh,
-}
 
 BN_STATS = STATS_MODES   # the three ways the fused pair takes its statistics
 
@@ -173,24 +170,25 @@ class Layer(nn.Module):
 
     def post(self, x, bn_stats, track_stats=False, logits=False, groups=None,
              axis_name=None):
-        """BN (if any) and the activation that follow this layer's conv."""
-        if self.spec.get("bn"):
-            with span("bn"):
-                x, new = N.batch_norm(
-                    x, self.bn_scale, self.bn_bias,
-                    state={"mean": self.bn_mean, "var": self.bn_var},
-                    train=bn_stats != "running",
-                    per_image=bn_stats == "per_image", groups=groups,
-                    axis_name=axis_name)
-                if track_stats and bn_stats == "pooled":
-                    # in place: no backward reads the running statistics
-                    self.bn_mean.copy_(new["mean"].detach())
-                    self.bn_var.copy_(new["var"].detach())
+        """BN (if any) and the activation that follow this layer's conv;
+        with BN, ops/nn.py batch_norm applies the activation too."""
         act = self.spec.get("act")
-        if act is None or (logits and act == "sigmoid"):
-            return x
-        with span("act"):
-            return _ACTS[act](x)
+        if logits and act == "sigmoid":
+            act = None
+        if not self.spec.get("bn"):
+            return N.activate(x, act)
+        with span("bn"):
+            x, new = N.batch_norm(
+                x, self.bn_scale, self.bn_bias,
+                state={"mean": self.bn_mean, "var": self.bn_var},
+                train=bn_stats != "running",
+                per_image=bn_stats == "per_image", groups=groups,
+                axis_name=axis_name, act=act)
+            if track_stats and bn_stats == "pooled":
+                # in place: no backward reads the running statistics
+                self.bn_mean.copy_(new["mean"].detach())
+                self.bn_var.copy_(new["var"].detach())
+        return x
 
     def forward(self, x, bn_stats, track_stats=False, logits=False,
                 groups=None, compute_dtype=None, fast=False, axis_name=None):

@@ -29,7 +29,9 @@ its products are exact and its sums fp32, as with TF32 off.  On the CPU the bf16
 convolved in fp32 and each bf16 result rounded once: the same function,
 whatever oneDNN's own bf16 kernels would round.  BN of a bf16 tensor takes
 fp32 statistics and applies one per-channel affine x * a + b in bf16, each
-step rounded as XLA rounds it.
+step rounded as XLA rounds it.  On the card, where no gradient is carried,
+that BN and the activation after it run as ops/bn.py's two-pass kernels
+(`batch_norm`, its rule `bn.takes`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.profiling import span
+from . import bn as BN
 
 
 @contextlib.contextmanager
@@ -181,8 +186,9 @@ def normalize(x, mean, var, scale, bias, eps=1e-5):
 
 
 def batch_norm(x, scale, bias, *, state=None, train=True, per_image=False,
-               groups=None, eps=1e-5, momentum=0.1, axis_name=None):
-    """Torch SpatialBatchNormalization semantics.
+               groups=None, eps=1e-5, momentum=0.1, axis_name=None, act=None):
+    """Torch SpatialBatchNormalization semantics, then the activation `act`
+    (a key of `ACTIVATIONS`, or None).
 
     Train mode normalizes with biased batch statistics over (N, H, W), or
     over each image's own (H, W) with `per_image` — the JAX package's
@@ -199,43 +205,73 @@ def batch_norm(x, scale, bias, *, state=None, train=True, per_image=False,
     then normalizes as the whole batch would on one device.  The per-image
     and grouped statistics are inference modes and take no axis.
 
+    A bf16 CUDA x with no gradient to carry and no `axis_name`
+    (`bn.takes`) runs ops/bn.py's kernels, a ReLU or leaky ReLU folded into
+    the second; anything else runs the plain composition below, its
+    activation in an `act` span, and a CUDA x there counts in
+    `bn.plain_cuda_calls`.  Both compute the same function.
+
     Returns (y, new_state); new_state = {"mean", "var"} running stats after
     a train-mode step (unbiased var, momentum 0.1, Torch defaults), None when
     `state` is None or the statistics are per image or per group.
     """
-    if not train:
-        return normalize(x, state["mean"], state["var"], scale, bias, eps), state
-    n = x.shape[0] * x.shape[2] * x.shape[3]
-    if axis_name is not None:
-        if per_image or groups is not None:
-            raise ValueError("cross-replica statistics (axis_name) are "
-                             "pooled over the batch: per_image and groups "
-                             "are inference modes and take no axis")
-        from ..parallel.collectives import pmean
-        xf = _stats_dtype(x)
-        c = xf.shape[1]
-        moments = pmean(torch.cat([xf.mean((0, 2, 3)),
-                                   (xf * xf).mean((0, 2, 3))]), axis_name)
-        mean, mean_sq = moments[:c], moments[c:]
-        var = mean_sq - mean * mean
-        n *= axis_name.size
+    if BN.takes(x, scale, bias, axis_name):
+        running = None if train else (state["mean"], state["var"])
+        fold = act if act in BN.ACTS else None
+        y, mean, var = BN.bn_act(x, scale, bias, running=running,
+                                 per_image=per_image, groups=groups, eps=eps,
+                                 act=fold, slope=LRELU_SLOPE)
+        if fold != act:
+            y = activate(y, act)
+        if not train:
+            return y, state
     else:
-        mean, var = batch_stats(x, per_image, groups)
+        if x.is_cuda:
+            BN.plain_cuda_calls += 1
+        if not train:
+            return activate(normalize(x, state["mean"], state["var"], scale,
+                                      bias, eps), act), state
+        mean, var = _train_stats(x, per_image, groups, axis_name)
+        y = activate(normalize(x, mean, var, scale, bias, eps), act)
     new_state = None
     if state is not None and not per_image and groups is None:
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        if axis_name is not None:
+            n *= axis_name.size
         unbiased = var * (n / max(n - 1, 1))
         new_state = {
             "mean": (1 - momentum) * state["mean"] + momentum * mean,
             "var": (1 - momentum) * state["var"] + momentum * unbiased,
         }
-    return normalize(x, mean, var, scale, bias, eps), new_state
+    return y, new_state
+
+
+def _train_stats(x, per_image, groups, axis_name):
+    """Train-mode (mean, var) of the plain path: `batch_stats`, or with
+    `axis_name` the cross-replica pooled statistics."""
+    if axis_name is None:
+        return batch_stats(x, per_image, groups)
+    if per_image or groups is not None:
+        raise ValueError("cross-replica statistics (axis_name) are "
+                         "pooled over the batch: per_image and groups "
+                         "are inference modes and take no axis")
+    from ..parallel.collectives import pmean
+    xf = _stats_dtype(x)
+    c = xf.shape[1]
+    moments = pmean(torch.cat([xf.mean((0, 2, 3)),
+                               (xf * xf).mean((0, 2, 3))]), axis_name)
+    mean, mean_sq = moments[:c], moments[c:]
+    return mean, mean_sq - mean * mean
 
 
 def relu(x):
     return torch.clamp_min(x, 0)
 
 
-def leaky_relu(x, slope=0.2):
+LRELU_SLOPE = 0.2   # the leaky ReLU's slope in every network of the package
+
+
+def leaky_relu(x, slope=LRELU_SLOPE):
     if x.dtype != torch.float32:    # a bf16 tensor meets bf16(0.2), as in XLA
         slope = torch.tensor(slope, dtype=x.dtype)
     return torch.where(x >= 0, x, x * slope)
@@ -250,6 +286,19 @@ def sigmoid(x):
 
 def tanh(x):
     return torch.tanh(x)
+
+
+ACTIVATIONS = {"relu": relu, "lrelu": leaky_relu, "sigmoid": sigmoid,
+               "tanh": tanh}
+
+
+def activate(x, act):
+    """The activation `act` (a key of ACTIVATIONS) of x in an `act` span, or
+    x itself where `act` is None."""
+    if act is None:
+        return x
+    with span("act"):
+        return ACTIVATIONS[act](x)
 
 
 def upsample_nearest(x, factor=2):

@@ -125,7 +125,8 @@ def test_bench_infer_self_ensemble_runs_on_the_cpu():
         assert (r["dtype"], r["device"]) == ("fp32", "cpu")
     assert json.loads(out[-1][len("kernel launches: "):]) == {
         "bulge_stats": 0, "bulge_main": 0, "bulge_stats_bf16": 0,
-        "bulge_main_bf16": 0}
+        "bulge_main_bf16": 0, "bn_stats_bf16": 0, "bn_finish_bf16": 0,
+        "bn_apply_bf16": 0, "bn_plain_cuda_calls": 0}
 
 
 # ---- the knob table ---------------------------------------------------------

@@ -46,7 +46,8 @@ def test_port_modules_import_no_jax():
               "utils.measure", "select_checkpoint", "overlap_protocol",
               "validate_bf16", "zssr_photo", "serve_load", "loader_bench",
               "quality_protocol", "bench", "attr_variant", "attr_overlap",
-              "feed_ab", "probe_image_io", "profile_table", "utils.host"):
+              "feed_ab", "probe_image_io", "profile_table", "utils.host",
+              "ops.bn"):
         assert "dcgan_sr_tpu_torch." + m in mods
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
