@@ -23,6 +23,8 @@ module layout mirrors the JAX package so each counterpart is easy to find:
   evaluation/          the dataset-slice PSNR/SSIM harness
   infer/               full-image, grid and overlap SR, seam DP, ensemble
   utils/               device choice, timers, the reference log line, stats
+  reference/           plain float32 references of the port-only models
+                       (SRGAN's generator), importing nothing of the port
   upscale.py, serve.py, cli.py   entry points (python -m dcgan_sr_tpu_torch.cli ...)
 """
 

@@ -57,6 +57,7 @@ import argparse
 import json
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -415,6 +416,11 @@ def main(argv=None):
     ap.add_argument("--profile-dir", default=None,
                     help="capture a torch.profiler trace of the run")
     args = ap.parse_args(argv)
+    from .core import MODELS
+    if args.config in MODELS:
+        sys.exit(f"cli --config {args.config}: training is not supported: "
+                 "its discriminator and loss are not ported (upscale runs "
+                 "its generator)")
     # a rank takes its own card (LOCAL_RANK) before pick_device reads it
     mesh = initialize_from_env(args.cpu) if args.dp and launched() else None
     lead = mesh is None or mesh.rank == 0

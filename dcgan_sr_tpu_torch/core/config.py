@@ -26,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Optional
+from typing import ClassVar, Optional
 
 
 @dataclasses.dataclass
@@ -216,6 +216,60 @@ VARIANTS = {
         overlap=4,
     ),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class SRResNetConfig:
+    """SRGAN's generator (SRResNet; Ledig et al., 2017,
+    arXiv:1609.04802, Fig. 4), a model the port runs beyond the seven
+    reference variants.
+
+    The seven variants' `Config` stays field for field the JAX package's
+    (tests/test_torch_config.py), so this model carries its sizes here, in
+    a table of its own (`MODELS`); `variant` is its name, as
+    `Config.variant` is a variant's.  The layers (models/specs.py
+    srresnet_spec): a k9 head conv and PReLU, `blocks` residual blocks
+    (conv, BN, PReLU, conv, BN, sum) of `channels`, a conv and BN summed
+    with the head's output (the long skip), `log2(scale)` upsampling blocks
+    (conv to `up_channels`, PixelShuffle x2, PReLU) and a k9 tail conv with
+    no activation.  Every conv has a bias; PReLU is channel-wise
+    (ops/init.py init_prelu).  The input is in [0, 1] and the output in
+    [-1, 1], as the paper's §3.2 scales them."""
+    variant: str
+    nc: int = 3
+    channels: int = 64
+    blocks: int = 16
+    up_channels: int = 256
+    scale: int = 4
+    head_k: int = 9
+    body_k: int = 3
+    # what upscale.py reads of a model as of a variant's Config: whole
+    # images, the output's range (`data_range`) and the input's
+    patch_based: ClassVar[bool] = False
+    data_range: ClassVar[str] = "pm1"
+    lr_range: ClassVar[str] = "01"
+
+    @property
+    def up_blocks(self) -> int:
+        """Upsampling blocks, each PixelShuffle x2."""
+        n = self.scale.bit_length() - 1
+        if self.scale != 1 << n or n < 1:
+            raise ValueError(f"scale {self.scale} is not a power of two")
+        return n
+
+
+# Port-only models, by name; `resolve_config` looks a name up here and in
+# VARIANTS.
+MODELS = {
+    "srgan-x4": SRResNetConfig(variant="srgan-x4"),
+}
+
+
+def resolve_config(name: str, env_override: bool = True):
+    """A variant's Config (`get_config`) or a port-only model's, by name."""
+    if name in MODELS:
+        return MODELS[name]
+    return get_config(name, env_override=env_override)
 
 
 _ENV_TRUE = ("1", "true", "yes", "on")

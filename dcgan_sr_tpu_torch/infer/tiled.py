@@ -184,8 +184,10 @@ def make_full_sr_fn(net, *, compute_dtype=None, mesh=None, bn_eval=False,
       lr_input=False (default) runs the reference's eval protocol
         (train-gray-3.lua:564-580): degrade 2x2-box internally, restore at
         the input's own (even) size — output matches the input shape.
-      lr_input=True is TRUE 2x upscaling: the batch is LOW-RES input fed
-        straight to the generator, (N, nc, H, W) -> (N, nc, 2H, 2W).
+      lr_input=True is TRUE upscaling at the generator's own scale: the
+        batch is LOW-RES input fed straight to the generator, (N, nc, H, W)
+        -> (N, nc, sH, sW), s = 2 for the seven variants' generators and 4
+        for SRGAN's (core/config.py MODELS), whose output is in [-1, 1].
 
     Inputs and outputs are in the generator's own data range
     (cfg.data_range); callers own the conversion.

@@ -54,6 +54,19 @@ batch_norm), as JAX apply_network(axis_name=) does.  It goes with pooled
 statistics and an unfused network only: inference BN is per image, per
 group or running, and the fused pair's statistics stay in its kernel.
 
+A port-only model's layers (SRGAN's generator, models/specs.py) are modules
+of their own, so the seven variants' `Layer` runs as before: `SRLayer` (a
+conv with a bias, BN when the spec has it, then a PReLU or nothing; no
+fused pair, no `--fast-ops` rewrite), `Residual` (its body's layers, then
+the sum with its input in a `residual` span) and `Shuffle` (PixelShuffle in
+a `shuffle` span, then its PReLU).  A PReLU runs in an `act` span; a BN
+layer before it passes no activation to ops/nn.py batch_norm, so on the
+card its apply kernel runs without one.  utils/profiling.py `counters`
+counts the sums, shuffles and PReLUs.  Their (params, state) trees nest: a
+residual layer's entry is {"body": [one entry a body layer]}, an SR conv's
+params add "b" (bias) and "prelu" (slopes), a shuffle's params hold its
+"prelu".
+
 `fast=True` of forward (the trainer's `--fast-ops`, JAX apply_network(fast=))
 rewrites every unfused k4s2p1 conv and convT whose input has an even H and
 W into its k3s1p1 form (ops/fast.py); the fused pair is never rewritten.
@@ -71,35 +84,56 @@ from ..ops import fast as FAST
 from ..ops import nn as N
 from ..ops.bulge import STATS_MODES, bulge
 from ..ops.compact import _w_shape
-from ..ops.init import init_bn, init_conv
-from ..utils.profiling import span
+from ..ops.init import init_bn, init_conv, init_prelu
+from ..utils.profiling import counters, span
 
 BN_STATS = STATS_MODES   # the three ways the fused pair takes its statistics
 
 
 def init_network(spec, generator, dtype=torch.float32):
     """Random (params, state) lists in the JAX package's structure: one dict
-    per layer, {"w", "bn_scale", "bn_bias"} and {"bn": {"mean", "var"}}."""
+    per layer, {"w", "bn_scale", "bn_bias"} and {"bn": {"mean", "var"}}
+    (a port-only model's layers as the module docstring says)."""
     params, state = [], []
     for layer in spec:
-        kind = layer["kind"]
-        if kind in ("conv", "convT"):
-            if kind == "conv":
-                wshape = (layer["cout"], layer["cin"], layer["k"], layer["k"])
-            else:
-                wshape = (layer["cin"], layer["cout"], layer["k"], layer["k"])
-            p = {"w": init_conv(wshape, generator, dtype)}
-            s = {}
-            if layer.get("bn"):
-                scale, bias, bn_state = init_bn(layer["cout"], generator, dtype)
-                p["bn_scale"], p["bn_bias"] = scale, bias
-                s["bn"] = bn_state
-            params.append(p)
-            state.append(s)
-        else:
-            params.append({})
-            state.append({})
+        p, s = _init_layer(layer, generator, dtype)
+        params.append(p)
+        state.append(s)
     return params, state
+
+
+def _init_layer(layer, generator, dtype):
+    kind = layer["kind"]
+    if kind in ("conv", "convT"):
+        if kind == "conv":
+            wshape = (layer["cout"], layer["cin"], layer["k"], layer["k"])
+        else:
+            wshape = (layer["cin"], layer["cout"], layer["k"], layer["k"])
+        p = {"w": init_conv(wshape, generator, dtype)}
+        s = {}
+        if layer.get("bn"):
+            scale, bias, bn_state = init_bn(layer["cout"], generator, dtype)
+            p["bn_scale"], p["bn_bias"] = scale, bias
+            s["bn"] = bn_state
+        if layer.get("bias"):
+            p["b"] = torch.zeros((layer["cout"],), dtype=dtype)
+        if layer.get("act") == "prelu":
+            p["prelu"] = init_prelu(layer["cout"], dtype)
+        return p, s
+    if kind == "residual":
+        body = [_init_layer(sub, generator, dtype) for sub in layer["body"]]
+        return ({"body": [p for p, _ in body]},
+                {"body": [s for _, s in body]})
+    if kind == "pixel_shuffle" and layer.get("act") == "prelu":
+        return {"prelu": init_prelu(layer["cout"], dtype)}, {}
+    return {}, {}
+
+
+def _as_t(a, device):
+    """Always a copy, float32, on `device`."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.array(a, dtype=np.float32))
+    return a.detach().to(device=device, dtype=torch.float32, copy=True)
 
 
 def _is_k4s2p1(layer, kind):
@@ -132,20 +166,17 @@ class Layer(nn.Module):
         self.foldable = (layer["kind"] in ("conv", "convT")
                          and _is_k4s2p1(layer, layer["kind"]))
 
-        def as_t(a):                # always a copy, float32, on `device`
-            if not isinstance(a, torch.Tensor):
-                a = torch.from_numpy(np.array(a, dtype=np.float32))
-            return a.detach().to(device=device, dtype=torch.float32, copy=True)
-
         if layer["kind"] in ("conv", "convT"):
-            self.w = nn.Parameter(as_t(p["w"]), requires_grad=trainable)
+            self.w = nn.Parameter(_as_t(p["w"], device),
+                                  requires_grad=trainable)
             if layer.get("bn"):
-                self.bn_scale = nn.Parameter(as_t(p["bn_scale"]),
+                self.bn_scale = nn.Parameter(_as_t(p["bn_scale"], device),
                                              requires_grad=trainable)
-                self.bn_bias = nn.Parameter(as_t(p["bn_bias"]),
+                self.bn_bias = nn.Parameter(_as_t(p["bn_bias"], device),
                                             requires_grad=trainable)
-                self.register_buffer("bn_mean", as_t(s["bn"]["mean"]))
-                self.register_buffer("bn_var", as_t(s["bn"]["var"]))
+                self.register_buffer("bn_mean",
+                                     _as_t(s["bn"]["mean"], device))
+                self.register_buffer("bn_var", _as_t(s["bn"]["var"], device))
 
     @property
     def weight(self):
@@ -177,6 +208,10 @@ class Layer(nn.Module):
             act = None
         if not self.spec.get("bn"):
             return N.activate(x, act)
+        return self._bn(x, act, bn_stats, track_stats, groups, axis_name)
+
+    def _bn(self, x, act, bn_stats, track_stats, groups, axis_name):
+        """This layer's BN, with `act` handed to ops/nn.py batch_norm."""
         with span("bn"):
             x, new = N.batch_norm(
                 x, self.bn_scale, self.bn_bias,
@@ -204,6 +239,100 @@ class Layer(nn.Module):
         raise ValueError(f"unknown layer kind {kind!r}")
 
 
+def _prelu(x, slope):
+    with span("act"):
+        counters["prelu"] += 1
+        return N.prelu(x, slope)
+
+
+class SRLayer(Layer):
+    """A conv layer of a port-only model: stride 1, a bias, BN when the
+    spec has it (no activation handed to it), then a channel-wise PReLU
+    (`act` "prelu", its slopes the parameter `prelu`) or nothing."""
+
+    def __init__(self, layer, p, s, device, trainable=False):
+        super().__init__(layer, p, s, device, trainable)
+        self.b = nn.Parameter(_as_t(p["b"], device), requires_grad=trainable)
+        if layer["act"] == "prelu":
+            self.prelu = nn.Parameter(_as_t(p["prelu"], device),
+                                      requires_grad=trainable)
+
+    def conv(self, x, compute_dtype=None, fast=False):
+        sp = self.spec
+        with span("conv"):
+            return N.conv2d(x, self.w, sp["s"], sp["p"],
+                            compute_dtype=compute_dtype, bias=self.b)
+
+    def post(self, x, bn_stats, track_stats=False, logits=False, groups=None,
+             axis_name=None):
+        if self.spec["bn"]:
+            x = self._bn(x, None, bn_stats, track_stats, groups, axis_name)
+        if self.spec["act"] == "prelu":
+            return _prelu(x, self.prelu)
+        return x
+
+
+class Residual(nn.Module):
+    """A residual layer: its body's layers, then body(x) + x."""
+
+    def __init__(self, layer, p, s, device, trainable=False):
+        super().__init__()
+        self.spec = layer
+        self.body = nn.ModuleList(
+            _module(sub, p["body"][i], s["body"][i] if s else {}, device,
+                    trainable)
+            for i, sub in enumerate(layer["body"]))
+
+    def forward(self, x, *args):
+        y = x
+        for layer in self.body:
+            y = layer(y, *args)
+        with span("residual"):
+            counters["residual"] += 1
+            return x + y
+
+
+class Shuffle(nn.Module):
+    """PixelShuffle by the spec's factor, then its PReLU (if any)."""
+
+    def __init__(self, layer, p, s, device, trainable=False):
+        super().__init__()
+        self.spec = layer
+        if layer.get("act") == "prelu":
+            self.prelu = nn.Parameter(_as_t(p["prelu"], device),
+                                      requires_grad=trainable)
+
+    def forward(self, x, *args):
+        with span("shuffle"):
+            counters["shuffle"] += 1
+            x = N.pixel_shuffle(x, self.spec["factor"])
+        if self.spec.get("act") == "prelu":
+            return _prelu(x, self.prelu)
+        return x
+
+
+def _module(layer, p, s, device, trainable):
+    """The module of one spec entry."""
+    kind = layer["kind"]
+    if kind == "residual":
+        return Residual(layer, p, s, device, trainable)
+    if kind == "pixel_shuffle":
+        return Shuffle(layer, p, s, device, trainable)
+    if layer.get("bias"):
+        return SRLayer(layer, p, s, device, trainable)
+    return Layer(layer, p, s, device, trainable)
+
+
+def _layer_trees(layer):
+    """(params, state) of one module, nested for a residual layer."""
+    if isinstance(layer, Residual):
+        body = [_layer_trees(sub) for sub in layer.body]
+        return {"body": [p for p, _ in body]}, {"body": [s for _, s in body]}
+    b = dict(layer.named_buffers(recurse=False))
+    return (dict(layer.named_parameters(recurse=False)),
+            {"bn": {"mean": b["bn_mean"], "var": b["bn_var"]}} if b else {})
+
+
 class Network(nn.Module):
     """Generator (or discriminator) built from a spec, with the JAX
     package's (params, state) lists carried across as its parameters and
@@ -218,8 +347,8 @@ class Network(nn.Module):
         # measurement's business); None leaves it to ops.bulge.choose_impl
         self.bulge_impl = bulge_impl
         self.layers = nn.ModuleList(
-            Layer(layer, params[i], state[i] if state is not None else {},
-                  device, trainable)
+            _module(layer, params[i], state[i] if state is not None else {},
+                    device, trainable)
             for i, layer in enumerate(self.spec))
         self.pairs = frozenset(bulge_pairs(self.spec)) if fuse else frozenset()
 
@@ -233,10 +362,9 @@ class Network(nn.Module):
         holding the module's own tensors (not copies)."""
         params, state = [], []
         for layer in self.layers:
-            params.append(dict(layer.named_parameters(recurse=False)))
-            b = dict(layer.named_buffers(recurse=False))
-            state.append({"bn": {"mean": b["bn_mean"], "var": b["bn_var"]}}
-                         if b else {})
+            p, s = _layer_trees(layer)
+            params.append(p)
+            state.append(s)
         return params, state
 
     def forward(self, x, bn_stats="pooled", *, track_stats=False,

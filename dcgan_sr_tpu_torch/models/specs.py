@@ -17,9 +17,20 @@ Per-variant sources in the reference:
   gray-patch G train-gray-patch.lua:54-76   D train-gray-patch.lua:94-109
   gray-patch-batch G train-gray-patch-batch.lua:55-78  D :81-97
   overlap G   train-gray-patch-batch-overlap.lua:76-103 (== gray-patch G) D :106-122
+
+Beyond the seven, a port-only model (core/config.py MODELS), SRGAN's
+generator, has its spec from `srresnet_spec`.  Its layers add
+three things to the dialect: a conv with `"bias": True` and stride 1,
+"same" padding; `"act": "prelu"`, a channel-wise PReLU whose slopes are
+the layer's parameters; and two kinds, `"residual"` (its `body`, a tuple
+of layers, then the sum of the body's output and its input) and
+`"pixel_shuffle"` (channel c * r * r + i * r + j of the input to channel c
+at (h * r + i, w * r + j), torch's PixelShuffle order, then its `act`).
 """
 
 from __future__ import annotations
+
+from ..core.config import SRResNetConfig
 
 
 def _up(f=2):
@@ -40,7 +51,51 @@ def _flat():
     return {"kind": "flatten"}
 
 
+def _conv_b(cin, cout, k, bn, act):
+    return {"kind": "conv", "cin": cin, "cout": cout, "k": k, "s": 1,
+            "p": k // 2, "bn": bn, "act": act, "bias": True}
+
+
+def _residual(*body):
+    return {"kind": "residual", "body": tuple(body)}
+
+
+def _shuffle(cin, r, act):
+    return {"kind": "pixel_shuffle", "factor": r, "cin": cin,
+            "cout": cin // (r * r), "act": act}
+
+
+def srresnet_spec(m):
+    """SRGAN's generator (arXiv:1609.04802 Fig. 4) at an SRResNetConfig's
+    sizes:
+    head conv + PReLU; a residual group of `blocks` residual blocks (conv,
+    BN, PReLU, conv, BN) and a conv + BN, summed with the head's output;
+    the upsampling blocks (conv, PixelShuffle x2, PReLU); the tail conv."""
+    c, k = m.channels, m.body_k
+    if m.up_channels != 4 * c:
+        raise ValueError(f"PixelShuffle x2 of {m.up_channels} channels "
+                         f"gives {m.up_channels // 4}, not {c}")
+
+    def block():
+        return _residual(_conv_b(c, c, k, True, "prelu"),
+                         _conv_b(c, c, k, True, None))
+
+    up = []
+    for _ in range(m.up_blocks):
+        up += [_conv_b(c, m.up_channels, k, False, None),
+               _shuffle(m.up_channels, 2, "prelu")]
+    return (
+        _conv_b(m.nc, c, m.head_k, False, "prelu"),
+        _residual(*(block() for _ in range(m.blocks)),
+                  _conv_b(c, c, k, True, None)),
+        *up,
+        _conv_b(c, m.nc, m.head_k, False, None),
+    )
+
+
 def generator_spec(cfg):
+    if isinstance(cfg, SRResNetConfig):
+        return srresnet_spec(cfg)
     v, nc, g = cfg.variant, cfg.nc, cfg.ngf
     if v == "rgb-full":
         # 32 -> 64 -> 128 -> 256 -> 128 -> 64 (train.lua:97-113)

@@ -1,10 +1,12 @@
 """Core NN ops with Torch7-`nn` semantics in PyTorch, differentiable.
 
 Port of dcgan_sr_tpu/ops/nn.py.  Layouts are the reference's: activations
-NCHW, conv weight OIHW, conv-transpose weight IOHW, no biases anywhere
-(`m:noBias()`, train.lua:46).  The JAX package's custom VJPs work around
-XLA's transpose rules and have no counterpart here: autograd differentiates
-these ops.
+NCHW, conv weight OIHW, conv-transpose weight IOHW, no biases in the seven
+variants (`m:noBias()`, train.lua:46).  SRGAN's generator (a port-only
+model) adds a conv bias (`conv2d(bias=)`, cast to the compute dtype with
+the weight), a channel-wise PReLU (`prelu`) and `pixel_shuffle`.  The JAX
+package's custom VJPs work around XLA's transpose rules and have no
+counterpart here: autograd differentiates these ops.
 
 fp32 parity: the JAX package runs fp32 convolutions at Precision.HIGHEST.
 cuDNN runs fp32 convolutions in TF32 by default on Hopper (about three
@@ -73,16 +75,22 @@ class _Conv(torch.autograd.Function):
     make), only inside `fp32_convs()`."""
 
     @staticmethod
-    def forward(ctx, x, w, stride, padding, transposed):
+    def forward(ctx, x, w, stride, padding, transposed, b=None):
         wc = w.to(x.dtype)
         ctx.save_for_backward(x, wc)
         ctx.geom = (stride, padding, transposed, w.dtype)
+        ctx.bias = None if b is None else b.dtype
         (xc, wc), back = _upcast_on_cpu(x, wc)
+        if b is not None:               # the bias in the compute dtype
+            b = b.to(x.dtype)
+            if back is not None:
+                b = b.float()
         with fp32_convs():
             if transposed:
-                y = F.conv_transpose2d(xc, wc, stride=stride, padding=padding)
+                y = F.conv_transpose2d(xc, wc, b, stride=stride,
+                                       padding=padding)
             else:
-                y = F.conv2d(xc, wc, stride=stride, padding=padding)
+                y = F.conv2d(xc, wc, b, stride=stride, padding=padding)
         return y if back is None else y.to(back)
 
     @staticmethod
@@ -112,15 +120,24 @@ class _Conv(torch.autograd.Function):
             if dw32:                   # card: bf16 values are exact in TF32
                 gw = backward_of(gc.to(wdtype), xc.to(wdtype), wc.to(wdtype),
                                  [False, True], allow_tf32=True)[1]
-        return gx, None if gw is None else gw.to(wdtype), None, None, None
+        out = (gx, None if gw is None else gw.to(wdtype), None, None, None)
+        if ctx.bias is None:
+            return out
+        gb = (grad.float().sum((0, 2, 3)).to(ctx.bias)
+              if ctx.needs_input_grad[5] else None)
+        return out + (gb,)
 
 
-def conv2d(x, w, stride=1, padding=0, *, compute_dtype=None):
+def conv2d(x, w, stride=1, padding=0, *, compute_dtype=None, bias=None):
     """2D cross-correlation, NCHW x OIHW -> NCHW (SpatialConvolution).
-    `compute_dtype` (torch.bfloat16) casts both operands: bf16 out."""
+    `compute_dtype` (torch.bfloat16) casts both operands: bf16 out.  A
+    `bias` (Cout,) is cast with the weight and added inside the
+    convolution."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    return _Conv.apply(x, w, stride, padding, False)
+    if bias is None:
+        return _Conv.apply(x, w, stride, padding, False)
+    return _Conv.apply(x, w, stride, padding, False, bias)
 
 
 def conv_transpose2d(x, w, stride=2, padding=1, *, compute_dtype=None):
@@ -288,13 +305,21 @@ def tanh(x):
     return torch.tanh(x)
 
 
+def prelu(x, slope):
+    """Channel-wise PReLU: x where x >= 0, else slope[c] * x, one product
+    rounded once; a bf16 x meets bf16 slopes.  The slopes are a layer's
+    parameters, so the layer calls it in its own `act` span
+    (models/network.py)."""
+    return F.prelu(x, slope.to(x.dtype))
+
+
 ACTIVATIONS = {"relu": relu, "lrelu": leaky_relu, "sigmoid": sigmoid,
-               "tanh": tanh}
+               "tanh": tanh, "prelu": prelu}
 
 
 def activate(x, act):
-    """The activation `act` (a key of ACTIVATIONS) of x in an `act` span, or
-    x itself where `act` is None."""
+    """The activation `act` (a key of ACTIVATIONS but "prelu", which takes
+    its slopes) of x in an `act` span, or x itself where `act` is None."""
     if act is None:
         return x
     with span("act"):
@@ -304,3 +329,9 @@ def activate(x, act):
 def upsample_nearest(x, factor=2):
     """SpatialUpSamplingNearest: repeat each pixel factor x factor (NCHW)."""
     return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+
+
+def pixel_shuffle(x, factor=2):
+    """PixelShuffle (NCHW): channel c * r * r + i * r + j of x goes to
+    channel c at (h * r + i, w * r + j), r = factor."""
+    return F.pixel_shuffle(x, factor)

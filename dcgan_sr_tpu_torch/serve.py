@@ -489,9 +489,14 @@ def main(argv=None):
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
 
-    from .core import get_config
+    from .core import MODELS, get_config
     from .train.checkpoint import load_generator
     from .utils.device import pick_device
+
+    if args.config in MODELS:
+        sys.exit(f"serve --config {args.config}: serving is not supported: "
+                 f"the server's buckets assume 2x, the model upscales "
+                 f"{MODELS[args.config].scale}x (upscale runs it)")
 
     device = pick_device(args.cpu)
     cfg = get_config(args.config)

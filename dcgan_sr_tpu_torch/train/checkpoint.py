@@ -83,9 +83,34 @@ def load_branch(data, key, template, *, unpack=False):
     return _rebuild(template, iter(leaves))
 
 
+def _save_tree(path, tree):
+    """One npz of a dict of branches, each leaf under `_key` of its path:
+    written to a same-directory `.tmp` and `os.replace`d into place, so a
+    process killed mid-save never leaves a truncated `.npz`."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, __branches__=np.array(sorted(tree)),
+                 **{_key(p): leaf for p, leaf in _leaf_paths(tree)})
+    os.replace(tmp, path)
+
+
+def save_generator(path, net):
+    """One generator as a `..._net_G.npz` holds it: its "params" and
+    "state" branches (Network.trees()), each leaf under `_key` of its tree
+    path, written atomically; load_generator reads it back.  A port-only
+    model's nested layers give nested paths, e.g.
+    `_params_/_1_/_body_/_0_/_body_/_0_/_w_` (README.md)."""
+    from .step import _np
+
+    params, state = net.trees()
+    _save_tree(path, {"params": _np(params), "state": _np(state)})
+    return path
+
+
 def load_generator(cfg, ckpt=None, *, t7=None, ema=False, need_state=False,
                    device="cuda", seed=0):
-    """The generator of `cfg` as a models.Network on `device`.
+    """The generator of `cfg` (a variant's Config or a port-only model's
+    SRResNetConfig) as a models.Network on `device`.
 
     With `ckpt` (a JAX-package or port `..._net_G.npz`) its `params` branch
     (or `ema`) and, when present, its `state` branch carry over key for key;
@@ -147,12 +172,7 @@ def save_checkpoint(directory, name, epoch, state):
 
     os.makedirs(directory, exist_ok=True)
     for net, tree in _net_trees(state_to_numpy(state)):
-        path = checkpoint_path(directory, name, epoch, net)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.savez(f, __branches__=np.array(sorted(tree)),
-                     **{_key(p): leaf for p, leaf in _leaf_paths(tree)})
-        os.replace(tmp, path)
+        _save_tree(checkpoint_path(directory, name, epoch, net), tree)
     return epoch
 
 

@@ -17,6 +17,15 @@ pipeline call.
       --mode overlap --ckpt fixtures/overlap_textured_net_G.npz \
       --input face.jpg --output sr.png
 
+A port-only model (core/config.py MODELS) runs the same path at its own
+scale and ranges: `--config srgan-x4` always treats the input as the LR
+RGB image in [0, 1] (as --true-2x does) and runs SRGAN's generator on the
+checkpoint's running statistics (as --bn-eval does), maps its [-1, 1]
+output to [0, 1] and writes the image at 4x.
+
+  python -m dcgan_sr_tpu_torch.upscale --config srgan-x4 --bf16 \
+      --ckpt srgan_net_G.npz --input photo.png --output photo_x4.png
+
 `--bf16` runs the generator in bf16 (the fused pair through its bf16
 kernel on a card) in every mode.  `--dp` under a launcher (`python -m
 torch.distributed.run --nproc_per_node N -m dcgan_sr_tpu_torch.upscale --dp
@@ -52,6 +61,22 @@ def _dtype(args):
     return torch.bfloat16 if args.bf16 else None
 
 
+# the options a port-only model does not take, at their defaults
+_NOT_FOR_MODELS = {"mode": "auto", "true_2x": False, "both_seams": False,
+                   "ema": False, "t7": None}
+
+
+def _scale(cfg):
+    """The generator's upscaling factor (a variant's is 2)."""
+    return getattr(cfg, "scale", 2)
+
+
+def _in_pm1(cfg):
+    """Whether the generator's input is in [-1, 1]; its output is where
+    `cfg.data_range` is "pm1"."""
+    return getattr(cfg, "lr_range", cfg.data_range) == "pm1"
+
+
 def batch_upscale(args, cfg, net, mesh=None):
     """Directory mode: ONE batched SR call over all images, optionally
     sharded over data-parallel ranks (`mesh`, --dp).  Patch configs run the
@@ -71,14 +96,15 @@ def batch_upscale(args, cfg, net, mesh=None):
     imgs = [load_image(os.path.join(args.input, n), nc=nc) for n in names]
     imgs = [im[0] if nc == 1 else im for im in imgs]   # (H,W) / (C,H,W)
     sizes = [im.shape[-2:] for im in imgs]
-    p, ov = cfg.patchSize, cfg.overlap
 
     def pad_dim(d):
-        if args.true_2x:
-            # LR inputs: overlap tiling needs lr-legal extents; the net-2x
-            # full-image G maps any integer extent to exactly twice itself
-            return lr_pad_dim(d, p, ov) if tiled else d
-        return overlap_pad_dim(d, p, ov) if tiled else d + (d % 2)
+        if not tiled:
+            # LR inputs: a full-image G maps any integer extent to exactly
+            # its scale times itself; the eval protocol degrades 2x2
+            return d if args.true_2x else d + (d % 2)
+        p, ov = cfg.patchSize, cfg.overlap
+        # LR inputs: overlap tiling needs lr-legal extents
+        return (lr_pad_dim if args.true_2x else overlap_pad_dim)(d, p, ov)
 
     Hp = pad_dim(max(h for h, _ in sizes))
     Wp = pad_dim(max(w for _, w in sizes))
@@ -108,18 +134,18 @@ def batch_upscale(args, cfg, net, mesh=None):
             fn = lambda x: full_fn(x[:, None])[:, 0]      # noqa: E731
         else:
             fn = full_fn
-    pm1 = cfg.data_range == "pm1"
-    x = torch.from_numpy(batch * 2.0 - 1.0 if pm1 else batch).to(net.device)
+    x = torch.from_numpy(batch * 2.0 - 1.0 if _in_pm1(cfg) else batch
+                         ).to(net.device)
     t0 = time.perf_counter()
     sr_all = fn(x).cpu().numpy()[:n]
     dt = time.perf_counter() - t0
     if mesh is not None and mesh.rank != 0:
         return                           # rank 0 writes the files
-    if pm1:
+    if cfg.data_range == "pm1":
         sr_all = (sr_all + 1.0) * 0.5
     os.makedirs(args.output, exist_ok=True)
 
-    scale = 2 if args.true_2x else 1
+    scale = _scale(cfg) if args.true_2x else 1
     for name, im, padded, (h, w), sr in zip(names, imgs, batch, sizes, sr_all):
         sr = sr[..., :scale * h, :scale * w]
         dst = os.path.join(args.output, os.path.splitext(name)[0] + "_sr.png")
@@ -188,11 +214,22 @@ def main(argv=None):
                     help="run on the CPU (default: the first CUDA device)")
     args = ap.parse_args(argv)
 
-    from .core import get_config
+    from .core import SRResNetConfig, resolve_config
     from .parallel import initialize_from_env, launched
     from .utils.device import pick_device
 
-    cfg = get_config(args.config)  # env-var overrides apply (ngf=…, etc.)
+    # a variant's Config (env-var overrides apply: ngf=…, etc.) or a
+    # port-only model's
+    cfg = resolve_config(args.config)
+    if isinstance(cfg, SRResNetConfig):
+        given = [k for k, v in _NOT_FOR_MODELS.items()
+                 if getattr(args, k) != v]
+        if given:
+            sys.exit(f"--config {cfg.variant}: not supported: "
+                     + ", ".join("--" + k.replace("_", "-") for k in given)
+                     + f" (its input is the LR image, its scale "
+                       f"{cfg.scale}x, its BN on running statistics)")
+        args.true_2x = args.bn_eval = True
 
     # a rank takes its own card (LOCAL_RANK) before pick_device reads it
     mesh = initialize_from_env(args.cpu) if args.dp and launched() else None
@@ -235,6 +272,7 @@ def _run(args, cfg, mesh, device):
     hw = img[0] if cfg.nc == 1 else img
     H, W = hw.shape[-2], hw.shape[-1]
     pm1 = cfg.data_range == "pm1"
+    pm1_in = _in_pm1(cfg)
 
     ens = dict(self_ensemble=args.self_ensemble,
                ensemble_batched=args.ensemble_batched,
@@ -252,20 +290,21 @@ def _run(args, cfg, mesh, device):
                                     lr_input=True, bn_eval=args.bn_eval,
                                     both_seams=args.both_seams, **ens)
             net_in = torch.from_numpy(
-                hw_np * 2.0 - 1.0 if pm1 else hw_np).to(device)
+                hw_np * 2.0 - 1.0 if pm1_in else hw_np).to(device)
             sr = fn(net_in[None])["seam"][0].cpu().numpy()
-        else:                   # full-image net-2x G: feed the LR directly
+        else:                   # full-image G: feed the LR directly
             fn = make_full_sr_fn(net, lr_input=True, bn_eval=args.bn_eval,
                                  **ens)
             net_in = torch.from_numpy(
-                hw_np * 2.0 - 1.0 if pm1 else hw_np).to(device)
+                hw_np * 2.0 - 1.0 if pm1_in else hw_np).to(device)
             x = net_in[None, None] if cfg.nc == 1 else net_in[None]
             sr = fn(x)[0].cpu().numpy()
             sr = sr[0] if cfg.nc == 1 else sr
         if pm1:
             sr = (sr + 1.0) * 0.5
-        save_image(args.output, np.clip(sr[..., :2 * H, :2 * W], 0, 1))
-        print(f"true-2x: {H}x{W} -> {2 * H}x{2 * W}")
+        s = _scale(cfg)
+        save_image(args.output, np.clip(sr[..., :s * H, :s * W], 0, 1))
+        print(f"true-{s}x: {H}x{W} -> {s * H}x{s * W}")
         print(f"wrote {args.output}")
         return
 

@@ -24,6 +24,13 @@ device time is the host time (eager CPU operators are synchronous).  The
 events are read only when `span_totals()` or `span_records()` is called;
 `reset_spans()` empties the store.
 
+Counters.  `counters` counts the layers of the port-only models that have
+no kernel counter of their own, as they run in this process: residual sums
+("residual", a block's or the long skip's), PixelShuffles ("shuffle") and
+PReLUs ("prelu") (models/network.py), whether or not a profiler runs.  Their
+spans are `residual` (around each sum), `shuffle` (around each PixelShuffle)
+and `act` (around each PReLU).
+
 A CUDA graph runs no host code when it is replayed, so the train step's
 stages (`stage(name)`) also mark their boundaries inside
 `capture_stages()`, which the K-step runner wraps around its capture
@@ -48,6 +55,8 @@ import torch
 
 _profiler_enabled = torch.autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
+
+counters = {"residual": 0, "shuffle": 0, "prelu": 0}
 
 
 @contextlib.contextmanager
