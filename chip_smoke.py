@@ -7,7 +7,7 @@ Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build of every kernel of every
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
      bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu, fused_nhwc_wgmma.cu,
-     bn.cu — started together),
+     bn.cu, conv_narrow.cu — started together),
      timed, with the `-Xptxas -v` resource lines.
   2. kernels: first the fp32 wgmma kernels' layout probe (two k-steps of
      wgmma .tf32 on raw fp32 words: the result must be the product of the
@@ -344,6 +344,18 @@ Phases, each fatal on failure:
      and of the overlap pipeline in each BN mode, each from BN counters set
      to 0: every BN layer outside the fused pair launches the kernels, none
      takes the plain code.  The phase prints its seconds.
+ 30. kernel: the narrow conv (ops/conv_narrow.py, csrc/conv_narrow.cu) at
+     SRGAN's tail, x (16,64,1024,1024) bf16, w (3,64,9,9), a bias: within
+     one bf16 step of F.conv2d in fp32 (TF32 off) on the same bf16
+     operands (the step at the reference's value or at 1/64 of its root
+     mean square), two runs bit for bit; then timed in turns with cuDNN in
+     bf16 (NCHW with the bias, as the path ran it, and channels-last
+     without) and the plain version, beside its bound (2.15 GB read, 0.10
+     GB written: 0.67 ms at 3.35 TB/s).  Then one bf16 call of SRGAN's
+     pipeline (LR 4 x 3 x 128 x 128) from counters set to 0: one launch,
+     no narrow conv left to cuDNN, and no `implicit_gemm_indexed` kernel
+     in its profile; and one bf16 call each of the gray-3 and overlap
+     pipelines: no launch (their narrow k4 s2 tails count as plain).
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
      the mma.sync and FMA kernels' times in turns, their eval launches and
@@ -351,7 +363,8 @@ Phases, each fatal on failure:
      the paths run, with the mma.sync kernel's times in turns), K3 stats,
      K3 main, K3
      stats bf16, K3 main bf16, BN's statistics and apply kernels with the
-     launches of phase 29's SR path calls), then the contract line {"ok":
+     launches of phase 29's SR path calls, the narrow conv with phase 30's),
+     then the contract line {"ok":
      true, "device": {...}}.
 
 Tolerances (max |kernel - plain|, both fp32 on the card):
@@ -5419,6 +5432,128 @@ def bn_paths(smi):
     return total
 
 
+# phase 30: the narrow conv at SRGAN's tail against cuDNN and its plain
+# version, then the SR paths' launches of it
+CONV_NARROW_SHAPE = (16, 64, 1024, 1024)
+
+
+def conv_narrow_phase(smi):
+    """ops/conv_narrow.py's kernel at SRGAN's tail shape: held to the fp32
+    reference, then timed in turns (module docstring, phase 30).  Returns
+    its row."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import conv_narrow as CN
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    n, c, h, w = CONV_NARROW_SHAPE
+    x = torch.randn(CONV_NARROW_SHAPE, generator=g, device=dev).to(
+        torch.bfloat16)
+    wt = torch.randn((3, c, 9, 9), generator=g, device=dev) / (c * 81) ** 0.5
+    b = 0.5 * torch.randn(3, generator=g, device=dev)
+    wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+    y = CN.conv(x, wt, b)
+    with N.fp32_convs():
+        ref = F.conv2d(x.float(), wb.float(), None, padding=4) \
+            + bb.float()[None, :, None, None]
+    floor = ref.square().mean().sqrt() / 64
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(
+        ref.abs(), floor))) - 7)
+    steps = float(((y.float() - ref).abs() / step).max())
+    check(steps <= 1, f"narrow conv at {CONV_NARROW_SHAPE}: {steps:.3f} "
+          f"bf16 steps from the fp32 reference")
+    check(torch.equal(y, CN.conv(x, wt, b)),
+          "narrow conv: two runs differ")
+    lib_err = float((F.conv2d(x, wb, bb, padding=4).float() - ref)
+                    .abs().max())
+    del ref, step
+    torch.cuda.empty_cache()
+    xc = x.contiguous(memory_format=torch.channels_last)
+    wc = wb.contiguous(memory_format=torch.channels_last)
+    mean_ms, best_ms = in_turns({
+        "kernel": lambda: CN.conv(x, wt, b),
+        "library": lambda: F.conv2d(x, wb, bb, padding=4),
+        "library_channels_last": lambda: F.conv2d(xc, wc, None, padding=4),
+        "plain": lambda: CN.plain(x, wt, b)}, 5)
+    flops = 2 * n * h * w * 3 * c * 81
+    b_ms, by = bound(flops, 2 * x.numel() + 2 * n * 3 * h * w, PEAK_BF16)
+    row = {"shape": list(CONV_NARROW_SHAPE), "ms": mean_ms["kernel"],
+           "best_ms": best_ms["kernel"], "bound_ms": b_ms, "bound_by": by,
+           "share_of_bound": round(b_ms / mean_ms["kernel"], 4),
+           "tflops": round(flops / mean_ms["kernel"] / 1e9, 1),
+           "max_steps": round(steps, 4), "library_max_abs_err": lib_err,
+           "library_ms": mean_ms["library"],
+           "library_channels_last_ms": mean_ms["library_channels_last"],
+           "plain_ms": mean_ms["plain"]}
+    print(f"narrow conv on {smi}: " + json.dumps(row), flush=True)
+    del x, xc, y
+    torch.cuda.empty_cache()
+    print(f"phase 30 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return row
+
+
+def conv_narrow_paths(smi):
+    """One bf16 call of each SR pipeline from the counters set to 0:
+    SRGAN's launches the kernel once and leaves no narrow conv to cuDNN
+    (nor any `implicit_gemm_indexed` kernel in its profile); gray-3's and
+    the overlap pipeline's neither launch it nor count a narrow conv left to
+    cuDNN (their stride-2 tails are shapes it does not fit).  Returns the
+    counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcgan_sr_tpu_torch.core import MODELS, get_config
+    from dcgan_sr_tpu_torch.infer.tiled import (make_full_sr_fn,
+                                                make_overlap_sr_fn)
+    from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
+    from dcgan_sr_tpu_torch.utils.profiling import counters
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    for name in ("srgan-x4", "gray-3", "gray-patch-batch-overlap"):
+        model = (MODELS[name] if name in MODELS
+                 else get_config(name, env_override=False))
+        spec = generator_spec(model)
+        net = Network(spec, *init_network(spec, torch.Generator()
+                                          .manual_seed(0)), device="cuda")
+        if name == "srgan-x4":
+            fn = make_full_sr_fn(net, compute_dtype=torch.bfloat16,
+                                 lr_input=True, bn_eval=True)
+            x = torch.rand((4, 3, 128, 128), generator=g, device=dev)
+        elif name == "gray-3":
+            fn = make_full_sr_fn(net, compute_dtype=torch.bfloat16)
+            x = torch.rand((4, 1, 256, 256), generator=g, device=dev)
+        else:
+            fn = make_overlap_sr_fn(model, net, compute_dtype=torch.bfloat16)
+            x = torch.rand((4, 64, 64), generator=g, device=dev)
+        fn(x)
+        torch.cuda.synchronize()
+        counters["conv_narrow"] = counters["conv_narrow_plain"] = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(x)
+            torch.cuda.synchronize()
+        cuts = {k: counters[k] for k in ("conv_narrow", "conv_narrow_plain")}
+        indexed = sum(e.count for e in prof.key_averages()
+                      if "implicit_gemm_indexed" in e.key)
+        out[name] = {**cuts, "implicit_gemm_indexed": indexed}
+        if name == "srgan-x4":
+            check(cuts == {"conv_narrow": 1, "conv_narrow_plain": 0}
+                  and indexed == 0,
+                  f"bf16 SRGAN call: {out[name]}; want one launch, no "
+                  f"narrow conv on cuDNN, no implicit_gemm_indexed")
+        else:
+            check(cuts == {"conv_narrow": 0, "conv_narrow_plain": 0},
+                  f"bf16 {name} call counted a narrow conv: {out[name]}")
+    print(f"bf16 SR paths and the narrow conv on {smi}: " + json.dumps(out),
+          flush=True)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5431,6 +5566,7 @@ def main():
     from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
     from dcgan_sr_tpu_torch.ops import bn as BN
     from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import conv_narrow as CN
     from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
     from dcgan_sr_tpu_torch.ops import preprocess as P
     from dcgan_sr_tpu_torch.serve import SRService
@@ -5468,7 +5604,8 @@ def main():
                ("fused_nhwc", F3.build, lambda: F3.build_log),
                ("fused_nhwc_wgmma", F3.build_wgmma,
                 lambda: F3.wgmma_build_log),
-               ("bn", BN.build, lambda: BN.build_log))
+               ("bn", BN.build, lambda: BN.build_log),
+               ("conv_narrow", CN.build, lambda: CN.build_log))
     threads = [threading.Thread(target=build, args=(fn, name))
                for name, fn, _ in sources]
     for th in threads:
@@ -5759,6 +5896,11 @@ def main():
     bn_launches = bn_paths(smi)
 
     stamp()
+    # phase 30: the narrow conv at SRGAN's tail, then the SR paths' launches
+    conv_row = conv_narrow_phase(smi)
+    conv_paths = conv_narrow_paths(smi)
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -5935,6 +6077,18 @@ def main():
                            "plain_ms": r["plain_ms"],
                            "library_ms": r["library_ms"]}
                           for r in bn_rows]})
+    # the narrow conv: no TPU kernel (XLA ran the JAX package's convs); the
+    # launches are those of phase 30's bf16 SRGAN call
+    kernels.append({
+        "name": "conv_narrow_bf16", "route": "cuda",
+        "source": "dcgan_sr_tpu_torch/csrc/conv_narrow.cu",
+        "replaces": "none (cuDNN's implicit GEMM for SRGAN's tail conv)",
+        "launches": conv_paths["srgan-x4"]["conv_narrow"], "dtype": "bf16",
+        "plain_cuda_calls": {k: v["conv_narrow_plain"]
+                             for k, v in conv_paths.items()},
+        **{k: conv_row[k] for k in ("shape", "ms", "bound_ms", "bound_by",
+                                    "plain_ms", "library_ms",
+                                    "library_channels_last_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

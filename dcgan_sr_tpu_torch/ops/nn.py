@@ -33,7 +33,8 @@ whatever oneDNN's own bf16 kernels would round.  BN of a bf16 tensor takes
 fp32 statistics and applies one per-channel affine x * a + b in bf16, each
 step rounded as XLA rounds it.  On the card, where no gradient is carried,
 that BN and the activation after it run as ops/bn.py's two-pass kernels
-(`batch_norm`, its rule `bn.takes`).
+(`batch_norm`, its rule `bn.takes`), and a narrow "same" convolution runs
+ops/conv_narrow.py's kernel (`conv2d`, its rule `conv_narrow.takes`).
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from ..utils.profiling import span
+from ..utils.profiling import counters, span
 from . import bn as BN
+from . import conv_narrow as CN
 
 
 @contextlib.contextmanager
@@ -132,9 +134,21 @@ def conv2d(x, w, stride=1, padding=0, *, compute_dtype=None, bias=None):
     """2D cross-correlation, NCHW x OIHW -> NCHW (SpatialConvolution).
     `compute_dtype` (torch.bfloat16) casts both operands: bf16 out.  A
     `bias` (Cout,) is cast with the weight and added inside the
-    convolution."""
+    convolution.
+
+    A narrow bf16 CUDA call with no gradient to carry (`conv_narrow.takes`:
+    stride 1, "same" padding, Cout <= 8, Cin a multiple of 16; SRGAN's tail)
+    runs ops/conv_narrow.py's kernel, the bias added in fp32 before the one
+    rounding; every other call runs cuDNN (a bf16 CUDA call of a shape the
+    kernel fits, sent there for a gradient, counts in
+    `counters["conv_narrow_plain"]`)."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
+    if (w.shape[0] <= CN.MAX_COUT and x.is_cuda and x.dtype == torch.bfloat16
+            and CN.fits(tuple(w.shape), stride, padding)):
+        if CN.takes(x, w, stride, padding, bias):
+            return CN.conv(x, w, bias)
+        counters["conv_narrow_plain"] += 1
     if bias is None:
         return _Conv.apply(x, w, stride, padding, False)
     return _Conv.apply(x, w, stride, padding, False, bias)

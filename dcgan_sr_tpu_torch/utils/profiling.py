@@ -29,7 +29,10 @@ no kernel counter of their own, as they run in this process: residual sums
 ("residual", a block's or the long skip's), PixelShuffles ("shuffle") and
 PReLUs ("prelu") (models/network.py), whether or not a profiler runs.  Their
 spans are `residual` (around each sum), `shuffle` (around each PixelShuffle)
-and `act` (around each PReLU).
+and `act` (around each PReLU).  It also counts the narrow convolutions
+(ops/conv_narrow.py, inside the layer's `conv` span): the kernel's launches
+("conv_narrow") and the bf16 CUDA calls of a shape it fits that its rule sent
+to cuDNN for a gradient ("conv_narrow_plain").
 
 A CUDA graph runs no host code when it is replayed, so the train step's
 stages (`stage(name)`) also mark their boundaries inside
@@ -56,7 +59,8 @@ import torch
 _profiler_enabled = torch.autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
 
-counters = {"residual": 0, "shuffle": 0, "prelu": 0}
+counters = {"residual": 0, "shuffle": 0, "prelu": 0, "conv_narrow": 0,
+            "conv_narrow_plain": 0}
 
 
 @contextlib.contextmanager
