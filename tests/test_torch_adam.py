@@ -12,6 +12,8 @@ import jax.numpy as jnp
 from dcgan_sr_tpu.ops.adam import adam_init as j_init, adam_update as j_update
 from dcgan_sr_tpu_torch.ops.adam import adam_init, adam_update_
 
+import torch_threads  # noqa: F401
+
 SHAPES = [(8, 4, 4, 4), (8,), (3, 5)]
 TOL = dict(rtol=1e-6, atol=1e-9)
 

@@ -34,6 +34,8 @@ from dcgan_sr_tpu_torch.models import Network, generator_spec
 from dcgan_sr_tpu_torch.train.multi_step import counted
 from tools import attr_variant as j_attr_variant
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=1e-4, atol=1e-6)
 WIDTHS = dict(ngf=4, ndf=8)
 

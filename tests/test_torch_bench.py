@@ -23,6 +23,8 @@ from dcgan_sr_tpu_torch import bench
 from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.train.step import state_from_numpy
 
+import torch_threads  # noqa: F401
+
 TINY = ["--cpu", "--ngf", "4", "--ndf", "8", "--batch", "2",
         "--patch-images", "2", "--steps", "2", "--reps", "2", "--images", "2"]
 # bench.py's metric names in its print order, the flagship last

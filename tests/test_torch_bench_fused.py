@@ -14,6 +14,8 @@ import torch
 from dcgan_sr_tpu_torch import bench_fused, bench_infer
 from dcgan_sr_tpu_torch.core import get_config
 
+import torch_threads  # noqa: F401
+
 JAX_TOOL_KEYS = {"batch", "hw", "dtype", "kernel", "tm", "unfused_ms",
                  "fused_ms", "speedup", "max_abs_diff"}
 

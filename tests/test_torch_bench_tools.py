@@ -18,21 +18,10 @@ import bench_infer as jax_bench_infer
 from dcgan_sr_tpu_torch import bench_infer, profile_table
 from tools import profile_step as jax_profile_step
 
+import torch_threads  # noqa: F401
+
 CONFIG_FIELDS = ("compact_params", "fast_ops", "use_pallas", "compute_dtype",
                  "batchSize")
-
-
-@pytest.fixture
-def one_thread():
-    """The knob table's CPU run is many small ops: one intra-op thread keeps
-    them from spinning against the other test workers' threads."""
-    import torch
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
 
 
 def _lines(fn, *args):
@@ -167,7 +156,7 @@ def test_knob_table_rows_and_lines_match_the_jax_tool(monkeypatch, flags):
     assert t_out[7] == profile_table.PALLAS_NOTE and len(t_out) == 9
 
 
-def test_knob_table_runs_on_the_cpu(one_thread):
+def test_knob_table_runs_on_the_cpu():
     launches = {}
     out = _lines(lambda a: profile_table.main(a, launches=launches),
                  ["--cpu", "--batch", "2", "--steps", "2", "--reps", "1",

@@ -36,6 +36,8 @@ from dcgan_sr_tpu_torch.models import Network, generator_spec
 from dcgan_sr_tpu_torch.serve import SRService
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
+import torch_threads  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures")
 GRAY3 = os.path.join(FIXTURES, "gray3_textured_net_G.npz")

@@ -23,6 +23,8 @@ import jax.numpy as jnp
 from dcgan_sr_tpu.ops import nn as JN
 from dcgan_sr_tpu_torch.ops import nn as N
 
+import torch_threads  # noqa: F401
+
 BF = torch.bfloat16
 
 

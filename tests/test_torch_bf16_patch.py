@@ -21,6 +21,8 @@ from dcgan_sr_tpu_torch.core import get_config
 from test_torch_bf16_step import (check_gradients, check_losses,
                                   check_parameters_and_statistics)
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -43,6 +43,8 @@ from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.train.step import (build_train_step, state_from_numpy,
                                            state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 NGF, NDF = 4, 8
 # case -> (variant, batch of the step: (B, C, H, W)[, config overrides])
 CASES = {"gray-3": ("gray-3", (4, 1, 64, 64)),

@@ -27,6 +27,8 @@ from dcgan_sr_tpu_torch.ops import bn as BN
 from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.utils import profiling as prof
 
+import torch_threads  # noqa: F401
+
 BF16 = torch.bfloat16
 MODES = ("pooled", "per_image", "groups", "running")
 

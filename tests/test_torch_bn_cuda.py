@@ -34,6 +34,8 @@ from dcgan_sr_tpu_torch.ops import bn as BN
 from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
+import torch_threads  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures", "gray3_textured_net_G.npz")

@@ -22,6 +22,8 @@ from dcgan_sr_tpu_torch.ops import bulge as K
 
 from test_pallas_fused import _reference_pair
 
+import torch_threads  # noqa: F401
+
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 Y_TOL = dict(rtol=2e-4, atol=2e-4)
 

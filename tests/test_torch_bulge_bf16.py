@@ -31,6 +31,8 @@ from dcgan_sr_tpu_torch.ops import bulge_mma as M
 
 from test_torch_bulge import _inputs
 
+import torch_threads  # noqa: F401
+
 BF = torch.bfloat16
 
 

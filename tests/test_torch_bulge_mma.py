@@ -23,6 +23,8 @@ from dcgan_sr_tpu_torch.ops import bulge_mma as M
 from test_pallas_fused import _reference_pair
 from test_torch_bulge import GEOMETRIES, STATS_TOL, Y_TOL, _inputs
 
+import torch_threads  # noqa: F401
+
 RAGGED = [(1, 9, 5), (2, 37, 45), (1, 1, 3), (3, 8, 32), (1, 16, 33),
           (2, 24, 40), (1, 17, 64)]
 

@@ -25,6 +25,8 @@ from dcgan_sr_tpu_torch.ops import bulge_mma as M
 
 from test_torch_bulge import _inputs
 
+import torch_threads  # noqa: F401
+
 BF = torch.bfloat16
 # chip_smoke.py BF16_RAGGED (B, Ci, Cm, Co, H, W), and the two path shapes:
 # gray-3 served at LR 256 and 64 images' overlap tiles

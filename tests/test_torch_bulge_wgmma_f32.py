@@ -31,6 +31,8 @@ from dcgan_sr_tpu_torch.ops import bulge_mma as M
 
 from test_torch_bulge import STATS_TOL, Y_TOL, _inputs
 
+import torch_threads  # noqa: F401
+
 TRIPLES = [(16, 8, 16), (32, 16, 32)]
 # ragged geometries the fp32 wgmma kernel takes (W % 4 == 0), both triples
 RAGGED = [(2, 16, 8, 16, 13, 44), (3, 16, 8, 16, 1, 4),

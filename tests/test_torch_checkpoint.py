@@ -18,6 +18,8 @@ from dcgan_sr_tpu_torch.train import checkpoint as TC
 from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 KW = dict(env_override=False, ngf=4, ndf=8, batchSize=4)
 FIELDS = ("g_params", "g_state", "g_opt", "d_params", "d_state", "d_opt",
           "g_ema_params")

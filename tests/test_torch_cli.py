@@ -21,6 +21,8 @@ from dcgan_sr_tpu_torch.train.step import init_train_state
 from dcgan_sr_tpu_torch.utils.logging import MetricsLogger
 from dcgan_sr_tpu_torch.utils.timers import Timer
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOG_LINE = re.compile(
     r"^Epoch: \[(\d+)\]\[ *(\d+) / *(\d+)\]\t Time: [\d.]+  DataTime: [\d.]+  "

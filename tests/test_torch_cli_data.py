@@ -15,6 +15,8 @@ from PIL import Image
 from dcgan_sr_tpu_torch import cli
 from dcgan_sr_tpu_torch.data import native
 
+import torch_threads  # noqa: F401
+
 ENV = {"ngf": "4", "ndf": "8", "batchSize": "4", "nThreads": "2"}
 REF_LINE = re.compile(r"^\[(Train|Test)-set\] (PSNR|SSIM) btwn real_none & "
                       r"(real_bilinear|fake_none|fake_none_overlap): "

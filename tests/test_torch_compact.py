@@ -32,6 +32,8 @@ from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            params_of, state_from_numpy,
                                            state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 KW = dict(env_override=False, ngf=4, ndf=8, batchSize=4)
 
 

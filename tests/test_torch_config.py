@@ -10,6 +10,8 @@ from dcgan_sr_tpu.models import specs as JS
 from dcgan_sr_tpu_torch import core as T
 from dcgan_sr_tpu_torch.models import specs as TS
 
+import torch_threads  # noqa: F401
+
 VARIANTS = sorted(J.VARIANTS)
 
 

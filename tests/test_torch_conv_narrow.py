@@ -28,6 +28,8 @@ from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.train.step import build_train_step, init_train_state
 from dcgan_sr_tpu_torch.utils.profiling import counters
 
+import torch_threads  # noqa: F401
+
 BF16 = torch.bfloat16
 H100_SMEM = 232448          # shared memory a block may opt into on an H100
 H100_SMS = 132

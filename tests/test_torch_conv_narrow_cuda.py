@@ -36,6 +36,8 @@ from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.reference import srgan as R
 from dcgan_sr_tpu_torch.utils.profiling import counters
 
+import torch_threads  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 BF16 = torch.bfloat16
 

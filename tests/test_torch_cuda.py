@@ -45,6 +45,8 @@ from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
 from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            state_from_numpy, state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 pytestmark = pytest.mark.cuda
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 Y_TOL = dict(rtol=2e-4, atol=2e-4)

@@ -8,6 +8,8 @@ from dcgan_sr_tpu.data.folder import _resize_chw as j_resize_chw
 from dcgan_sr_tpu.data.synthetic import SyntheticImages as JSynthetic
 from dcgan_sr_tpu_torch.data.synthetic import SyntheticImages, _resize_chw
 
+import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("fine,nc,seed", [(64, 1, 1234), (64, 3, 7),
                                           (32, 1, 1), (8, 1, 99)])

@@ -35,6 +35,8 @@ from dcgan_sr_tpu_torch.train.loop import train_epochs
 from dcgan_sr_tpu_torch.train.step import (build_train_step, state_from_numpy,
                                            state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 TINY = dict(env_override=False, ngf=4, ndf=8, manualSeed=11)
 FIELDS = ("g_params", "g_state", "g_opt", "d_params", "d_state", "d_opt",
           "g_ema_params")

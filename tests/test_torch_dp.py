@@ -56,6 +56,7 @@ from dcgan_sr_tpu_torch import cli, upscale
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+import torch_threads  # noqa: E402,F401
 from torch_dp_worker import flat, launch  # noqa: E402
 
 REPO = os.path.dirname(HERE)

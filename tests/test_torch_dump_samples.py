@@ -27,6 +27,8 @@ from dcgan_sr_tpu_torch.image.io import load_image
 from dcgan_sr_tpu_torch.train.step import state_from_numpy
 from dcgan_sr_tpu_torch.utils.stats import print_tensor_stats, tensor_stats
 
+import torch_threads  # noqa: F401
+
 FIELDS = ("g_params", "g_state", "g_opt", "d_params", "d_state", "d_opt",
           "g_ema_params")
 STAT = re.compile(r"^(\w+)-(max|sum): (-?[\d.]+)  \1-(min|std): (-?[\d.]+)$")

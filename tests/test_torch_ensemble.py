@@ -10,6 +10,8 @@ import jax.numpy as jnp
 from dcgan_sr_tpu.infer import ensemble as JE
 from dcgan_sr_tpu_torch.infer import ensemble as TE
 
+import torch_threads  # noqa: F401
+
 W = np.random.RandomState(0).randn(3, 3).astype(np.float32)
 
 

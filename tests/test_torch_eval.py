@@ -34,6 +34,8 @@ from dcgan_sr_tpu_torch.ops import bulge
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 from dcgan_sr_tpu_torch.train.step import init_train_state as t_init_state
 
+import torch_threads  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures")
 KW = dict(env_override=False, ngf=4, ndf=8)

@@ -37,6 +37,8 @@ from dcgan_sr_tpu_torch.train.step import (build_train_step, state_from_numpy,
 from test_torch_bf16_step import (check_gradients, check_losses,
                                   check_parameters_and_statistics)
 
+import torch_threads  # noqa: F401
+
 BF = torch.bfloat16
 NGF, NDF, B = 4, 8, 4
 

@@ -21,6 +21,8 @@ from dcgan_sr_tpu_torch.infer.tiled import make_overlap_sr_fn
 from dcgan_sr_tpu_torch.metrics import cal_psnr_batch
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
+import torch_threads  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures")
 

@@ -19,6 +19,8 @@ from dcgan_sr_tpu.ops import pallas_fused as JF
 from dcgan_sr_tpu_torch.ops import fused_nhwc as TF
 from dcgan_sr_tpu_torch.ops.bulge import bulge_plain
 
+import torch_threads  # noqa: F401
+
 # the shapes of tests/test_pallas_fused.py:35-39
 SHAPES = [(2, 5, 4, 6, 16, 8), (1, 16, 8, 16, 32, 16), (3, 3, 2, 3, 8, 8)]
 

@@ -31,6 +31,8 @@ from dcgan_sr_tpu_torch.ops import fused_nhwc_mma as M
 from test_torch_bench_fused import JAX_TOOL_KEYS, _run
 from test_torch_fused_nhwc_mma import _rect
 
+import torch_threads  # noqa: F401
+
 BF = torch.bfloat16
 
 

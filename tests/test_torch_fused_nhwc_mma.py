@@ -26,6 +26,8 @@ from dcgan_sr_tpu_torch.ops import fused_nhwc_mma as M
 
 from test_torch_fused_nhwc import SHAPES, _inputs
 
+import torch_threads  # noqa: F401
+
 STATS_TOL = dict(rtol=1e-5, atol=1e-5)
 Y_TOL = dict(rtol=2e-4, atol=2e-4)
 # (B, Ci, Cm, Co, H, W, tm): the built triples, ragged W, passes clipped at a

@@ -32,6 +32,8 @@ from dcgan_sr_tpu_torch.ops import nn as N
 from test_torch_fused_nhwc_bf16 import _hold_stats, _hold_y
 from test_torch_fused_nhwc_mma import Y_TOL, STATS_TOL, _rect
 
+import torch_threads  # noqa: F401
+
 BF = torch.bfloat16
 DTYPES = [torch.float32, BF]
 DT_IDS = ["fp32", "bf16"]

@@ -11,6 +11,8 @@ import pytest
 from dcgan_sr_tpu.utils.cache import machine_fingerprint as j_fingerprint
 from dcgan_sr_tpu_torch.utils.host import machine_fingerprint
 
+import torch_threads  # noqa: F401
+
 BLOCK = """processor\t: {n}
 vendor_id\t: GenuineIntel
 cpu family\t: 6

@@ -12,6 +12,8 @@ import sys
 
 import pytest
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "dcgan_sr_tpu")
 

@@ -26,6 +26,8 @@ from dcgan_sr_tpu_torch.data import (FolderDataset, IndexedCelebA,
                                      make_dataset)
 from dcgan_sr_tpu_torch.image import io as TIO
 
+import torch_threads  # noqa: F401
+
 
 def _img(rng, h, w):
     """A smooth RGB image (JPEG keeps it close) as uint8 HWC."""

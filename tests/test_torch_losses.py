@@ -16,6 +16,8 @@ from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.losses import schemes as TL
 from dcgan_sr_tpu_torch.metrics import cal_mse_hw, cal_mse_quarter
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=1e-6, atol=1e-7)
 VARIANTS = ["rgb-full", "gray", "gray-2", "gray-3", "gray-patch",
             "gray-patch-batch", "gray-patch-batch-overlap"]

@@ -21,6 +21,8 @@ from dcgan_sr_tpu.utils import measure as JM
 from dcgan_sr_tpu_torch.utils import logging as TL
 from dcgan_sr_tpu_torch.utils import measure as TM
 
+import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("n,nd", [(1, 3), (2, 0), (5, 4), (8, 6), (13, 2)])
 def test_median_spread_equals_jax(n, nd):

@@ -19,6 +19,8 @@ from dcgan_sr_tpu_torch.train.multi_step import build_multi_step
 from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            state_from_numpy, state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 K, B = 3, 4
 KW = dict(env_override=False, ngf=4, ndf=8, batchSize=B)
 

@@ -16,6 +16,8 @@ from dcgan_sr_tpu_torch.data.folder import _resize_chw
 from dcgan_sr_tpu_torch.data.indexed import IndexedCelebA
 from dcgan_sr_tpu_torch.image.io import load_image, save_image
 
+import torch_threads  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def lib():

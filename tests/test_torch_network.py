@@ -28,6 +28,8 @@ from dcgan_sr_tpu_torch.models.network import bulge_pairs
 from dcgan_sr_tpu_torch.train.checkpoint import (load_branch, load_generator,
                                                  npz_branches)
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures", "gray3_textured_net_G.npz")

@@ -15,6 +15,8 @@ from dcgan_sr_tpu.ops import nn as JN
 from dcgan_sr_tpu_torch.ops import init as TI
 from dcgan_sr_tpu_torch.ops import nn as TN
 
+import torch_threads  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

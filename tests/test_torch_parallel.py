@@ -29,6 +29,7 @@ from dcgan_sr_tpu_torch.ops import nn as N
 from dcgan_sr_tpu_torch.parallel import Mesh, device_count, local_batch_slice
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_threads  # noqa: E402,F401
 from torch_dp_worker import BN_SHAPE, bn_inputs, launch  # noqa: E402
 
 

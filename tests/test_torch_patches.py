@@ -10,6 +10,8 @@ import jax.numpy as jnp
 from dcgan_sr_tpu.image import patches as JP
 from dcgan_sr_tpu_torch.image import patches as TP
 
+import torch_threads  # noqa: F401
+
 # square reference geometry, then the rectangles of tests/test_rect_tiling.py
 GEOMS = [(64, 64, 8, 4), (36, 24, 8, 4), (24, 36, 8, 4), (64, 32, 8, 4),
          (32, 64, 8, 4), (30, 18, 12, 6)]

@@ -20,6 +20,8 @@ from dcgan_sr_tpu.ops.pallas_kernels import pallas_preprocess
 from dcgan_sr_tpu_torch.image import ops as TO
 from dcgan_sr_tpu_torch.ops import preprocess as P
 
+import torch_threads  # noqa: F401
+
 CASES = {
     "plain": ((3, 1, 64, 64), False, False, dict(rtol=1e-6, atol=1e-7)),
     "gray_pm1": ((2, 3, 32, 32), True, True, dict(rtol=1e-5, atol=1e-6)),

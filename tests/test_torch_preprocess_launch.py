@@ -9,6 +9,8 @@ import torch
 
 from dcgan_sr_tpu_torch.ops import preprocess as P
 
+import torch_threads  # noqa: F401
+
 
 @pytest.mark.parametrize("b,c,h,w", [(100, 1, 64, 64), (100, 3, 64, 64),
                                      (1280, 1, 8, 8), (3, 1, 50, 38),

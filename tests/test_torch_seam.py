@@ -15,6 +15,8 @@ from dcgan_sr_tpu_torch.infer.seam import seam_stitch as t_host
 from dcgan_sr_tpu_torch.infer.seam_device import (_backtrack, _dp_paths,
                                                   seam_stitch_device as t_device)
 
+import torch_threads  # noqa: F401
+
 
 def _tiles(kind, n, patch, seed):
     rng = np.random.RandomState(seed)

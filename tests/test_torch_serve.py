@@ -28,6 +28,8 @@ from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.serve import SRService, make_http_server
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
+import torch_threads  # noqa: F401
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from tools.serve import SRService as JaxSRService  # noqa: E402
 

@@ -19,6 +19,8 @@ from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            state_from_numpy, state_to_numpy)
 from dcgan_sr_tpu_torch.utils import profiling as prof
 
+import torch_threads  # noqa: F401
+
 STAGES = ("train.preprocess", "train.g_forward", "train.d_real",
           "train.d_fake_forward", "train.d_fake_pullbacks",
           "train.g_backward", "train.adam")

@@ -1,8 +1,7 @@
 """SRGAN's generator (a port-only model, core/config.py MODELS) on the
 port's spec-driven network, against the plain reference
 (dcgan_sr_tpu_torch/reference/srgan.py) on seeded random weights at the
-published widths: two LR images of 12x12, in fp32 and in bf16, one
-intra-op thread.
+published widths: two LR images of 12x12, in fp32 and in bf16.
 
 The running statistics are made by the benchmark's own recipe
 (benchmark/drivers/bulk_srresnet.py calibrate_running): the pooled
@@ -32,6 +31,8 @@ from dcgan_sr_tpu_torch.train.checkpoint import load_generator, \
     save_generator
 from dcgan_sr_tpu_torch.utils import profiling as prof
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF16 = torch.bfloat16
 M = MODELS["srgan-x4"]
@@ -49,14 +50,6 @@ FP32_ATOL = 1e-5
 # and a quarter to a third of the control's best.
 BF16_MEAN_TOL = 0.006
 BF16_MAX_TOL = 0.045
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(seed):
@@ -294,8 +287,7 @@ def test_npz_round_trip(tmp_path):
 
 
 def _cli(*args):
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    return subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
+    return subprocess.run([sys.executable, "-m", *args], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
 
 

@@ -19,6 +19,8 @@ from dcgan_sr_tpu_torch.image import ops as TO
 from dcgan_sr_tpu_torch.metrics import (cal_psnr, cal_psnr_batch, cal_ssim,
                                         cal_ssim_batch)
 
+import torch_threads  # noqa: F401
+
 
 def _pair(shape, seed, noise=0.1):
     rng = np.random.RandomState(seed)

@@ -22,6 +22,8 @@ from dcgan_sr_tpu_torch.train.multi_step import (build_multi_step, counted,
                                                  launches_run)
 from dcgan_sr_tpu_torch.train.step import init_train_state, state_to_numpy
 
+import torch_threads  # noqa: F401
+
 TINY = dict(env_override=False, ngf=4, ndf=8)
 ENV = {"ngf": "4", "ndf": "8", "batchSize": "4"}
 

@@ -29,6 +29,8 @@ from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
 from test_t7_external_golden import _i, _l, _s, build_fixture_bytes
 
+import torch_threads  # noqa: F401
+
 
 def _trees():
     """Trees of every kind the writer takes: scalars, strings, nested and

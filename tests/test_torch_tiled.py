@@ -31,6 +31,8 @@ from dcgan_sr_tpu_torch.infer.seam_device import seam_stitch_device
 from dcgan_sr_tpu_torch.models import Network, generator_spec
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
+import torch_threads  # noqa: F401
+
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures")
 TOL = dict(rtol=1e-5, atol=1e-5)

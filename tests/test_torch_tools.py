@@ -31,6 +31,8 @@ from dcgan_sr_tpu_torch.data.synthetic import TexturedImages
 from dcgan_sr_tpu_torch.evaluation import evaluate_overlap_slice
 from dcgan_sr_tpu_torch.train.checkpoint import load_generator
 
+import torch_threads  # noqa: F401
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from tools import loader_bench as j_loader_bench  # noqa: E402
 

@@ -21,6 +21,8 @@ from dcgan_sr_tpu_torch.train.multi_step import counted
 from tools import feed_ab as j_feed_ab
 from tools import probe_image_io as j_probe
 
+import torch_threads  # noqa: F401
+
 NUMBER = re.compile(r"\d+(\.\d+)?")
 ARGS = ["--cpu", "--config", "gray-3", "--steps", "2", "--scan", "2",
         "--rounds", "2"]

@@ -29,6 +29,8 @@ from dcgan_sr_tpu_torch.core import get_config
 from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
 from dcgan_sr_tpu_torch.train.step import params_of, state_from_numpy
 
+import torch_threads  # noqa: F401
+
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from tools import zssr_photo as j_zssr_photo  # noqa: E402
 

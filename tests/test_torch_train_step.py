@@ -53,6 +53,8 @@ from dcgan_sr_tpu_torch.ops import preprocess as P
 from dcgan_sr_tpu_torch.train.step import (build_train_step, init_train_state,
                                            state_from_numpy, state_to_numpy)
 
+import torch_threads  # noqa: F401
+
 NGF, NDF, B = 4, 8, 8
 FIELDS = ("g_params", "g_state", "g_opt", "d_params", "d_state", "d_opt",
           "g_ema_params")

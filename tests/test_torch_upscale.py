@@ -31,6 +31,8 @@ from dcgan_sr_tpu_torch.image import io as TIO
 from dcgan_sr_tpu_torch.image import ops as TO
 from dcgan_sr_tpu_torch.metrics import cal_psnr, cal_psnr_batch
 
+import torch_threads  # noqa: F401
+
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "fixtures", "gray3_textured_net_G.npz")
 

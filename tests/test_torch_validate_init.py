@@ -46,6 +46,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "fixtures", "gray3_jax_init_key5.npz")
 FIELDS = ("g_params", "g_state", "d_params", "d_state")
@@ -161,19 +163,6 @@ def port_tool(init, steps, batch, k, scored=TOOL_EVAL, **overrides):
 
 
 # ---- tests ------------------------------------------------------------------
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Small CPU steps: one intra-op thread keeps them from spinning against
-    the other test workers' threads."""
-    import torch
-    was = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(was)
-
 
 def _fixture():
     with np.load(FIXTURE) as data:

@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+import torch_threads  # noqa: F401
+
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dcgan_sr_tpu_torch.core import get_config  # noqa: E402
@@ -277,7 +279,6 @@ def launch(job, world, tmp, args="{}", timeout=240):
     their npz files as dicts, rank by rank."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
-    env["OMP_NUM_THREADS"] = "1"
     store = os.path.join(tmp, "store")
     logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
             for r in range(world)]
@@ -308,7 +309,6 @@ def main():
     args = json.loads(sys.argv[6]) if len(sys.argv) > 6 else {}
     rank, world = int(rank), int(world)
     args.update(rank=rank, world=world)
-    torch.set_num_threads(1)
     initialize_distributed(f"file://{store}", world, rank, backend="gloo")
     out = {}
     if job == "parallel":
