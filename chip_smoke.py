@@ -7,7 +7,7 @@ Phases, each fatal on failure:
   1. card name and power limit (nvidia-smi); build of every kernel of every
      path from csrc/ with nvcc (one nvcc per source — bulge.cu,
      bulge_wgmma.cu, preprocess.cu, fused_nhwc.cu, fused_nhwc_wgmma.cu,
-     bn.cu, conv_narrow.cu — started together),
+     bn.cu, conv_narrow.cu, conv3x3.cu — started together),
      timed, with the `-Xptxas -v` resource lines.
   2. kernels: first the fp32 wgmma kernels' layout probe (two k-steps of
      wgmma .tf32 on raw fp32 words: the result must be the product of the
@@ -356,6 +356,16 @@ Phases, each fatal on failure:
      no narrow conv left to cuDNN, and no `implicit_gemm_indexed` kernel
      in its profile; and one bf16 call each of the gray-3 and overlap
      pipelines: no launch (their narrow k4 s2 tails count as plain).
+     The same calls count the 3x3 kernel (phase 31): SRGAN's 35 launches
+     and no 3x3 conv left to cuDNN, none in the 2x pipelines.
+ 31. kernel: the 3x3 conv of 64 channels (ops/conv3x3.py, csrc/conv3x3.cu)
+     at SRGAN's three shapes, x (16,64,256,256) to 64 and to 256 channels
+     and x (16,64,512,512) to 256, bf16, a bias: within one bf16 step of
+     F.conv2d in fp32 (TF32 off) on the same bf16 operands, as phase 30,
+     two runs bit for bit; then timed in turns with cuDNN in bf16 (NCHW
+     with the bias, as the path ran it before the kernel) and the plain
+     version, beside its bound (operations at 989 TFLOP/s, bytes of x read
+     once and y written once at 3.35 TB/s).  The phase prints its seconds.
  20. (printed last) a {"kernels": [...]} line (K1 and its two raw-RGB
      modes, K2 stats, K2 main (the fp32 wgmma kernel the paths run, with
      the mma.sync and FMA kernels' times in turns, their eval launches and
@@ -363,7 +373,8 @@ Phases, each fatal on failure:
      the paths run, with the mma.sync kernel's times in turns), K3 stats,
      K3 main, K3
      stats bf16, K3 main bf16, BN's statistics and apply kernels with the
-     launches of phase 29's SR path calls, the narrow conv with phase 30's),
+     launches of phase 29's SR path calls, the narrow conv and the 3x3 conv
+     with phase 30's),
      then the contract line {"ok":
      true, "device": {...}}.
 
@@ -5498,11 +5509,11 @@ def conv_narrow_phase(smi):
 
 def conv_narrow_paths(smi):
     """One bf16 call of each SR pipeline from the counters set to 0:
-    SRGAN's launches the kernel once and leaves no narrow conv to cuDNN
-    (nor any `implicit_gemm_indexed` kernel in its profile); gray-3's and
-    the overlap pipeline's neither launch it nor count a narrow conv left to
-    cuDNN (their stride-2 tails are shapes it does not fit).  Returns the
-    counts."""
+    SRGAN's launches the narrow kernel once and the 3x3 kernel 35 times and
+    leaves no such conv to cuDNN (nor any `implicit_gemm_indexed` kernel in
+    its profile); gray-3's and the overlap pipeline's launch neither nor
+    count a conv left to cuDNN that either fits (their stride-2 convs are
+    shapes neither takes).  Returns the counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5533,25 +5544,93 @@ def conv_narrow_paths(smi):
             x = torch.rand((4, 64, 64), generator=g, device=dev)
         fn(x)
         torch.cuda.synchronize()
-        counters["conv_narrow"] = counters["conv_narrow_plain"] = 0
+        keys = ("conv_narrow", "conv_narrow_plain", "conv3x3",
+                "conv3x3_plain")
+        for k in keys:
+            counters[k] = 0
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn(x)
             torch.cuda.synchronize()
-        cuts = {k: counters[k] for k in ("conv_narrow", "conv_narrow_plain")}
+        cuts = {k: counters[k] for k in keys}
         indexed = sum(e.count for e in prof.key_averages()
                       if "implicit_gemm_indexed" in e.key)
         out[name] = {**cuts, "implicit_gemm_indexed": indexed}
         if name == "srgan-x4":
-            check(cuts == {"conv_narrow": 1, "conv_narrow_plain": 0}
+            check(cuts == {"conv_narrow": 1, "conv_narrow_plain": 0,
+                           "conv3x3": 35, "conv3x3_plain": 0}
                   and indexed == 0,
-                  f"bf16 SRGAN call: {out[name]}; want one launch, no "
-                  f"narrow conv on cuDNN, no implicit_gemm_indexed")
+                  f"bf16 SRGAN call: {out[name]}; want one narrow launch "
+                  f"and 35 3x3 launches, no such conv on cuDNN, no "
+                  f"implicit_gemm_indexed")
         else:
-            check(cuts == {"conv_narrow": 0, "conv_narrow_plain": 0},
-                  f"bf16 {name} call counted a narrow conv: {out[name]}")
+            check(not any(cuts.values()),
+                  f"bf16 {name} call counted a narrow or 3x3 conv: "
+                  f"{out[name]}")
     print(f"bf16 SR paths and the narrow conv on {smi}: " + json.dumps(out),
           flush=True)
     return out
+
+
+# phase 31: the 3x3 conv at SRGAN's three shapes against cuDNN and its
+# plain version
+CONV3X3_SHAPES = [((16, 64, 256, 256), 64), ((16, 64, 256, 256), 256),
+                  ((16, 64, 512, 512), 256)]
+
+
+def conv3x3_phase(smi):
+    """ops/conv3x3.py's kernel at SRGAN's three shapes: held to the fp32
+    reference, then timed in turns (module docstring, phase 31).  Returns
+    its rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcgan_sr_tpu_torch.ops import conv3x3 as C3
+    from dcgan_sr_tpu_torch.ops import nn as N
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for shape, cout in CONV3X3_SHAPES:
+        n, c, h, w = shape
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        wt = torch.randn((cout, c, 3, 3), generator=g, device=dev) \
+            / (c * 9) ** 0.5
+        b = 0.5 * torch.randn(cout, generator=g, device=dev)
+        wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+        y = C3.conv(x, wt, b)
+        with N.fp32_convs():
+            ref = F.conv2d(x.float(), wb.float(), None, padding=1) \
+                + bb.float()[None, :, None, None]
+        floor = ref.square().mean().sqrt() / 64
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            ref.abs(), floor))) - 7)
+        steps = float(((y.float() - ref).abs() / step).max())
+        check(steps <= 1, f"3x3 conv at {shape} -> {cout}: {steps:.3f} "
+              f"bf16 steps from the fp32 reference")
+        check(torch.equal(y, C3.conv(x, wt, b)), "3x3 conv: two runs differ")
+        del ref, step, y
+        torch.cuda.empty_cache()
+        mean_ms, best_ms = in_turns({
+            "kernel": lambda: C3.conv(x, wt, b),
+            "library": lambda: F.conv2d(x, wb, bb, padding=1),
+            "plain": lambda: C3.plain(x, wt, b)}, 5)
+        flops = 2 * n * h * w * cout * c * 9
+        b_ms, by = bound(flops, 2 * x.numel() + 2 * n * cout * h * w,
+                         PEAK_BF16)
+        row = {"shape": list(shape), "cout": cout, "ms": mean_ms["kernel"],
+               "best_ms": best_ms["kernel"], "bound_ms": b_ms,
+               "bound_by": by,
+               "share_of_bound": round(b_ms / mean_ms["kernel"], 4),
+               "tflops": round(flops / mean_ms["kernel"] / 1e9, 1),
+               "max_steps": round(steps, 4), "library_ms": mean_ms["library"],
+               "plain_ms": mean_ms["plain"]}
+        print(f"3x3 conv on {smi}: " + json.dumps(row), flush=True)
+        rows.append(row)
+        del x
+        torch.cuda.empty_cache()
+    print(f"phase 31 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
 
 def main():
@@ -5566,6 +5645,7 @@ def main():
     from dcgan_sr_tpu_torch.models import Network, generator_spec, init_network
     from dcgan_sr_tpu_torch.ops import bn as BN
     from dcgan_sr_tpu_torch.ops import bulge as K
+    from dcgan_sr_tpu_torch.ops import conv3x3 as C3
     from dcgan_sr_tpu_torch.ops import conv_narrow as CN
     from dcgan_sr_tpu_torch.ops import fused_nhwc as F3
     from dcgan_sr_tpu_torch.ops import preprocess as P
@@ -5605,7 +5685,8 @@ def main():
                ("fused_nhwc_wgmma", F3.build_wgmma,
                 lambda: F3.wgmma_build_log),
                ("bn", BN.build, lambda: BN.build_log),
-               ("conv_narrow", CN.build, lambda: CN.build_log))
+               ("conv_narrow", CN.build, lambda: CN.build_log),
+               ("conv3x3", C3.build, lambda: C3.build_log))
     threads = [threading.Thread(target=build, args=(fn, name))
                for name, fn, _ in sources]
     for th in threads:
@@ -5901,6 +5982,10 @@ def main():
     conv_paths = conv_narrow_paths(smi)
 
     stamp()
+    # phase 31: the 3x3 conv at SRGAN's three shapes
+    conv3x3_rows = conv3x3_phase(smi)
+
+    stamp()
     # phase 20
     eval_row = dict(rows)[EVAL_SHAPE]
     shape, r = rows[-1]
@@ -6089,6 +6174,19 @@ def main():
         **{k: conv_row[k] for k in ("shape", "ms", "bound_ms", "bound_by",
                                     "plain_ms", "library_ms",
                                     "library_channels_last_ms")}})
+    # the 3x3 conv: no TPU kernel either; phase 30's calls count its
+    # launches, phase 31 times it
+    kernels.append({
+        "name": "conv3x3_bf16", "route": "cuda",
+        "source": "dcgan_sr_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "none (cuDNN's implicit GEMM for SRGAN's 3x3 convs)",
+        "launches": conv_paths["srgan-x4"]["conv3x3"], "dtype": "bf16",
+        "plain_cuda_calls": {k: v["conv3x3_plain"]
+                             for k, v in conv_paths.items()},
+        "at_shapes": [{k: r[k] for k in ("shape", "cout", "ms", "bound_ms",
+                                         "bound_by", "plain_ms",
+                                         "library_ms")}
+                      for r in conv3x3_rows]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,8 +33,9 @@ whatever oneDNN's own bf16 kernels would round.  BN of a bf16 tensor takes
 fp32 statistics and applies one per-channel affine x * a + b in bf16, each
 step rounded as XLA rounds it.  On the card, where no gradient is carried,
 that BN and the activation after it run as ops/bn.py's two-pass kernels
-(`batch_norm`, its rule `bn.takes`), and a narrow "same" convolution runs
-ops/conv_narrow.py's kernel (`conv2d`, its rule `conv_narrow.takes`).
+(`batch_norm`, its rule `bn.takes`), a narrow "same" convolution runs
+ops/conv_narrow.py's kernel (`conv2d`, its rule `conv_narrow.takes`) and
+a 3x3 one of 64 channels ops/conv3x3.py's (its rule `conv3x3.takes`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch.nn.functional as F
 
 from ..utils.profiling import counters, span
 from . import bn as BN
+from . import conv3x3 as C3
 from . import conv_narrow as CN
 
 
@@ -138,17 +140,27 @@ def conv2d(x, w, stride=1, padding=0, *, compute_dtype=None, bias=None):
 
     A narrow bf16 CUDA call with no gradient to carry (`conv_narrow.takes`:
     stride 1, "same" padding, Cout <= 8, Cin a multiple of 16; SRGAN's tail)
-    runs ops/conv_narrow.py's kernel, the bias added in fp32 before the one
-    rounding; every other call runs cuDNN (a bf16 CUDA call of a shape the
-    kernel fits, sent there for a gradient, counts in
-    `counters["conv_narrow_plain"]`)."""
+    runs ops/conv_narrow.py's kernel, and a 3x3 one of 64 input channels
+    (`conv3x3.takes`: stride 1, padding 1, Cout 64 or 256; SRGAN's LR and
+    upsampling convs) ops/conv3x3.py's, each with the bias added in fp32
+    before the one rounding; every other call runs cuDNN (a bf16 CUDA call
+    of a shape a kernel fits, sent there for a gradient, counts in
+    `counters["conv_narrow_plain"]` or `counters["conv3x3_plain"]`).  The
+    shape is read first, in integers, so a call no kernel fits pays for
+    nothing else."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    if (w.shape[0] <= CN.MAX_COUT and x.is_cuda and x.dtype == torch.bfloat16
+    cout = w.shape[0]
+    if (cout <= CN.MAX_COUT and x.is_cuda and x.dtype == torch.bfloat16
             and CN.fits(tuple(w.shape), stride, padding)):
         if CN.takes(x, w, stride, padding, bias):
             return CN.conv(x, w, bias)
         counters["conv_narrow_plain"] += 1
+    elif (cout in C3.COUTS and C3.fits(tuple(w.shape), stride, padding)
+          and x.is_cuda and x.dtype == torch.bfloat16):
+        if C3.takes(x, w, stride, padding, bias):
+            return C3.conv(x, w, bias)
+        counters["conv3x3_plain"] += 1
     if bias is None:
         return _Conv.apply(x, w, stride, padding, False)
     return _Conv.apply(x, w, stride, padding, False, bias)

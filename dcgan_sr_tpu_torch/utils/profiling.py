@@ -32,7 +32,8 @@ spans are `residual` (around each sum), `shuffle` (around each PixelShuffle)
 and `act` (around each PReLU).  It also counts the narrow convolutions
 (ops/conv_narrow.py, inside the layer's `conv` span): the kernel's launches
 ("conv_narrow") and the bf16 CUDA calls of a shape it fits that its rule sent
-to cuDNN for a gradient ("conv_narrow_plain").
+to cuDNN for a gradient ("conv_narrow_plain"), and the same of the 3x3
+convolutions of 64 channels (ops/conv3x3.py: "conv3x3", "conv3x3_plain").
 
 A CUDA graph runs no host code when it is replayed, so the train step's
 stages (`stage(name)`) also mark their boundaries inside
@@ -60,7 +61,7 @@ _profiler_enabled = torch.autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
 
 counters = {"residual": 0, "shuffle": 0, "prelu": 0, "conv_narrow": 0,
-            "conv_narrow_plain": 0}
+            "conv_narrow_plain": 0, "conv3x3": 0, "conv3x3_plain": 0}
 
 
 @contextlib.contextmanager

@@ -245,9 +245,11 @@ def test_counters_and_spans():
     before = dict(prof.counters)
     run(x)
     ran = {k: prof.counters[k] - before[k] for k in before}
-    # on the CPU the narrow conv's counters stay still (its rule reads CUDA)
+    # on the CPU the conv kernels' counters stay still (their rules read
+    # CUDA)
     assert ran == {"residual": 17, "shuffle": 2, "prelu": 19,
-                   "conv_narrow": 0, "conv_narrow_plain": 0}
+                   "conv_narrow": 0, "conv_narrow_plain": 0,
+                   "conv3x3": 0, "conv3x3_plain": 0}
     from torch.profiler import ProfilerActivity, profile
     prof.reset_spans()
     with profile(activities=[ProfilerActivity.CPU]):
